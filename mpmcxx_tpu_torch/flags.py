@@ -1,0 +1,165 @@
+"""Static force-field / solver configuration.
+
+JAX twin: mpmcxx_tpu/flags.py (a copy; only ``require_supported`` at
+the end is new, since the port so far runs the CO2 flagship's branches
+only).
+
+A frozen, hashable dataclass passed as a static argument to jitted energy
+functions.  Mirrors the option flags scattered through src/System.h:505-832;
+anything that changes the *structure* of the computation lives here, anything
+numeric-but-traced (temperature, pressure, ...) lives in RunParams.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from . import constants as const
+
+
+@dataclasses.dataclass(frozen=True)
+class FFlags:
+    # repulsion/dispersion selection (src/System.Energy.cpp:112-126)
+    rd_only: bool = False
+    rd_anharmonic: bool = False
+    use_sg: bool = False
+    use_dreiding: bool = False
+    using_lj_buffered_14_7: bool = False
+    using_disp_expansion: bool = False
+    cdvdw_exp_repulsion: bool = False
+    using_axilrod_teller: bool = False
+    gwp: bool = False
+    spectre: bool = False
+
+    # LJ options
+    rd_lrc: bool = True
+    rd_crystal: bool = False
+    rd_crystal_order: int = 0
+    feynman_hibbs: bool = False
+    feynman_hibbs_order: int = 0
+    feynman_kleinert: bool = False
+
+    # anharmonic
+    rd_anharmonic_k: float = 0.0
+    rd_anharmonic_g: float = 0.0
+
+    # mixing rules (src/System.cpp:1070-1177)
+    waldmanhagler: bool = False
+    halgren_mixing: bool = False
+    cdvdw_9th_repulsion: bool = False
+    cdvdw_sig_repulsion: bool = False
+    c6_mixing: bool = False
+    disp_expansion_mbvdw: bool = False
+    extrapolate_disp_coeffs: bool = False
+    schmidt_ff: bool = False
+    damp_dispersion: bool = False
+    midzuno_kihara_approx: bool = False
+
+    # electrostatics
+    wolf: bool = False
+    ewald_kmax: int = const.EWALD_KMAX_DEFAULT
+
+    # polarization
+    polarization: bool = False
+    polarvdw: bool = False
+    vdw_fh_2be: bool = False
+    polar_iterative: bool = False
+    polar_ewald: bool = False
+    polar_ewald_full: bool = False
+    polar_zodid: bool = False
+    polar_palmo: bool = False
+    polar_rrms: bool = False
+    polar_gs: bool = False
+    polar_gs_ranked: bool = False
+    polar_sor: bool = False
+    polar_esor: bool = False
+    polar_max_iter: int = 0
+    polar_wolf: bool = False
+    polar_wolf_full: bool = False
+    # TPU mixed precision for the blocked SCF: pair coefficients are
+    # precomputed once in float32 (native VPU/MXU) and every iteration is
+    # pure einsums; dipoles/energies stay float64.  Off by default — the
+    # float64 golden-energy contract is exact only with this off.
+    polar_mixed: bool = False
+    # warm-start the SCF from the dipoles carried on the state (only
+    # honored with precision-based termination; reference cold-starts)
+    polar_warm_start: bool = False
+    # force the mixed-SCF plane representation (ops.polar.plane_mode):
+    # 0 = auto; 4 = folded (cd, sx, sy, sz) even under exponential
+    # damping, where auto picks the 3-plane in-kernel-recompute form.
+    # The two trade HBM bytes (4 planes) against VPU flops (3 planes);
+    # which wins is a per-chip measurement (docs/PERF.md), hence a knob.
+    # Identical math either way: fold_outer_rows folds sqrt(-co) exactly
+    # and the golden contract is gated on both.
+    polar_plane_mode: int = 0
+    damp_type: int = const.DAMPING_EXPONENTIAL
+
+    # cavity
+    cavity_autoreject: bool = False
+    cavity_autoreject_absolute: bool = False
+
+    # misc
+    independent_particle: bool = False
+    quantum_rotation: bool = False
+
+    def replace(self, **kw) -> "FFlags":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class RunParams:
+    """Traced numeric parameters for the energy/MC step (still hashable
+    defaults; values are floats that become traced scalars under jit)."""
+
+    temperature: float = 0.0
+    pressure: float = 0.0
+    ewald_alpha: float = const.EWALD_ALPHA_DEFAULT
+    polar_ewald_alpha: float = const.EWALD_ALPHA_DEFAULT
+    polar_damp: float = 0.0
+    polar_gamma: float = 1.0
+    polar_precision: float = 0.0
+    polar_wolf_alpha: float = 0.0
+    cavity_autoreject_scale: float = 0.0
+    cavity_autoreject_repulsion: float = 0.0
+    scale_charge: float = 1.0
+    total_energy: float = 0.0  # for NVE
+
+    def replace(self, **kw) -> "RunParams":
+        return dataclasses.replace(self, **kw)
+
+
+# FFlags fields the port may take at a value other than the default, and
+# the values it takes there: the CO2 flagship's force field
+# (tools/flagship.py build_state_co2) is LJ (Lorentz-Berthelot) + Ewald
+# + exponential-damped Thole SCF on float32 planes with a fixed Jacobi
+# iteration count.
+_PORTED = {
+    "polarization": (True,),
+    "polar_iterative": (True,),
+    "polar_ewald": (True,),
+    "polar_mixed": (True,),
+    "damp_type": (const.DAMPING_EXPONENTIAL,),
+    "polar_sor": (False, True),
+    "polar_esor": (False, True),
+}
+
+
+def require_supported(flags: FFlags, params: RunParams) -> None:
+    """Raise NotImplementedError naming the first flag whose branch the
+    port does not have yet; never run a different branch silently."""
+    default = FFlags()
+    for f in dataclasses.fields(FFlags):
+        v = getattr(flags, f.name)
+        if f.name in _PORTED:
+            ok = v in _PORTED[f.name]
+        elif f.name == "polar_max_iter":
+            ok = 1 <= v <= 16          # fixed-K Jacobi (polar.py:412-426)
+        elif f.name in ("ewald_kmax", "rd_lrc"):
+            ok = True
+        else:
+            ok = v == getattr(default, f.name)
+        if not ok:
+            raise NotImplementedError(f"FFlags.{f.name}={v!r}")
+    if params.polar_precision != 0.0:
+        raise NotImplementedError(
+            f"RunParams.polar_precision={params.polar_precision!r}")

@@ -1,0 +1,402 @@
+"""The Metropolis Markov chain: uVT moves on the incremental polar path.
+
+JAX twin: mpmcxx_tpu/mc/chain.py.  Ported: the uVT ensemble with
+incremental Delta-E, the incremental polarization cache and blocked full
+recomputes (``make_step_fn``'s uVT + polar_incremental branch,
+chain.py:351-511, 582-693), ``init_carry``, ``make_refresher``,
+``accumulate_stats`` and ``make_chunk_runner``.  Any other option raises
+NotImplementedError naming it.
+
+The twin's chunk is a jitted ``lax.scan``; here it is a host loop over
+``step``.  The loop never waits on the device: the random draws of the
+whole chunk are derived from the carried key on the host up front
+(``chunk_draws``, key for key as the twin's ``jax.random`` calls), every
+data-dependent choice is a device-side select, and the polarization
+cache is committed in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from .. import constants as const
+from .. import random as rnd
+from ..flags import FFlags, RunParams, require_supported
+from ..ops import delta as delta_mod
+from ..ops import polar_cache as pcache_mod
+from ..ops.energy import EnergyBreakdown, energy_breakdown_blocked
+from ..state import Observables, SystemState
+from . import metropolis, moves
+
+
+@dataclasses.dataclass(frozen=True)
+class MCOptions:
+    """Static MC controls (the twin's fields; see require_options for the
+    values the port takes)."""
+    ensemble: int = const.ENSEMBLE_NVT
+    move_factor: float = 1.0
+    rot_factor: float = 1.0
+    insert_probability: float = 0.0
+    spinflip_probability: float = 0.0
+    adiabatic_probability: float = 0.0
+    volume_probability: float = 0.0
+    volume_change_factor: float = 0.25
+    fugacity: float = 0.0          # atm
+    sorbate_count: int = 1
+    insert_species: tuple = ()
+    type_fugacities: tuple = ()
+    quantum_rotation: bool = False
+    simulated_annealing: bool = False
+    simulated_annealing_linear: bool = False
+    simulated_annealing_schedule: float = 0.0
+    simulated_annealing_target: float = 0.0
+    numsteps: int = 0
+    cavity_bias: bool = False
+    cavity_grid_size: int = 0
+    cavity_radius: float = 0.0
+    cavity_darts: int = 0
+    spectre: bool = False
+    spectre_max_charge: float = 0.0
+    spectre_max_target: float = 0.0
+    rd_anharmonic: bool = False
+    gwp: bool = False
+    gwp_probability: float = 0.0
+    incremental: bool = False
+    max_mol_atoms: int = 1
+    polar_incremental: bool = False
+    blocked_energy: bool = False
+
+
+# MCOptions fields that select a branch, and the values the port has
+_PORTED_OPTS = {
+    "ensemble": (const.ENSEMBLE_UVT,),
+    "incremental": (True,),
+    "polar_incremental": (True,),
+    "blocked_energy": (True,),
+    "quantum_rotation": (False,),
+    "simulated_annealing": (False,),
+    "cavity_bias": (False,),
+    "spectre": (False,),
+    "rd_anharmonic": (False,),
+    "gwp": (False,),
+    "insert_species": ((),),
+    "type_fugacities": ((),),
+}
+
+
+def require_options(flags: FFlags, params: RunParams,
+                    opts: MCOptions) -> None:
+    """Raise NotImplementedError naming the first option the port has no
+    branch for."""
+    require_supported(flags, params)
+    for name, ok in _PORTED_OPTS.items():
+        v = getattr(opts, name)
+        if v not in ok:
+            raise NotImplementedError(f"MCOptions.{name}={v!r}")
+
+
+class NodeStats(NamedTuple):
+    accept: torch.Tensor            # [7] int64 per-movetype accept counts
+    reject: torch.Tensor            # [7]
+    boltzmann_factor: torch.Tensor  # last BF
+
+
+@dataclasses.dataclass
+class MCCarry:
+    state: SystemState
+    obs: Observables
+    temperature: torch.Tensor      # 0-d f64
+    key: torch.Tensor              # [2] int64 random key, on the host
+    step: torch.Tensor             # 0-d int64
+    stats: NodeStats
+    cavity: torch.Tensor           # [4] cavity-bias averages (unused: 0)
+    sf: delta_mod.SFCache          # Ewald structure-factor cache
+    recip_e: torch.Tensor          # current state's k-space energy
+    pcache: pcache_mod.PolarCache  # incremental polarization cache
+
+
+class StepOut(NamedTuple):
+    boltzmann_factor: torch.Tensor
+    accepted: torch.Tensor
+    movetype: torch.Tensor
+    polarization_iterations: torch.Tensor
+    capacity_reject: torch.Tensor
+
+
+def observables_from_breakdown(state: SystemState, eb: EnergyBreakdown,
+                               flags: FFlags, params: RunParams,
+                               ensemble: int) -> Observables:
+    """The observables updates inside System::energy()
+    (src/System.Energy.cpp:150-163)."""
+    N = state.count_N().to(torch.float64)
+    spin = state.spin_ratio_sum() / torch.where(N == 0, 1.0, N)
+    mol_mass = torch.where(state.mol_alive, state.mol_mass, 0.0)
+    fixed = state.mol_frozen | state.mol_adiabatic
+    z = torch.zeros_like(eb.total)
+    return Observables(
+        energy=eb.total, coulombic_energy=eb.coulombic, rd_energy=eb.rd,
+        polarization_energy=eb.polarization, vdw_energy=eb.vdw,
+        three_body_energy=eb.three_body, dipole_rrms=eb.dipole_rrms,
+        kinetic_energy=eb.kinetic, temperature=z, volume=state.pbc.volume,
+        N=N, NU=N * eb.total, spin_ratio=spin,
+        frozen_mass=torch.sum(torch.where(fixed, mol_mass, 0.0)),
+        total_mass=torch.sum(mol_mass))
+
+
+def _pick_movetype(opts: MCOptions, r, N_movable, n_adiabatic):
+    """uVT move selection (do_checkpoint, src/System.MonteCarlo.cpp:
+    318-454) from the four uniforms ``r``."""
+    disp = torch.where((n_adiabatic > 0) & (r[3] < 0.5),
+                       const.MOVETYPE_ADIABATIC, const.MOVETYPE_DISPLACE)
+    mv = torch.where(r[0] < opts.insert_probability,
+                     torch.where(r[1] < 0.5, const.MOVETYPE_INSERT,
+                                 const.MOVETYPE_REMOVE), disp)
+    # never remove the last molecule (src/System.MonteCarlo.cpp:449-454)
+    return torch.where((mv == const.MOVETYPE_REMOVE) & (N_movable <= 1),
+                       const.MOVETYPE_DISPLACE, mv)
+
+
+# columns of one step's draws (see chunk_draws)
+_U_TARGET, _R_MOVE, _DICE, _AXIS, _U_ANGLE, _U_ACC = 0, 1, 5, 11, 14, 15
+
+
+def chunk_draws(key: torch.Tensor, n: int):
+    """The draws of ``n`` consecutive steps from the chain key, as the
+    twin's step derives them (chain.py:352-353, moves.py:49, 67-73,
+    93-108, 177): returns (the key after the chunk, [n, 16] f64 on the
+    host).  Per step: split(key, 6) -> (next key, k_move, k_target,
+    k_apply, k_acc, k_cav); the target uniform; four move-type uniforms
+    from split(k_move, 4); from split(split(k_apply, 1)[0], 3) the move's
+    six translation uniforms (an insertion reads the first three as its
+    position: partitionable threefry makes uniform(k, (3,)) the head of
+    uniform(k, (6,))), three normal axis components and the angle
+    uniform; and the acceptance uniform."""
+    subs = []
+    for _ in range(n):
+        sub = rnd.split(key, 6)
+        key = sub[0]
+        subs.append(sub)
+    ks = torch.stack(subs)                              # [n, 6, 2]
+    k_move, k_target, k_apply, k_acc = ks[:, 1], ks[:, 2], ks[:, 3], ks[:, 4]
+    k1 = rnd.split(rnd.split(k_apply, 1)[:, 0], 3)      # [n, 3, 2]
+    draws = torch.cat([
+        rnd.uniform(k_target)[:, None],
+        rnd.uniform(rnd.split(k_move, 4)),
+        rnd.uniform(k1[:, 0], (6,)),
+        rnd.normal(k1[:, 1], (3,)),
+        rnd.uniform(k1[:, 2])[:, None],
+        rnd.uniform(k_acc)[:, None],
+    ], dim=1)
+    return key, draws
+
+
+def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
+                 topology=None):
+    """Build ``step(carry, draws) -> (carry, StepOut)`` for one uVT move
+    on the incremental polar path; ``draws`` is one row of chunk_draws on
+    the state's device.  ``topology`` is the (mol_start[M], mol_natoms[M])
+    host pair of state.topology."""
+    require_options(flags, base_params, opts)
+    if topology is None:
+        raise NotImplementedError("topology=None (masked, non-window moves)")
+    params = base_params
+    S = opts.max_mol_atoms
+    topo = {}
+
+    def rows_of(mol):
+        dev = mol.device
+        if dev not in topo:
+            topo[dev] = tuple(torch.as_tensor(t, dtype=torch.int64,
+                                              device=dev) for t in topology)
+        mol_start, mol_natoms = topo[dev]
+        off = torch.arange(S, dtype=torch.int64, device=dev)
+        one = mol.reshape(1)
+        rows = mol_start.index_select(0, one) + off
+        return torch.where(off < mol_natoms.index_select(0, one), rows, -1)
+
+    def step(carry: MCCarry, d):
+        state = carry.state
+        T = carry.temperature
+        target, N_movable = moves.pick_random_movable(state, d[_U_TARGET])
+        n_adiabatic = torch.sum(state.mol_alive & state.mol_adiabatic)
+        movetype = _pick_movetype(opts, d[_R_MOVE:_R_MOVE + 4], N_movable,
+                                  n_adiabatic)
+        is_ins = movetype == const.MOVETYPE_INSERT
+        is_rem = movetype == const.MOVETYPE_REMOVE
+        insert_slot = moves.find_dead_slot(
+            state, state.mol_type.index_select(0, target.reshape(1))[0])
+
+        # every branch of the twin's lax.switch, selected on the device
+        tmpl_rows = rows_of(target)
+        disp = moves.displace_rows(state, d[_DICE:_DICE + 6],
+                                   d[_AXIS:_AXIS + 3], d[_U_ANGLE],
+                                   tmpl_rows, tmpl_rows >= 0,
+                                   opts.move_factor, opts.rot_factor)
+        slot_rows = rows_of(torch.clamp(insert_slot, min=0))
+        ins, ins_valid = moves.insert_rows(
+            state, d[_DICE:_DICE + 3], d[_AXIS:_AXIS + 3], d[_U_ANGLE],
+            tmpl_rows, slot_rows, tmpl_rows >= 0, insert_slot,
+            insert_slot >= 0)
+        rem = moves.remove(state, target)
+        new_state = state.replace(
+            pos=torch.where(is_ins, ins.pos,
+                            torch.where(is_rem, state.pos, disp.pos)),
+            mol_alive=torch.where(is_ins, ins.mol_alive,
+                                  torch.where(is_rem, rem.mol_alive,
+                                              state.mol_alive)),
+            aalive=torch.where(is_ins, ins.aalive,
+                               torch.where(is_rem, rem.aalive,
+                                           state.aalive)),
+            nuclear_spin=torch.where(is_ins, ins.nuclear_spin,
+                                     state.nuclear_spin))
+        valid = torch.where(is_ins, ins_valid, True)
+
+        # rect Delta-E + incremental polarization cache
+        rows = torch.where(is_ins, slot_rows, tmpl_rows)
+        dres = delta_mod.delta_energy(state, new_state, rows, carry.sf,
+                                      flags, params, recip_old=carry.recip_e)
+        rd = carry.obs.rd_energy + dres.d_rd
+        coul = carry.obs.coulombic_energy + dres.d_coul
+        # matrix-free proposal: the cached planes stay read-only here; the
+        # commit below writes them in place after the decision
+        pres, pcommit = pcache_mod.polar_proposal(
+            carry.pcache, state, new_state, rows, flags, params,
+            with_commit=True)
+        z = torch.zeros_like(rd)
+        eb = EnergyBreakdown(
+            total=rd + coul + pres.energy, rd=rd, coulombic=coul,
+            polarization=pres.energy, vdw=z, three_body=z, kinetic=z,
+            mu=pres.mu, polarization_iterations=pres.iterations,
+            iterator_failed=pres.iterator_failed,
+            dipole_rrms=pres.dipole_rrms, cavity_penalty=z)
+        new_state = new_state.replace(mu=pres.mu)
+
+        final_energy = eb.total + eb.cavity_penalty
+        obs_after = observables_from_breakdown(new_state, eb, flags, params,
+                                               opts.ensemble)
+        delta = final_energy - carry.obs.energy
+        t1 = target.reshape(1)
+        pr = metropolis.spin_partfunc_ratio(
+            new_state.nuclear_spin.index_select(0, t1)[0],
+            state.rot_partfunc_g.index_select(0, t1)[0],
+            state.rot_partfunc_u.index_select(0, t1)[0])
+        bf = metropolis.uvt_factor(
+            movetype, delta, T, state.pbc.volume, opts.fugacity, obs_after.N,
+            float(opts.sorbate_count), torch.zeros_like(valid),
+            carry.cavity[1], 0.0, pr)
+        bf = torch.where(torch.isfinite(final_energy) & valid, bf, 0.0)
+        accept = (d[_U_ACC] < bf) & ~eb.iterator_failed
+
+        def sel(a, b):
+            return torch.where(accept, a, b)
+
+        state_out = state.replace(
+            pos=sel(new_state.pos, state.pos),
+            mol_alive=sel(new_state.mol_alive, state.mol_alive),
+            aalive=sel(new_state.aalive, state.aalive),
+            nuclear_spin=sel(new_state.nuclear_spin, state.nuclear_spin),
+            mu=sel(new_state.mu, state.mu))
+        obs_out = Observables(**{
+            f.name: sel(getattr(obs_after, f.name), getattr(carry.obs, f.name))
+            for f in dataclasses.fields(Observables)})
+        sf_out = delta_mod.SFCache(sel(dres.sf_new.re, carry.sf.re),
+                                   sel(dres.sf_new.im, carry.sf.im))
+        # geometry-free commit from the proposal's own tables: on reject
+        # every write re-writes current content
+        pcache = pcache_mod.cache_commit(carry.pcache, accept, pcommit, flags)
+        out = StepOut(boltzmann_factor=bf, accepted=accept,
+                      movetype=movetype,
+                      polarization_iterations=eb.polarization_iterations,
+                      capacity_reject=is_ins & (insert_slot < 0))
+        return dataclasses.replace(
+            carry, state=state_out, obs=obs_out, step=carry.step + 1,
+            sf=sf_out, recip_e=sel(dres.recip_new, carry.recip_e),
+            pcache=pcache), out
+
+    return step
+
+
+def accumulate_stats(stats: NodeStats, outs: StepOut) -> NodeStats:
+    """Fold a chunk's StepOut columns into NodeStats."""
+    hist = torch.nn.functional.one_hot(outs.movetype, 7)
+    acc = torch.sum(hist * outs.accepted[:, None].to(torch.int64), dim=0)
+    return NodeStats(accept=stats.accept + acc,
+                     reject=stats.reject + (torch.sum(hist, dim=0) - acc),
+                     boltzmann_factor=outs.boltzmann_factor[-1])
+
+
+def make_chunk_runner(flags: FFlags, params: RunParams, opts: MCOptions,
+                      chunk_steps: int, topology=None):
+    """``run_chunk(carry) -> (carry, StepOut of [chunk_steps] tensors)``:
+    a host loop over ``chunk_steps`` steps.  The carry's polarization
+    planes are updated in place; the carry passed in must not be reused."""
+    step = make_step_fn(flags, params, opts, topology=topology)
+
+    def run_chunk(carry: MCCarry):
+        dev = carry.state.pos.device
+        key, draws = chunk_draws(carry.key, chunk_steps)
+        draws = draws.to(dev)
+        outs = []
+        for i in range(chunk_steps):
+            carry, out = step(carry, draws[i])
+            outs.append(out)
+        outs = StepOut(*(torch.stack(col) for col in zip(*outs)))
+        carry = dataclasses.replace(
+            carry, key=key, stats=accumulate_stats(carry.stats, outs))
+        return carry, outs
+
+    return run_chunk
+
+
+def init_carry(state: SystemState, flags: FFlags, params: RunParams,
+               opts: MCOptions, seed: int) -> MCCarry:
+    """Initial energy + carry (mc_initial_energy,
+    src/System.MonteCarlo.cpp:158-173)."""
+    require_options(flags, params, opts)
+    if bool(torch.any(state.mol_adiabatic)):
+        raise NotImplementedError("adiabatic molecules")
+    if not pcache_mod.supports(flags, state.n_atom_slots):
+        raise ValueError(f"the polarization cache does not take "
+                         f"{state.n_atom_slots} atom slots")
+    dev = state.pos.device
+    eb = energy_breakdown_blocked(state, flags, params)
+    obs = observables_from_breakdown(state, eb, flags, params, opts.ensemble)
+    obs = dataclasses.replace(obs, energy=torch.where(
+        torch.isfinite(obs.energy), obs.energy, const.MAXVALUE))
+    zeros7 = torch.zeros(7, dtype=torch.int64, device=dev)
+    z = torch.zeros((), dtype=torch.float64, device=dev)
+    sf = delta_mod.sf_compute(state, flags, params)
+    return MCCarry(
+        state=state, obs=obs,
+        temperature=torch.tensor(params.temperature, dtype=torch.float64,
+                                 device=dev),
+        key=rnd.PRNGKey(seed),
+        step=torch.zeros((), dtype=torch.int64, device=dev),
+        stats=NodeStats(zeros7, zeros7, z),
+        cavity=torch.zeros(4, dtype=torch.float64, device=dev),
+        sf=sf, recip_e=delta_mod.recip_energy(sf, state, flags, params),
+        pcache=pcache_mod.cache_init(state, flags, params))
+
+
+def make_refresher(flags: FFlags, base_params: RunParams, opts: MCOptions):
+    """Full recompute of observables, the structure-factor cache and the
+    polarization cache: the drift control of flag_all_pairs
+    (src/System.cpp:1284-1297), run every corrtime."""
+    require_options(flags, base_params, opts)
+    params = base_params
+
+    def refresh(carry: MCCarry) -> MCCarry:
+        state = carry.state
+        eb = energy_breakdown_blocked(state, flags, params)
+        sf = delta_mod.sf_compute(state, flags, params)
+        return dataclasses.replace(
+            carry,
+            obs=observables_from_breakdown(state, eb, flags, params,
+                                           opts.ensemble),
+            sf=sf, recip_e=delta_mod.recip_energy(sf, state, flags, params),
+            pcache=pcache_mod.cache_init(state, flags, params))
+
+    return refresh

@@ -1,0 +1,239 @@
+"""Pair geometry, exclusion masks and LJ mixing on row windows.
+
+JAX twin: mpmcxx_tpu/ops/pairwise.py.  Pair quantities are [R,A] tensors
+of R contiguous row atoms against all A atoms: the [S,A] slice of one
+molecule for incremental Delta-E (ops/delta.py) and [B,A] row blocks of
+the dense triangle for full energies.  ``pair_once`` marks each physical
+pair exactly once in either layout.
+
+Row windows start at a device index, so every row read is an
+``index_select`` and every write an ``index_copy`` with a device index
+tensor: nothing here waits on the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..flags import FFlags
+from ..pbc import _mul3, minimum_image_disp
+from ..state import SystemState
+
+
+@dataclasses.dataclass
+class PairTensors:
+    """Pair quantities; leading dim is the R row atoms."""
+
+    dimg: torch.Tensor         # [R,A,3] minimum-image displacement r_i - r_j
+    rimg: torch.Tensor         # [R,A] minimum-image distance
+    r: torch.Tensor            # [R,A] real (unwrapped) distance
+    pair_once: torch.Tensor    # [R,A] bool: count this pair here (and alive)
+    alive: torch.Tensor        # [R,A] bool both atoms' molecules alive
+    same_mol: torch.Tensor     # [R,A] bool
+    frozen: torch.Tensor       # [R,A] bool frozen_i && frozen_j
+    rd_excluded: torch.Tensor  # [R,A] bool
+    es_excluded: torch.Tensor  # [R,A] bool
+    sigma: torch.Tensor        # [R,A] mixed
+    epsilon: torch.Tensor      # [R,A] mixed
+    attractive_only: torch.Tensor  # [R,A] bool
+    rows: Optional[torch.Tensor] = None       # [R] atom indices (-1 pads)
+    row_start: Optional[torch.Tensor] = None  # window start (contiguous rows)
+
+    def row(self, arr):
+        """Slice a per-atom array onto the row axis."""
+        if self.row_start is not None:
+            return slice_rows(arr, self.row_start, self.rows.shape[0])
+        return arr[self.rows.clamp(0, arr.shape[0] - 1)]
+
+
+def _arange(n: int, like: torch.Tensor):
+    return torch.arange(n, dtype=torch.int64, device=like.device)
+
+
+def window_start(rows, A: int):
+    """Start of the contiguous row window: rows[k] == start + k for every
+    valid (>= 0) entry; clipped so the window stays in bounds."""
+    S = rows.shape[0]
+    off = _arange(S, rows)
+    start = torch.max(torch.where(rows >= 0, rows - off, -1))
+    return start.clamp(0, max(A - S, 0))
+
+
+def normalize_window(rows, A: int):
+    """Re-index a contiguous-run row set into its clipped S-window:
+    ``(start, rows_w, valid_w)`` with rows_w[k] == start + k and valid_w
+    marking which window rows are real rows (pairwise.py:85-101)."""
+    S = rows.shape[0]
+    start = window_start(rows, A)
+    if S == 1:
+        return start, rows, rows >= 0
+    arange = _arange(S, rows)
+    first_valid = torch.min(torch.where(rows >= 0, rows, A))
+    nvalid = torch.sum(rows >= 0)
+    offset = first_valid - start
+    valid_w = (arange >= offset) & (arange < offset + nvalid)
+    return start, torch.where(valid_w, start + arange, -1), valid_w
+
+
+def phase_dot(pos, k):
+    """``pos[..., 3] @ k[K, 3].T``."""
+    return _mul3(pos, k.T)
+
+
+def sum_small_rows(w, m):
+    """``w[S] @ m[S, ...]`` summed row by row in the JAX twin's order."""
+    out = w[0] * m[0]
+    for s in range(1, m.shape[0]):
+        out = out + w[s] * m[s]
+    return out
+
+
+def contract_small_rows(f, q, d):
+    """``einsum('sj,s,sjp->jp', f, q, d)`` for small static S."""
+    out = (f[0] * q[0])[:, None] * d[0]
+    for s in range(1, f.shape[0]):
+        out = out + (f[s] * q[s])[:, None] * d[s]
+    return out
+
+
+def rows_field(f, qj, d):
+    """``einsum('sj,j,sjp->sp', f, qj, d)``."""
+    t = f * qj[None, :]
+    return torch.sum(t[..., None] * d, dim=1)
+
+
+def tile_starts(A: int, block: int):
+    """Static tile starts covering [0,A) with in-bounds windows; the last
+    tile shifts down to end exactly at A (its overlap rows recompute
+    identical data)."""
+    nb = -(-A // block)
+    return [min(b * block, max(A - block, 0)) for b in range(nb)]
+
+
+def assemble_tiles(tiles, A: int, block: int):
+    """[nb, block, ...] tile stack -> [A, ...] honoring tile_starts."""
+    nb = tiles.shape[0]
+    flat = (nb * block,) + tuple(tiles.shape[2:])
+    if nb * block == A:
+        return tiles.reshape(flat)
+    if A <= block:
+        return tiles.reshape(flat)[:A]
+    head = tiles[:-1].reshape(((nb - 1) * block,) + tuple(tiles.shape[2:]))
+    tail = tiles[-1][block - (A - (nb - 1) * block):]
+    return torch.cat([head, tail], dim=0)
+
+
+def slice_rows(arr, start, S: int):
+    """Contiguous S-row slice along axis 0 from a device start index."""
+    return arr.index_select(0, start + _arange(S, arr))
+
+
+def update_rows(arr, start, block, valid=None):
+    """``arr`` with a contiguous row block written at ``start`` (a new
+    tensor, as in the JAX twin); ``valid`` masks rows that keep their
+    current contents."""
+    S = block.shape[0]
+    if S > arr.shape[0]:
+        raise ValueError(f"{S}-row window on a {arr.shape[0]}-row array")
+    idx = start + _arange(S, arr)
+    if valid is not None:
+        vm = valid.reshape((S,) + (1,) * (arr.dim() - 1))
+        block = torch.where(vm, block, arr.index_select(0, idx))
+    return arr.index_copy(0, idx, block.to(arr.dtype))
+
+
+def mix_lj(flags: FFlags, eps_i, eps_j, sig_i, sig_j):
+    """Lorentz-Berthelot mixing (src/System.cpp:1166-1177): returns
+    (sigma, epsilon, attractive_only).  The other mixing rules of the JAX
+    twin are not ported (flags.require_supported rejects them)."""
+    attractive_only = (sig_i < 0.0) | (sig_j < 0.0)
+    sig_zero = (sig_i == 0.0) | (sig_j == 0.0)
+    sigma = torch.where(attractive_only,
+                        0.5 * (torch.abs(sig_i) + torch.abs(sig_j)),
+                        torch.where(sig_zero, 0.0, 0.5 * (sig_i + sig_j)))
+    # reference quirk: epsilon unassigned (-> 0) for attractive-only pairs
+    # (src/System.cpp:1167-1169)
+    epsilon = torch.where(attractive_only, 0.0, torch.sqrt(eps_i * eps_j))
+    return sigma, epsilon, attractive_only
+
+
+def _build(state: SystemState, flags: FFlags, rows,
+           block_global: bool = False) -> PairTensors:
+    A = state.n_atom_slots
+    S = rows.shape[0]
+    if S > A:
+        # window wider than the array: clip-gather semantics
+        safe_g = rows.clamp(0, A - 1)
+        g = lambda arr: arr[safe_g]
+        row_valid = rows >= 0
+        row_start = None
+    else:
+        row_start, rows, row_valid = normalize_window(rows, A)
+        g = lambda arr: slice_rows(arr, row_start, S)
+    pos_r = g(state.pos)
+
+    d = pos_r[:, None, :] - state.pos[None, :, :]
+    dimg, rimg = minimum_image_disp(d, state.pbc.basis, state.pbc.reciprocal)
+    r = torch.sqrt(torch.sum(d * d, dim=-1))
+    # NaN-guard mirror of src/System.cpp:1265-1270: bad image -> use real
+    bad = ~torch.isfinite(rimg)
+    rimg = torch.where(bad, r, rimg)
+    dimg = torch.where(bad[..., None], d, dimg)
+
+    atom_alive = state.atom_alive()
+    alive = (g(atom_alive) & row_valid)[:, None] & atom_alive[None, :]
+    same_mol = g(state.mol_id)[:, None] == state.mol_id[None, :]
+    frozen = g(state.frozen)[:, None] & state.frozen[None, :]
+
+    eps_i, eps_j = g(state.epsilon)[:, None], state.epsilon[None, :]
+    sig_i, sig_j = g(state.sigma)[:, None], state.sigma[None, :]
+    c6_i, c6_j = g(state.c6)[:, None], state.c6[None, :]
+    c8_i, c8_j = g(state.c8)[:, None], state.c8[None, :]
+    c10_i, c10_j = g(state.c10)[:, None], state.c10[None, :]
+
+    # exclusions (src/System.cpp:1042-1064)
+    lj_null = (eps_i == 0.0) | (sig_i == 0.0) | (eps_j == 0.0) | (sig_j == 0.0)
+    cn_null = ((c6_i == 0.0) & (c8_i == 0.0) & (c10_i == 0.0) &
+               (c6_j == 0.0) & (c8_j == 0.0) & (c10_j == 0.0))
+    rd_excluded = same_mol | (lj_null & cn_null)
+    q_i, q_j = g(state.charge)[:, None], state.charge[None, :]
+    es_excluded = same_mol | (q_i == 0.0) | (q_j == 0.0)
+
+    sigma, epsilon, attractive_only = mix_lj(flags, eps_i, eps_j, sig_i,
+                                             sig_j)
+
+    safe = rows.clamp(0, A - 1)
+    col = _arange(A, rows)[None, :]
+    if block_global:
+        # tile of the dense triangle: global col > row rule, so summing
+        # over a block partition of all atoms counts each pair once
+        pair_once = row_valid[:, None] & alive & (col > safe[:, None])
+    else:
+        # count each pair touching the row molecule exactly once: rows vs
+        # other molecules always; intra-molecular only for col > row
+        pair_once = (row_valid[:, None] & alive &
+                     (~same_mol | (col > safe[:, None])))
+
+    return PairTensors(
+        dimg=dimg, rimg=rimg, r=r,
+        pair_once=pair_once, alive=alive, same_mol=same_mol, frozen=frozen,
+        rd_excluded=rd_excluded, es_excluded=es_excluded,
+        sigma=sigma, epsilon=epsilon, attractive_only=attractive_only,
+        rows=rows, row_start=row_start)
+
+
+def build_pairs_rect(state: SystemState, flags: FFlags,
+                     rows) -> PairTensors:
+    """[S,A] pair tensors for the atoms in ``rows`` (padded with -1)
+    against all atoms — the Delta-E slice."""
+    return _build(state, flags, rows)
+
+
+def build_pairs_block(state: SystemState, flags: FFlags,
+                      rows) -> PairTensors:
+    """[B,A] tile of the dense upper triangle: summing any block partition
+    of the atom axis visits every pair exactly once."""
+    return _build(state, flags, rows, block_global=True)

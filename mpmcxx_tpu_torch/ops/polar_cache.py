@@ -1,0 +1,313 @@
+"""Incrementally maintained polarization state for the MC chain.
+
+JAX twin: mpmcxx_tpu/ops/polar_cache.py (the exponential-damping,
+3-plane form).  The mu-independent work of the reference's per-step
+repolarization (src/System.Energy.cpp:93-116) lives in a cache that a
+local move updates in O(S*A) (S = atoms of the moved molecule):
+
+- ``dx``/``dy``/``dz``: the masked f32 minimum-image displacement planes
+  of ops.polar.fold_outer_rows (mode 3; the damped coefficients are
+  recomputed inside kernel K1).  Rows are exact; columns follow by
+  antisymmetry, so the planes stay bitwise those of a full rebuild.
+- ``e_pair``: the Ewald real-space static field, f64.
+- ``cosp``/``sinp``/``f1``/``f2``: per-atom k-space phases (f32) and charge
+  structure factors (f64) for the reciprocal static field
+  (src/System.Energy.cpp:2834-2896) in O(A*K) f32 work.
+
+A proposal (``polar_proposal``) reads the cache only; the commit
+(``cache_commit``) writes the planes and phases IN PLACE, where the JAX
+twin returned new arrays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from .. import constants as const
+from ..flags import FFlags, RunParams
+from ..state import SystemState
+from . import cuda_polar
+from . import polar as polar_mod
+from .ewald import kvectors
+from .pairwise import (_arange, assemble_tiles, build_pairs_rect,
+                       contract_small_rows, normalize_window, phase_dot,
+                       rows_field, slice_rows, sum_small_rows, tile_starts,
+                       update_rows)
+
+
+@dataclasses.dataclass
+class PolarCache:
+    dx: torch.Tensor      # [A,A] f32 masked minimum-image displacement
+    dy: torch.Tensor      #  planes (fold_outer_rows mode 3)
+    dz: torch.Tensor
+    e_pair: torch.Tensor  # [A,3] f64 pairwise static field
+    cosp: torch.Tensor    # [A,K] f32 cos(k.r_i)
+    sinp: torch.Tensor    # [A,K] f32 sin(k.r_i)
+    f1: torch.Tensor      # [K] f64 sum_j q_j cos(k.r_j)
+    f2: torch.Tensor      # [K] f64 sum_j q_j sin(k.r_j)
+
+
+def planes_of(cache: PolarCache):
+    """The cache's contraction planes in contract_mixed form."""
+    return (cache.dx, cache.dy, cache.dz)
+
+
+def supports(flags: FFlags, n_atom_slots: int = 0) -> bool:
+    """True when polarization can ride the incremental cache.
+
+    The 16,384-slot cap is the JAX twin's, sized for a 16 GB TPU v5e
+    (three f32 [A,A] planes are 12 A^2 bytes); where the cap lies on an
+    80 GB H100 is a later decision."""
+    ok = (flags.polarization and flags.polar_mixed and
+          not flags.polar_ewald_full and
+          not (flags.polarvdw or flags.using_axilrod_teller or
+               flags.rd_crystal or flags.gwp or flags.spectre or
+               flags.rd_anharmonic))
+    if n_atom_slots and n_atom_slots > 16384:
+        return False
+    return ok
+
+
+def cache_init(state: SystemState, flags: FFlags, params: RunParams,
+               block: int = 128) -> PolarCache:
+    """Full O(A^2) build (chain start and every refresh)."""
+    if polar_mod.plane_mode(flags) != 3:
+        raise NotImplementedError(
+            f"polar cache plane mode {polar_mod.plane_mode(flags)}")
+    A = state.n_atom_slots
+    dev = state.pos.device
+    planes, fields = [], []
+    for s in tile_starts(A, block):
+        if A <= block:
+            rows_f = torch.arange(block, device=dev)
+            rows = torch.where(rows_f < A, rows_f, -1)
+        else:
+            rows = s + torch.arange(block, device=dev)
+        pt = build_pairs_rect(state, flags, rows)
+        co, cd = polar_mod.mixed_coeff_scalars(state, pt, flags, params)
+        f = polar_mod.field_scalars(state, pt, flags, params)
+        fields.append(rows_field(f, state.charge, pt.dimg))
+        d32 = pt.dimg.to(torch.float32)
+        planes.append(polar_mod.fold_outer_rows(
+            co, cd, d32[..., 0], d32[..., 1], d32[..., 2], flags))
+    dx, dy, dz = (assemble_tiles(torch.stack(p), A, block)
+                  for p in zip(*planes))
+    e = assemble_tiles(torch.stack(fields), A, block)
+
+    k, _ = kvectors(state, flags.ewald_kmax)
+    phase = phase_dot(state.pos, k)               # [A,K]
+    cos64, sin64 = torch.cos(phase), torch.sin(phase)
+    q = torch.where(state.atom_alive(), state.charge, 0.0)
+    return PolarCache(dx.contiguous(), dy.contiguous(), dz.contiguous(), e,
+                      cos64.to(torch.float32), sin64.to(torch.float32),
+                      q @ cos64, q @ sin64)
+
+
+def _kweight(state: SystemState, flags: FFlags, params: RunParams):
+    ea = params.polar_ewald_alpha
+    k, k2 = kvectors(state, flags.ewald_kmax)
+    return k, k / k2[:, None] * torch.exp(-k2 / (4.0 * ea * ea))[:, None]
+
+
+def recip_field(state: SystemState, flags: FFlags, params: RunParams,
+                cache: PolarCache):
+    """k-space static field from the cached phases — the f32 cut of
+    ops.polar.recip_term.  The matmul is full f32 (TF32 is off package
+    wide), as the twin's Precision.HIGHEST."""
+    _, kw = _kweight(state, flags, params)
+    coeff = (cache.sinp * cache.f1.to(torch.float32)[None, :] -
+             cache.cosp * cache.f2.to(torch.float32)[None, :])
+    E = (coeff @ kw.to(torch.float32)).to(torch.float64)
+    return E * 8.0 * const.pi / state.pbc.volume
+
+
+def static_field(state: SystemState, flags: FFlags, params: RunParams,
+                 cache: PolarCache):
+    E = cache.e_pair + recip_field(state, flags, params, cache)
+    return torch.where(state.atom_alive()[:, None], E, 0.0)
+
+
+def write_symmetric_rows(planes, rows_planes, start, valid, sign: float):
+    """Commit an S-row update window into antisymmetric (sign=-1) or
+    symmetric (sign=+1) [A,A] planes, in place: the row strip directly and
+    the matching column strip via ``plane[:, start+s] == sign *
+    plane[start+s, :]`` (polar_cache.py:181-224).  Rows whose ``valid``
+    entry is False re-write their current content.  Kernel K2 (or, for
+    CPU tensors, its plain version) scatters the strips of
+    ``commit_strips`` on every plane at once."""
+    blend, cols = commit_strips(planes, rows_planes, start, valid, sign)
+    cuda_polar.write_plane_strips(tuple(planes), blend, cols, start)
+
+
+def commit_strips(planes, rows_planes, start, valid, sign: float):
+    """The ([P,S,A] row strip, [P,S,A] column strip) values of
+    write_symmetric_rows, computed exactly as the twin does
+    (polar_cache.py:196-213)."""
+    S = rows_planes[0].shape[0]
+    idx = start + _arange(S, start)
+    cur = torch.stack([p.index_select(0, idx) for p in planes])    # [P,S,A]
+    vm = valid[None, :, None]
+    blend = torch.where(vm, torch.stack(rows_planes), cur)
+    # column start+s: sign*blend[s] where the column is valid, else its
+    # current content == sign*cur[s] away from the window, with the window
+    # rows patched to the row-write values
+    colv = sign * torch.where(vm, blend, cur)
+    win_cur = blend.index_select(2, idx).transpose(1, 2)   # [P,s,t]
+    win_val = colv.index_select(2, idx)                    # [P,s,t]
+    patch = torch.where(vm, win_val, win_cur)
+    return blend.contiguous(), colv.index_copy(2, idx, patch).contiguous()
+
+
+class CommitData(NamedTuple):
+    """What ``cache_commit`` needs for an accepted move, captured from
+    ``polar_proposal``'s own intermediates (no geometry re-run)."""
+    start: torch.Tensor    # window start (0-d int64)
+    valid: torch.Tensor    # [S] bool
+    e_pair: torch.Tensor   # [A,3] f64 pairwise static field (no recip)
+    dx: torch.Tensor       # [S,A] f32 masked-d rows; invalid rows zeroed
+    dy: torch.Tensor
+    dz: torch.Tensor
+    f1: torch.Tensor       # [K] f64 updated structure factors
+    f2: torch.Tensor
+    cosp: torch.Tensor     # [S,K] f64 new-row phases
+    sinp: torch.Tensor
+
+
+def polar_proposal(cache: PolarCache, old_state: SystemState,
+                   new_state: SystemState, rows, flags: FFlags,
+                   params: RunParams, with_commit: bool = False):
+    """Polarization energy of a PROPOSED move without materialising an
+    updated cache (polar_cache.py:352-506): each SCF iteration contracts
+    the unmodified planes (kernel K1) and applies O(S*A) row/column
+    corrections.  With ``with_commit`` returns
+    ``(PolarResult, CommitData)``."""
+    A = old_state.n_atom_slots
+    S = rows.shape[0]
+    start, rows, valid = normalize_window(rows, A)
+
+    def rows_of(arr):
+        return slice_rows(arr, start, S)
+
+    in_R = update_rows(torch.zeros(A, dtype=torch.bool, device=rows.device),
+                       start, valid)
+    pt_old = build_pairs_rect(old_state, flags, rows)
+    pt_new = build_pairs_rect(new_state, flags, rows)
+
+    # --- proposal's static field ------------------------------------------
+    f_old = polar_mod.field_scalars(old_state, pt_old, flags, params)
+    f_new = polar_mod.field_scalars(new_state, pt_new, flags, params)
+    q_ro = torch.where(valid, rows_of(old_state.charge), 0.0)
+    q_rn = torch.where(valid, rows_of(new_state.charge), 0.0)
+    C_old = -contract_small_rows(f_old, q_ro, pt_old.dimg)
+    C_new = -contract_small_rows(f_new, q_rn, pt_new.dimg)
+    e = cache.e_pair + (C_new - C_old)
+    E_rows = rows_field(f_new, new_state.charge, pt_new.dimg)
+    e = update_rows(e, start, E_rows, valid)
+    e_pair_new = e
+
+    k, kw = _kweight(new_state, flags, params)
+    ph_old = phase_dot(rows_of(old_state.pos), k)
+    ph_new = phase_dot(rows_of(new_state.pos), k)
+    cos_o, sin_o = torch.cos(ph_old), torch.sin(ph_old)
+    cos_n, sin_n = torch.cos(ph_new), torch.sin(ph_new)
+    qo = torch.where(valid & rows_of(old_state.atom_alive()),
+                     rows_of(old_state.charge), 0.0)
+    qn = torch.where(valid & rows_of(new_state.atom_alive()),
+                     rows_of(new_state.charge), 0.0)
+    f1 = cache.f1 - sum_small_rows(qo, cos_o) + sum_small_rows(qn, cos_n)
+    f2 = cache.f2 - sum_small_rows(qo, sin_o) + sum_small_rows(qn, sin_n)
+    coeff = (cache.sinp * f1.to(torch.float32)[None, :] -
+             cache.cosp * f2.to(torch.float32)[None, :])
+    E_recip = (coeff @ kw.to(torch.float32)).to(torch.float64)
+    # the moved rows' phases changed: fix their recip field directly
+    row_coeff = sin_n * f1[None, :] - cos_n * f2[None, :]
+    E_recip = update_rows(E_recip, start,
+                          torch.sum(row_coeff[..., None] * kw[None], dim=1),
+                          valid)
+    e = e + E_recip * 8.0 * const.pi / new_state.pbc.volume
+    E_static = torch.where(new_state.atom_alive()[:, None], e, 0.0)
+
+    # --- row blocks, new (from geometry) and old (gathered from cache) ---
+    co_n, cd_n = polar_mod.mixed_coeff_scalars(new_state, pt_new, flags,
+                                               params)
+    d_n = pt_new.dimg.to(torch.float32)
+    vm = valid[:, None]
+    rows_new = tuple(torch.where(vm, p, 0.0) for p in
+                     polar_mod.fold_outer_rows(co_n, cd_n, d_n[..., 0],
+                                               d_n[..., 1], d_n[..., 2],
+                                               flags))
+    rows_old = tuple(torch.where(vm, rows_of(p), 0.0)
+                     for p in planes_of(cache))
+    l = params.polar_damp
+    # (co, cd, dx, dy, dz) of both row blocks, recomputed from the masked
+    # displacements (invalid rows are d == 0, so their coefficients
+    # vanish); mu-independent, so computed once for all SCF iterations
+    new_b = polar_mod.coeffs_from_d(*rows_new, l) + rows_new
+    old_b = polar_mod.coeffs_from_d(*rows_old, l) + rows_old
+
+    def contract_fn(m):
+        base = polar_mod.contract_mixed(planes_of(cache), m, l=l)
+        m32 = m.to(torch.float32)
+        mx, my, mz = m32[:, 0][None, :], m32[:, 1][None, :], m32[:, 2][None, :]
+        mu_r = torch.where(vm, rows_of(m32), 0.0)              # [S,3]
+
+        def row_ef(blocks):
+            # field AT the row atoms from everyone: -(sum_j M_sj mu_j)
+            co_b, cd_b, dxb, dyb, dzb = blocks
+            s = co_b * (dxb * mx + dyb * my + dzb * mz)
+            ex = torch.sum(s * dxb + cd_b * mx, dim=1)
+            ey = torch.sum(s * dyb + cd_b * my, dim=1)
+            ez = torch.sum(s * dzb + cd_b * mz, dim=1)
+            return -torch.stack([ex, ey, ez], 1).to(torch.float64)
+
+        def col_ef(blocks):
+            # field AT every atom sourced by the row atoms: co/cd
+            # symmetric, d antisymmetric entering quadratically, so the
+            # row blocks serve directly with the ROW atoms' mu
+            co_b, cd_b, dxb, dyb, dzb = blocks
+            s = co_b * (dxb * mu_r[:, 0:1] + dyb * mu_r[:, 1:2] +
+                        dzb * mu_r[:, 2:3])                     # [S,A]
+            gx = torch.sum(s * dxb + cd_b * mu_r[:, 0:1], dim=0)
+            gy = torch.sum(s * dyb + cd_b * mu_r[:, 1:2], dim=0)
+            gz = torch.sum(s * dzb + cd_b * mu_r[:, 2:3], dim=0)
+            return -torch.stack([gx, gy, gz], 1).to(torch.float64)
+
+        col_corr = col_ef(new_b) - col_ef(old_b)
+        # pairs with i in R belong to the wholesale row replacement below
+        ef = base + torch.where(in_R[:, None], 0.0, col_corr)
+        return update_rows(ef, start, row_ef(new_b), valid)
+
+    res = polar_mod.finish_polar(new_state, flags, params, E_static,
+                                 contract_fn)
+    if not with_commit:
+        return res
+    return res, CommitData(start=start, valid=valid, e_pair=e_pair_new,
+                           dx=rows_new[0], dy=rows_new[1], dz=rows_new[2],
+                           f1=f1, f2=f2, cosp=cos_n, sinp=sin_n)
+
+
+def cache_commit(cache: PolarCache, accept, cdata: CommitData,
+                 flags: FFlags) -> PolarCache:
+    """Commit a proposal's CommitData into the cache IN PLACE (the twin
+    returned a new cache).  On reject every write re-writes current
+    content, so the commit runs unconditionally after the Metropolis
+    decision and the step never branches on the host."""
+    S = cdata.valid.shape[0]
+    start = cdata.start
+    ok = accept & cdata.valid                      # [S]
+    cache.e_pair = torch.where(accept, cdata.e_pair, cache.e_pair)
+    # masked d inherits d's antisymmetry (sign=-1)
+    write_symmetric_rows(planes_of(cache), (cdata.dx, cdata.dy, cdata.dz),
+                         start, ok, -1.0)
+    cache.f1 = torch.where(accept, cdata.f1, cache.f1)
+    cache.f2 = torch.where(accept, cdata.f2, cache.f2)
+    idx = start + _arange(S, start)
+    for plane, vals in ((cache.cosp, cdata.cosp), (cache.sinp, cdata.sinp)):
+        blend = torch.where(ok[:, None], vals.to(torch.float32),
+                            plane.index_select(0, idx))
+        plane.index_copy_(0, idx, blend)
+    return cache
+

@@ -1,0 +1,123 @@
+"""The slice as a whole: the same small CO2-flagship-shaped system through
+the JAX chain (init_carry + make_chunk_runner) and the port's, seed 0,
+2 chunks x 16 uVT moves."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import torch_co2_system as co2  # noqa: E402
+from mpmcxx_tpu.mc import chain as chain_j  # noqa: E402
+from mpmcxx_tpu.state import topology as topology_j  # noqa: E402
+from mpmcxx_tpu_torch.mc import chain as chain_t  # noqa: E402
+from mpmcxx_tpu_torch.ops.energy import \
+    energy_breakdown_blocked as eb_t  # noqa: E402
+from mpmcxx_tpu_torch.state import state_from_jax  # noqa: E402
+from mpmcxx_tpu_torch.state import topology as topology_t  # noqa: E402
+
+CHUNK, N_CHUNKS = 16, 2
+
+
+def _run(chain, topology, system):
+    state, _, flags, params, opts = system
+    carry = chain.init_carry(state, flags, params, opts, seed=0)
+    runner = chain.make_chunk_runner(flags, params, opts, CHUNK,
+                                     topology=topology(state))
+    per_chunk, movetype, accepted = [], [], []
+    for _ in range(N_CHUNKS):
+        carry, outs = runner(carry)
+        per_chunk.append((float(carry.obs.energy), float(carry.obs.N)))
+        movetype += [int(m) for m in np.asarray(outs.movetype)]
+        accepted += [bool(a) for a in np.asarray(outs.accepted)]
+    return carry, per_chunk, movetype, accepted
+
+
+@pytest.fixture(scope="module")
+def chains():
+    return (_run(chain_j, topology_j, co2.jax_system()),
+            _run(chain_t, topology_t, co2.torch_system()))
+
+
+def test_chain_trajectory_matches_jax(chains):
+    (cj, ej, mj, aj), (ct, et, mt, at) = chains
+    assert mt == mj
+    assert at == aj
+    assert sum(at) > 0 and {0, 1, 2} <= set(mt)
+    for (e_j, n_j), (e_t, n_t) in zip(ej, et):
+        assert n_t == n_j
+        # f32 SCF planes summed in another order
+        assert e_t == pytest.approx(e_j, rel=1e-6)
+    np.testing.assert_array_equal(ct.stats.accept.numpy(),
+                                  np.asarray(cj.stats.accept))
+    np.testing.assert_array_equal(ct.stats.reject.numpy(),
+                                  np.asarray(cj.stats.reject))
+
+
+def test_incremental_tracks_full_recompute(chains):
+    _, (ct, *_) = chains
+    _, _, flags, params, _ = co2.torch_system()
+    eb = eb_t(ct.state, flags, params)
+    assert float(ct.obs.rd_energy) == pytest.approx(float(eb.rd), rel=1e-9)
+    assert float(ct.obs.coulombic_energy) == pytest.approx(
+        float(eb.coulombic), rel=1e-9)
+    assert float(ct.obs.polarization_energy) == pytest.approx(
+        float(eb.polarization), rel=2e-6)
+
+
+def test_state_from_jax_round_trips():
+    sj = co2.jax_system()[0]
+    fields = co2.jax_state_numpy(sj)
+    st = state_from_jax(fields)
+    for f in dataclasses.fields(st):
+        if f.name == "pbc":
+            for k, v in fields["pbc"].items():
+                np.testing.assert_array_equal(getattr(st.pbc, k).numpy(), v)
+            continue
+        np.testing.assert_array_equal(getattr(st, f.name).numpy(),
+                                      fields[f.name], err_msg=f.name)
+
+
+@pytest.mark.parametrize("flag", [{"wolf": True}, {"polar_gs": True},
+                                  {"polar_max_iter": 0},
+                                  {"damp_type": 1}])
+def test_unported_flag_raises(flag):
+    state, _, flags, params, opts = co2.torch_system()
+    with pytest.raises(NotImplementedError, match=next(iter(flag))):
+        chain_t.make_chunk_runner(flags.replace(**flag), params, opts, 4,
+                                  topology=topology_t(state))
+
+
+@pytest.mark.parametrize("opt", [{"ensemble": 1}, {"cavity_bias": True},
+                                 {"quantum_rotation": True}])
+def test_unported_option_raises(opt):
+    state, _, flags, params, opts = co2.torch_system()
+    with pytest.raises(NotImplementedError, match=next(iter(opt))):
+        chain_t.init_carry(state, flags, params,
+                           dataclasses.replace(opts, **opt), seed=0)
+
+
+def test_refresher_rebuilds_caches(chains):
+    """make_refresher recomputes the observables and rebuilds the
+    structure-factor and polarization caches from the carried state."""
+    from mpmcxx_tpu_torch.ops import delta, polar_cache
+    _, (ct, *_) = chains
+    _, _, flags, params, opts = co2.torch_system()
+    ref = chain_t.make_refresher(flags, params, opts)(ct)
+    eb = eb_t(ct.state, flags, params)
+    assert float(ref.obs.energy) == float(eb.total)
+    assert float(ref.obs.N) == float(ct.obs.N)
+    fresh = polar_cache.cache_init(ct.state, flags, params)
+    for f in dataclasses.fields(fresh):
+        assert torch.equal(getattr(ref.pcache, f.name),
+                           getattr(fresh, f.name)), f.name
+    sf = delta.sf_compute(ct.state, flags, params)
+    assert torch.equal(ref.sf.re, sf.re) and torch.equal(ref.sf.im, sf.im)
+    # the carried incremental caches agree with the rebuild
+    np.testing.assert_allclose(ct.pcache.e_pair.numpy(),
+                               fresh.e_pair.numpy(), rtol=1e-9, atol=1e-9)
+    for name in ("dx", "dy", "dz"):
+        assert torch.equal(getattr(ct.pcache, name), getattr(fresh, name))

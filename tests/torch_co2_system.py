@@ -1,0 +1,103 @@
+"""A small CO2-flagship-shaped system built into both packages from one
+seeded numpy recipe: 8 frozen charged framework atoms and 40 rigid 3-site
+CO2 sorbates (tools/flagship.py CO2_SITES) in an 18 A box, with 6 dead
+insertion slots, under the flagship's force field and uVT options."""
+
+import os
+import sys
+
+import numpy as np
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+import flagship  # noqa: E402
+
+L = 18.0
+N_MOL = 40
+EXTRA = 6
+E2REDUCED = 408.7816
+
+
+def records(seed: int = 11):
+    """(kwargs per atom) for AtomRecord of either package."""
+    rng = np.random.default_rng(seed)
+    out = []
+    s = L / 2
+    for i in range(2):
+        for j in range(2):
+            for k in range(2):
+                q = flagship.FRAME_CHARGE_E * (1 if (i + j + k) % 2 else -1)
+                out.append(dict(
+                    atomtype="Fw", moleculetype="MOF", molecule_id=1,
+                    frozen=True, x=(i + .5) * s - s, y=(j + .5) * s - s,
+                    z=(k + .5) * s - s, mass=flagship.FRAME_MASS,
+                    charge=q * E2REDUCED, epsilon=flagship.FRAME_EPS,
+                    sigma=flagship.FRAME_SIG,
+                    polarizability=flagship.FRAME_ALPHA))
+    g = 4
+    pts = (np.stack(np.meshgrid(*[np.arange(g)] * 3, indexing="ij"),
+                    -1).reshape(-1, 3) + 0.5) * (L / g) - L / 2
+    coms = pts[rng.choice(len(pts), N_MOL, replace=False)] + \
+        rng.uniform(-0.3, 0.3, (N_MOL, 3))
+    u = rng.normal(size=(N_MOL, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    mols = np.round(np.stack([coms, coms + flagship.CO2_BOND * u,
+                              coms - flagship.CO2_BOND * u], 1), 3)
+    for m in range(N_MOL):
+        for site, (at, mass, q, al, eps, sig) in \
+                enumerate(flagship.CO2_SITES):
+            p = mols[m, site]
+            out.append(dict(
+                atomtype=at, moleculetype="CO2", molecule_id=100 + m,
+                x=p[0], y=p[1], z=p[2], mass=mass, charge=q * E2REDUCED,
+                epsilon=eps, sigma=sig, polarizability=al))
+    return out
+
+
+def config(pkg_flags, pkg_const, MCOptions, max_iter=4):
+    """(flags, params, opts) of the flagship scaled to the small box."""
+    alpha = 3.5 / (L / 2.0)
+    flags = pkg_flags.FFlags(
+        polarization=True, polar_iterative=True, polar_ewald=True,
+        polar_mixed=True, polar_max_iter=max_iter,
+        damp_type=pkg_const.DAMPING_EXPONENTIAL)
+    params = pkg_flags.RunParams(
+        temperature=flagship.TEMPERATURE, ewald_alpha=alpha,
+        polar_ewald_alpha=alpha, polar_damp=flagship.POLAR_DAMP,
+        polar_gamma=1.0)
+    opts = MCOptions(
+        ensemble=pkg_const.ENSEMBLE_UVT, move_factor=0.1,
+        insert_probability=0.3, fugacity=20.0, incremental=True,
+        polar_incremental=True, max_mol_atoms=3, blocked_energy=True)
+    return flags, params, opts
+
+
+def jax_system():
+    from mpmcxx_tpu import constants as const
+    from mpmcxx_tpu import flags as fl
+    from mpmcxx_tpu.mc.chain import MCOptions
+    from mpmcxx_tpu.state import AtomRecord, build_state
+    state, meta = build_state([AtomRecord(**r) for r in records()],
+                              np.eye(3) * L, extra_mol_capacity=EXTRA)
+    return (state, meta) + config(fl, const, MCOptions)
+
+
+def torch_system(device="cpu"):
+    from mpmcxx_tpu_torch import constants as const
+    from mpmcxx_tpu_torch import flags as fl
+    from mpmcxx_tpu_torch.mc.chain import MCOptions
+    from mpmcxx_tpu_torch.state import AtomRecord, build_state
+    state, meta = build_state([AtomRecord(**r) for r in records()],
+                              np.eye(3) * L, extra_mol_capacity=EXTRA,
+                              device=device)
+    return (state, meta) + config(fl, const, MCOptions)
+
+
+def jax_state_numpy(state):
+    """A JAX SystemState as the field -> numpy mapping of
+    mpmcxx_tpu_torch.state.state_from_jax."""
+    import dataclasses
+    out = {f.name: np.asarray(getattr(state, f.name))
+           for f in dataclasses.fields(state) if f.name != "pbc"}
+    out["pbc"] = {k: np.asarray(getattr(state.pbc, k))
+                  for k in ("basis", "reciprocal", "volume", "cutoff")}
+    return out
