@@ -1,16 +1,18 @@
 """The Metropolis Markov chain: uVT moves on the incremental polar path.
 
 JAX twin: mpmcxx_tpu/mc/chain.py.  Ported: the uVT ensemble with
-incremental Delta-E, the incremental polarization cache and blocked full
-recomputes (``make_step_fn``'s uVT + polar_incremental branch,
-chain.py:351-511, 582-693), ``init_carry``, ``make_refresher``,
-``accumulate_stats`` and ``make_chunk_runner``.  Any other option raises
-NotImplementedError naming it.
+incremental Delta-E, the incremental polarization cache, blocked full
+recomputes and cavity-biased insertion (``make_step_fn``'s uVT +
+polar_incremental branch, chain.py:351-511, 582-693), ``init_carry``,
+``make_refresher``, ``accumulate_stats`` and ``make_chunk_runner``.  Any
+other option raises NotImplementedError naming it.
 
 The twin's chunk is a jitted ``lax.scan``; here it is a host loop over
 ``step``.  The loop never waits on the device: the random draws of the
 whole chunk are derived from the carried key on the host up front
-(``chunk_draws``, key for key as the twin's ``jax.random`` calls), every
+(``chunk_draws``, key for key as the twin's ``jax.random`` calls; the
+cavity bias's darts are made from host-derived keys on the device in one
+batched call per chunk), every
 data-dependent choice is a device-side select, and the polarization
 cache is committed in place.
 """
@@ -29,6 +31,7 @@ from ..ops import delta as delta_mod
 from ..ops import polar_cache as pcache_mod
 from ..ops.energy import EnergyBreakdown, energy_breakdown_blocked
 from ..state import Observables, SystemState
+from . import cavity as cavity_mod
 from . import metropolis, moves
 
 
@@ -78,7 +81,7 @@ _PORTED_OPTS = {
     "blocked_energy": (True,),
     "quantum_rotation": (False,),
     "simulated_annealing": (False,),
-    "cavity_bias": (False,),
+    "cavity_bias": (False, True),
     "spectre": (False,),
     "rd_anharmonic": (False,),
     "gwp": (False,),
@@ -112,7 +115,10 @@ class MCCarry:
     key: torch.Tensor              # [2] int64 random key, on the host
     step: torch.Tensor             # 0-d int64
     stats: NodeStats
-    cavity: torch.Tensor           # [4] cavity-bias averages (unused: 0)
+    cavity: torch.Tensor           # [4] cavity bias: per-step mean open
+                                   # fraction, dart volume, corrtime
+                                   # snapshot of the mean, checkpoint
+                                   # count (chain.py:373-387)
     sf: delta_mod.SFCache          # Ewald structure-factor cache
     recip_e: torch.Tensor          # current state's k-space energy
     pcache: pcache_mod.PolarCache  # incremental polarization cache
@@ -124,6 +130,8 @@ class StepOut(NamedTuple):
     movetype: torch.Tensor
     polarization_iterations: torch.Tensor
     capacity_reject: torch.Tensor
+    biased: torch.Tensor    # the factor was the cavity-biased one (the
+                            # port's own column; the twin keeps it inside)
 
 
 def observables_from_breakdown(state: SystemState, eb: EnergyBreakdown,
@@ -161,19 +169,24 @@ def _pick_movetype(opts: MCOptions, r, N_movable, n_adiabatic):
 
 # columns of one step's draws (see chunk_draws)
 _U_TARGET, _R_MOVE, _DICE, _AXIS, _U_ANGLE, _U_ACC = 0, 1, 5, 11, 14, 15
+_U_PICK, _U_RM = 16, 19
 
 
 def chunk_draws(key: torch.Tensor, n: int):
     """The draws of ``n`` consecutive steps from the chain key, as the
-    twin's step derives them (chain.py:352-353, moves.py:49, 67-73,
-    93-108, 177): returns (the key after the chunk, [n, 16] f64 on the
-    host).  Per step: split(key, 6) -> (next key, k_move, k_target,
-    k_apply, k_acc, k_cav); the target uniform; four move-type uniforms
-    from split(k_move, 4); from split(split(k_apply, 1)[0], 3) the move's
-    six translation uniforms (an insertion reads the first three as its
-    position: partitionable threefry makes uniform(k, (3,)) the head of
+    twin's step derives them (chain.py:352-353, 391, moves.py:49, 67-73,
+    93-108, 177, cavity.py:81, 93): returns (the key after the chunk,
+    [n, 20] f64 on the host, the [n, 2] dart keys).  Per step:
+    split(key, 6) -> (next key, k_move, k_target, k_apply, k_acc, k_cav);
+    the target uniform; four move-type uniforms from split(k_move, 4);
+    from split(split(k_apply, 1)[0], 3) the move's six translation
+    uniforms (an insertion reads the first three as its position:
+    partitionable threefry makes uniform(k, (3,)) the head of
     uniform(k, (6,))), three normal axis components and the angle
-    uniform; and the acceptance uniform."""
+    uniform; the acceptance uniform; and from split(k_cav, 3) ->
+    (k_grid, k_pick, k_rm) three uniforms of k_pick (the cavity pick reads
+    the first, the fallback insert position all three) and the uniform of
+    k_rm.  k_grid is returned for the darts."""
     subs = []
     for _ in range(n):
         sub = rnd.split(key, 6)
@@ -182,6 +195,7 @@ def chunk_draws(key: torch.Tensor, n: int):
     ks = torch.stack(subs)                              # [n, 6, 2]
     k_move, k_target, k_apply, k_acc = ks[:, 1], ks[:, 2], ks[:, 3], ks[:, 4]
     k1 = rnd.split(rnd.split(k_apply, 1)[:, 0], 3)      # [n, 3, 2]
+    k_cav = rnd.split(ks[:, 5], 3)                      # [n, 3, 2]
     draws = torch.cat([
         rnd.uniform(k_target)[:, None],
         rnd.uniform(rnd.split(k_move, 4)),
@@ -189,22 +203,26 @@ def chunk_draws(key: torch.Tensor, n: int):
         rnd.normal(k1[:, 1], (3,)),
         rnd.uniform(k1[:, 2])[:, None],
         rnd.uniform(k_acc)[:, None],
+        rnd.uniform(k_cav[:, 1], (3,)),
+        rnd.uniform(k_cav[:, 2])[:, None],
     ], dim=1)
-    return key, draws
+    return key, draws, k_cav[:, 0]
 
 
 def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
                  topology=None):
-    """Build ``step(carry, draws) -> (carry, StepOut)`` for one uVT move
-    on the incremental polar path; ``draws`` is one row of chunk_draws on
-    the state's device.  ``topology`` is the (mol_start[M], mol_natoms[M])
-    host pair of state.topology."""
+    """Build ``step(carry, draws, dart_u=None) -> (carry, StepOut)`` for
+    one uVT move on the incremental polar path; ``draws`` is one row of
+    chunk_draws on the state's device, ``dart_u`` the step's [darts, 3]
+    uniforms when cavity bias is on.  ``topology`` is the
+    (mol_start[M], mol_natoms[M]) host pair of state.topology."""
     require_options(flags, base_params, opts)
     if topology is None:
         raise NotImplementedError("topology=None (masked, non-window moves)")
     params = base_params
     S = opts.max_mol_atoms
     topo = {}
+    grid = {}   # cavity grid points per device (uVT never changes the box)
 
     def rows_of(mol):
         dev = mol.device
@@ -217,7 +235,38 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
         rows = mol_start.index_select(0, one) + off
         return torch.where(off < mol_natoms.index_select(0, one), rows, -1)
 
-    def step(carry: MCCarry, d):
+    def cavity_branch(carry: MCCarry, d, dart_u, is_ins, is_rem):
+        """Cavity-biased insertion machinery (chain.py:373-414): the grid
+        is rebuilt before every move.  carry.cavity[0] is the per-step
+        running mean of the open fraction, updated at the END of the step
+        so the acceptance factor reads the PRIOR value; [1] the current
+        dart volume; [2] the per-corrtime snapshot of [0] (advanced by
+        make_refresher), read only by the REMOVE flag; [3] the
+        checkpoint count.  Returns (cavity carry, biased, prior mean,
+        insertion COM)."""
+        state = carry.state
+        dev = state.pos.device
+        if dev not in grid:
+            grid[dev] = cavity_mod.grid_points(state, opts.cavity_grid_size)
+        info = cavity_mod.update_grid(state, opts.cavity_grid_size,
+                                      opts.cavity_radius, dart_u,
+                                      points=grid[dev])
+        ins_com, any_open = cavity_mod.biased_insert_position(info,
+                                                              d[_U_PICK])
+        step_f = carry.step.to(torch.float64)
+        prior = carry.cavity[0]
+        avg_prob = (prior * step_f + info.probability) / (step_f + 1.0)
+        cavity = torch.stack([avg_prob, info.volume, carry.cavity[2],
+                              carry.cavity[3]])
+        rm_flag = cavity_mod.remove_biased_flag(
+            d[_U_RM], carry.cavity[2], opts.cavity_grid_size)
+        biased = torch.where(is_ins, any_open, is_rem & rm_flag)
+        insert_com = torch.where(any_open, ins_com,
+                                 moves.random_cell_position(
+                                     state, d[_U_PICK:_U_PICK + 3]))
+        return cavity, biased, prior, insert_com
+
+    def step(carry: MCCarry, d, dart_u=None):
         state = carry.state
         T = carry.temperature
         target, N_movable = moves.pick_random_movable(state, d[_U_TARGET])
@@ -226,6 +275,12 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
                                   n_adiabatic)
         is_ins = movetype == const.MOVETYPE_INSERT
         is_rem = movetype == const.MOVETYPE_REMOVE
+        if opts.cavity_bias:
+            cavity, biased, cavity_prior, insert_com = cavity_branch(
+                carry, d, dart_u, is_ins, is_rem)
+        else:
+            cavity, biased = carry.cavity, torch.zeros_like(is_ins)
+            cavity_prior, insert_com = 0.0, None
         insert_slot = moves.find_dead_slot(
             state, state.mol_type.index_select(0, target.reshape(1))[0])
 
@@ -239,7 +294,7 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
         ins, ins_valid = moves.insert_rows(
             state, d[_DICE:_DICE + 3], d[_AXIS:_AXIS + 3], d[_U_ANGLE],
             tmpl_rows, slot_rows, tmpl_rows >= 0, insert_slot,
-            insert_slot >= 0)
+            insert_slot >= 0, com=insert_com)
         rem = moves.remove(state, target)
         new_state = state.replace(
             pos=torch.where(is_ins, ins.pos,
@@ -285,8 +340,7 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
             state.rot_partfunc_u.index_select(0, t1)[0])
         bf = metropolis.uvt_factor(
             movetype, delta, T, state.pbc.volume, opts.fugacity, obs_after.N,
-            float(opts.sorbate_count), torch.zeros_like(valid),
-            carry.cavity[1], 0.0, pr)
+            float(opts.sorbate_count), biased, cavity[1], cavity_prior, pr)
         bf = torch.where(torch.isfinite(final_energy) & valid, bf, 0.0)
         accept = (d[_U_ACC] < bf) & ~eb.iterator_failed
 
@@ -310,10 +364,11 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
         out = StepOut(boltzmann_factor=bf, accepted=accept,
                       movetype=movetype,
                       polarization_iterations=eb.polarization_iterations,
-                      capacity_reject=is_ins & (insert_slot < 0))
+                      capacity_reject=is_ins & (insert_slot < 0),
+                      biased=biased)
         return dataclasses.replace(
             carry, state=state_out, obs=obs_out, step=carry.step + 1,
-            sf=sf_out, recip_e=sel(dres.recip_new, carry.recip_e),
+            cavity=cavity, sf=sf_out, recip_e=sel(dres.recip_new, carry.recip_e),
             pcache=pcache), out
 
     return step
@@ -337,11 +392,17 @@ def make_chunk_runner(flags: FFlags, params: RunParams, opts: MCOptions,
 
     def run_chunk(carry: MCCarry):
         dev = carry.state.pos.device
-        key, draws = chunk_draws(carry.key, chunk_steps)
+        key, draws, k_grid = chunk_draws(carry.key, chunk_steps)
         draws = draws.to(dev)
+        darts = [None] * chunk_steps
+        if opts.cavity_bias:
+            # the twin's uniform(k_grid, (n_darts, 3)) of every step, made
+            # on the device in one call (update_grid's 256 when unset)
+            n_darts = opts.cavity_darts if opts.cavity_darts > 0 else 256
+            darts = rnd.uniform(k_grid.to(dev), (n_darts, 3))
         outs = []
         for i in range(chunk_steps):
-            carry, out = step(carry, draws[i])
+            carry, out = step(carry, draws[i], darts[i])
             outs.append(out)
         outs = StepOut(*(torch.stack(col) for col in zip(*outs)))
         carry = dataclasses.replace(
@@ -358,7 +419,7 @@ def init_carry(state: SystemState, flags: FFlags, params: RunParams,
     require_options(flags, params, opts)
     if bool(torch.any(state.mol_adiabatic)):
         raise NotImplementedError("adiabatic molecules")
-    if not pcache_mod.supports(flags, state.n_atom_slots):
+    if not pcache_mod.supports(flags, state.n_atom_slots, state.pos.device):
         raise ValueError(f"the polarization cache does not take "
                          f"{state.n_atom_slots} atom slots")
     dev = state.pos.device
@@ -392,11 +453,19 @@ def make_refresher(flags: FFlags, base_params: RunParams, opts: MCOptions):
         state = carry.state
         eb = energy_breakdown_blocked(state, flags, params)
         sf = delta_mod.sf_compute(state, flags, params)
+        cavity = carry.cavity
+        if opts.cavity_bias:
+            # the corrtime tier the REMOVE flag reads: with one rank
+            # update_root_nodestats runs at m=1, so avg_observables is a
+            # snapshot of the per-step mean (chain.py:852-863)
+            c = carry.cavity
+            cavity = torch.stack([c[0], c[1], c[0], c[3] + 1.0])
         return dataclasses.replace(
             carry,
             obs=observables_from_breakdown(state, eb, flags, params,
                                            opts.ensemble),
             sf=sf, recip_e=delta_mod.recip_energy(sf, state, flags, params),
-            pcache=pcache_mod.cache_init(state, flags, params))
+            pcache=pcache_mod.cache_init(state, flags, params),
+            cavity=cavity)
 
     return refresh

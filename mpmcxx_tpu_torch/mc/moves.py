@@ -75,11 +75,12 @@ def random_cell_position(state: SystemState, u3):
 
 
 def insert_rows(state: SystemState, u_pos, axis, u_angle, tmpl_rows,
-                slot_rows, row_mask, slot, valid):
+                slot_rows, row_mask, slot, valid, com=None):
     """Insert a randomly placed and oriented copy of the template
     molecule's rows into the dead ``slot`` (src/System.MonteCarlo.cpp:
     740-833).  Draws: ``u_pos`` uniform (3,), ``axis`` normal (3,),
-    ``u_angle`` uniform ().  Returns (new_state, valid)."""
+    ``u_angle`` uniform ().  ``com`` overrides the position drawn from
+    ``u_pos`` (cavity-biased insertion).  Returns (new_state, valid)."""
     A = state.n_atom_slots
     S = tmpl_rows.shape[0]
     t_start, _, t_mask = normalize_window(
@@ -87,7 +88,7 @@ def insert_rows(state: SystemState, u_pos, axis, u_angle, tmpl_rows,
     s_start, _, s_mask = normalize_window(
         torch.where(row_mask, slot_rows, -1), A)
 
-    new_com = random_cell_position(state, u_pos)
+    new_com = random_cell_position(state, u_pos) if com is None else com
     tmpl_pos, tmpl_com = _window_com(state, t_start, t_mask, S)
     q = quat.from_axis_angle_deg(axis, u_angle * 360.0)
     newpos = quat.rotate(q, tmpl_pos - tmpl_com) + new_com

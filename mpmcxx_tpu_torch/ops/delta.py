@@ -23,6 +23,14 @@ from .pairwise import (build_pairs_rect, normalize_window, phase_dot,
                        slice_rows, sum_small_rows)
 
 
+def supports(flags: FFlags) -> bool:
+    """True when the total energy is strictly pairwise + k-space
+    (delta.py:39-44)."""
+    return not (flags.polarization or flags.polarvdw or
+                flags.using_axilrod_teller or flags.rd_crystal or
+                flags.gwp or flags.spectre or flags.rd_anharmonic)
+
+
 class SFCache(NamedTuple):
     """Ewald structure factors over the static hemisphere k-lattice."""
     re: torch.Tensor   # [K]

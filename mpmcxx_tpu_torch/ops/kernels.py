@@ -81,5 +81,8 @@ def load() -> ctypes.CDLL:
             lib.mpmcxx_write_plane_strips.argtypes = [
                 ctypes.POINTER(vp), ci, vp, vp, vp, ci, ci, vp]
             lib.mpmcxx_write_plane_strips.restype = ci
+            lib.mpmcxx_occupancy.argtypes = [
+                vp, vp, vp, ctypes.c_double, ci, ci, vp, vp]
+            lib.mpmcxx_occupancy.restype = ci
             _lib = lib
         return _lib

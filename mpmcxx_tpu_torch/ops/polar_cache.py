@@ -55,18 +55,37 @@ def planes_of(cache: PolarCache):
     return (cache.dx, cache.dy, cache.dz)
 
 
-def supports(flags: FFlags, n_atom_slots: int = 0) -> bool:
-    """True when polarization can ride the incremental cache.
+# Slot bound of the CPU path: the JAX twin's cap (polar_cache.py:92-104).
+CPU_MAX_SLOTS = 16384
+# Device-memory budget of the cache on a GPU: a corrtime refresh holds the
+# carry's old planes, cache_init's tile stack and the assembled new planes
+# at once (3 x 12 A^2 bytes), and that peak stays within this share of the
+# card's memory, leaving the rest to the blocked energy, the proposal's
+# [S,A] rows and the allocator.
+PLANE_COPIES_AT_PEAK = 3
+DEVICE_MEMORY_SHARE = 0.6
 
-    The 16,384-slot cap is the JAX twin's, sized for a 16 GB TPU v5e
-    (three f32 [A,A] planes are 12 A^2 bytes); where the cap lies on an
-    80 GB H100 is a later decision."""
+
+def max_slots(device=None) -> int:
+    """Largest atom-slot count the cache takes on ``device``."""
+    dev = torch.device(device) if device is not None else None
+    if dev is None or dev.type != "cuda":
+        return CPU_MAX_SLOTS
+    total = torch.cuda.get_device_properties(dev).total_memory
+    plane_bytes = 3 * 4 * PLANE_COPIES_AT_PEAK      # per A^2
+    return int((DEVICE_MEMORY_SHARE * total / plane_bytes) ** 0.5)
+
+
+def supports(flags: FFlags, n_atom_slots: int = 0, device=None) -> bool:
+    """True when polarization can ride the incremental cache with
+    ``n_atom_slots`` slots on ``device`` (three f32 [A,A] planes; see
+    max_slots)."""
     ok = (flags.polarization and flags.polar_mixed and
           not flags.polar_ewald_full and
           not (flags.polarvdw or flags.using_axilrod_teller or
                flags.rd_crystal or flags.gwp or flags.spectre or
                flags.rd_anharmonic))
-    if n_atom_slots and n_atom_slots > 16384:
+    if n_atom_slots and n_atom_slots > max_slots(device):
         return False
     return ok
 

@@ -96,9 +96,12 @@ def uniform(key: torch.Tensor, shape=(), dtype=torch.float64,
         floats = fbits.to(torch.int32).view(torch.float32) - 1.0
     else:
         raise NotImplementedError(f"uniform dtype {dtype}")
-    lo = torch.tensor(minval, dtype=dtype, device=key.device)
-    hi = torch.tensor(maxval, dtype=dtype, device=key.device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    # the bounds and their span rounded in ``dtype`` as jax does, kept as
+    # Python scalars: a device scalar tensor would be a synchronous copy
+    np_dt = np.float64 if dtype == torch.float64 else np.float32
+    lo = float(np_dt(minval))
+    span = float(np_dt(maxval) - np_dt(minval))
+    return torch.clamp(floats * span + lo, min=lo)
 
 
 def normal(key: torch.Tensor, shape=(), dtype=torch.float64) -> torch.Tensor:

@@ -1,0 +1,386 @@
+"""Simulation controller: config -> state -> Markov chain -> outputs.
+
+JAX twin: mpmcxx_tpu/runner.py (``Simulation`` with ``apply_state_fixups``,
+``capacity_opts``, capacity regrowth and the corrtime loop; the mesh and
+plane donation have no counterpart, since the planes are written in
+place).  The front-end role of SimulationControl
+(src/SimulationControl.cpp:37-129, runSimulation :2853-2971): parse +
+validate input, build the system, run the uVT chain, and do the
+per-corrtime bookkeeping (averages, energy log, restart/trajectory,
+dipole and field files) with the reference's file contract.
+
+Not ported yet (NotImplementedError): path-integral and Gibbs runs,
+replicas and parallel tempering, multi-sorbate mixtures, the population
+histogram (``calc_hist``) and the frozen-lattice OpenDX file.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+
+import numpy as np
+import torch
+
+from . import constants as const
+from .config.schema import SimConfig
+from .config.validate import validate
+from .io import output as out_io
+from .io import pqr as pqr_io
+from .io import trajectory as traj_io
+from .mc import chain as chain_mod
+from .mc.averages import AvgObservables, nodestats_from_counters
+from .ops import delta as delta_mod
+from .ops import polar_cache as pcache_mod
+from .state import build_state, grow_mol_capacity, topology
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def _obs_to_dict(obs) -> dict:
+    return {f.name: float(getattr(obs, f.name))
+            for f in dataclasses.fields(obs)}
+
+
+def _live(path: str) -> bool:
+    return bool(path) and path != "/dev/null"
+
+
+def require_runner_options(cfg: SimConfig) -> None:
+    """Raise NotImplementedError naming the first run option the port's
+    Simulation has no path for."""
+    if cfg.ensemble == const.ENSEMBLE_PATH_INTEGRAL_NVT:
+        raise NotImplementedError("ensemble pi_nvt (path integrals)")
+    if cfg.ensemble == const.ENSEMBLE_NVT_GIBBS:
+        raise NotImplementedError("ensemble nvt_gibbs")
+    if cfg.parallel_tempering:
+        raise NotImplementedError("parallel_tempering (replicas)")
+    if cfg.calc_hist:
+        raise NotImplementedError("calc_hist (population histogram)")
+    if _live(cfg.frozen_output):
+        raise NotImplementedError("frozen_output (OpenDX lattice)")
+
+
+def apply_state_fixups(state, cfg: SimConfig):
+    """Post-build_state config overrides every constructed state receives:
+    the manual cutoff (pbc_cutoff keyword, src/SimulationControl.cpp:
+    1204-1208; update_pbc keeps it)."""
+    if cfg.pbc_cutoff > 0.0:
+        state = state.replace(pbc=dataclasses.replace(
+            state.pbc, cutoff=torch.full((), cfg.pbc_cutoff,
+                                         dtype=torch.float64,
+                                         device=state.pos.device)))
+    return state
+
+
+def capacity_opts(opts, flags, state):
+    """Recompute the capacity-derived MCOptions fields after a state
+    rebuild: blocked_energy and the polar-cache eligibility depend on the
+    atom-slot count.  The move window ``max_mol_atoms`` is the largest
+    molecule a move can touch: frozen molecules never move.  (The twin
+    takes the largest of all molecules, the flagship's 512-atom
+    framework, and then works every move on a 512-row window whose 3
+    CO2 rows are the only valid ones.)"""
+    counts = np.bincount(_np(state.mol_id), minlength=state.n_mol_slots)
+    counts = counts[~_np(state.mol_frozen)]
+    polar_incremental = pcache_mod.supports(flags, state.n_atom_slots,
+                                            state.pos.device)
+    incremental = delta_mod.supports(flags) or polar_incremental
+    blocked = state.n_atom_slots > 1024 and not (
+        flags.polarvdw or flags.using_axilrod_teller or
+        flags.rd_crystal or flags.gwp or flags.spectre or
+        flags.rd_anharmonic)
+    return dataclasses.replace(
+        opts, incremental=incremental,
+        polar_incremental=polar_incremental, blocked_energy=blocked,
+        max_mol_atoms=int(counts.max()) if len(counts) else 1)
+
+
+def _movable_np(state):
+    return ~(_np(state.mol_frozen) | _np(state.mol_adiabatic) |
+             _np(state.mol_target))
+
+
+class Simulation:
+    """One uVT run on ``device`` (the twin's standard-ensemble runner)."""
+
+    def __init__(self, cfg: SimConfig, quiet: bool = False,
+                 uvt_capacity_factor: float = 2.0, device="cuda"):
+        self.cfg = validate(cfg)
+        require_runner_options(self.cfg)
+        self.quiet = quiet
+        self.out = sys.stdout
+        self.device = torch.device(device)
+
+        atoms = pqr_io.read_pqr(
+            cfg.pqr_input, scale_charge=cfg.scale_charge,
+            cdvdw_sig_repulsion=cfg.cdvdw_sig_repulsion,
+            polarvdw=cfg.polarvdw,
+            cdvdw_exp_repulsion=cfg.cdvdw_exp_repulsion)
+
+        basis = self._resolve_basis(cfg)
+        extra = 0
+        if cfg.ensemble == const.ENSEMBLE_UVT:
+            species = {a.moleculetype for a in atoms
+                       if not a.frozen and not a.adiabatic and not a.target}
+            if len(species) > 1:
+                raise NotImplementedError(
+                    f"multi-sorbate mixtures ({sorted(species)})")
+            n_mov = len({a.molecule_id for a in atoms if not a.frozen})
+            extra = max(int(n_mov * (uvt_capacity_factor - 1.0)), 32)
+
+        self.state, self.meta = build_state(
+            atoms, basis, extra_mol_capacity=extra, device=self.device)
+        self.state = apply_state_fixups(self.state, cfg)
+
+        # ewald alpha defaults to 3.5/cutoff unless user-set
+        # (src/System.cpp:871-874)
+        cutoff = float(self.state.pbc.cutoff)
+        if not cfg.ewald_alpha_set:
+            cfg.ewald_alpha = 3.5 / cutoff
+        if not cfg.polar_ewald_alpha_set:
+            cfg.polar_ewald_alpha = 3.5 / cutoff
+
+        self.flags = cfg.to_flags()
+        self.params = cfg.to_params()
+
+        mov = _np(self.state.mol_alive) & _movable_np(self.state)
+        self._insert_types = tuple(sorted(
+            set(_np(self.state.mol_type)[mov].tolist())))
+        opts = chain_mod.MCOptions(
+            ensemble=cfg.ensemble,
+            move_factor=cfg.move_factor,
+            rot_factor=cfg.rot_factor,
+            insert_probability=cfg.insert_probability,
+            spinflip_probability=cfg.spinflip_probability,
+            adiabatic_probability=cfg.adiabatic_probability,
+            volume_probability=cfg.volume_probability,
+            volume_change_factor=cfg.volume_change_factor,
+            fugacity=cfg.fugacities[0] if cfg.fugacities else cfg.pressure,
+            sorbate_count=1,
+            quantum_rotation=cfg.quantum_rotation,
+            simulated_annealing=cfg.simulated_annealing,
+            simulated_annealing_linear=cfg.simulated_annealing_linear,
+            simulated_annealing_schedule=cfg.simulated_annealing_schedule,
+            simulated_annealing_target=cfg.simulated_annealing_target,
+            numsteps=cfg.numsteps,
+            spectre=cfg.spectre,
+            spectre_max_charge=cfg.spectre_max_charge,
+            spectre_max_target=cfg.spectre_max_target,
+            rd_anharmonic=cfg.rd_anharmonic,
+            gwp=cfg.gwp,
+            gwp_probability=cfg.gwp_probability,
+            cavity_bias=cfg.cavity_bias,
+            cavity_grid_size=cfg.cavity_grid_size,
+            cavity_radius=cfg.cavity_radius,
+            # volume/10 darts (src/System.Cavity.cpp:131), sized from the
+            # initial volume as in the twin
+            cavity_darts=max(int(float(self.state.pbc.volume) * 0.1), 1)
+            if cfg.cavity_bias else 0)
+        self.opts = capacity_opts(opts, self.flags, self.state)
+
+        self.avg = AvgObservables()
+        self.seed = cfg.preset_seed if cfg.preset_seed_on else 0
+        self.carry = chain_mod.init_carry(self.state, self.flags, self.params,
+                                          self.opts, self.seed)
+        self._make_engine()
+
+    def _make_engine(self):
+        self.topology = topology(self.state)
+        self.run_chunk = chain_mod.make_chunk_runner(
+            self.flags, self.params, self.opts, self.cfg.corrtime,
+            topology=self.topology)
+        self.refresh = chain_mod.make_refresher(self.flags, self.params,
+                                                self.opts)
+
+    @staticmethod
+    def _resolve_basis(cfg: SimConfig) -> np.ndarray:
+        basis = np.zeros((3, 3))
+        if cfg.basis1 and cfg.basis2 and cfg.basis3:
+            basis[0] = cfg.basis1
+            basis[1] = cfg.basis2
+            basis[2] = cfg.basis3
+        if cfg.read_pqr_box:
+            b = pqr_io.read_pqr_box(cfg.pqr_input)
+            if b is not None:
+                basis = b
+        if np.linalg.det(basis) <= 0:
+            raise ValueError("invalid simulation box dimensions")
+        return basis
+
+    def _particle_mass(self) -> float:
+        st = self.state
+        mov = _np(st.mol_alive) & ~_np(st.mol_frozen) & \
+            ~_np(st.mol_adiabatic)
+        idx = np.nonzero(mov)[0]
+        return float(_np(st.mol_mass)[idx[0]]) if len(idx) else 0.0
+
+    # -- uVT molecule-capacity regrowth (runner.py:273-359): a proactive
+    # regrow when the dead slots drop below a quarter corrtime, and a
+    # reactive one that DISCARDS the chunk that hit the ceiling and re-runs
+    # it at the larger capacity, so the ceiling never biases the ensemble.
+
+    def _dead_counts(self, state) -> dict:
+        mt = _np(state.mol_type)
+        dead = ~_np(state.mol_alive) & _movable_np(state)
+        return {t: int((dead & (mt == t)).sum()) for t in self._insert_types}
+
+    def _headroom_low(self) -> bool:
+        if self.cfg.ensemble != const.ENSEMBLE_UVT or \
+                not self._insert_types:
+            return False
+        thresh = max(8, int(self.cfg.corrtime) // 4)
+        return any(v < thresh
+                   for v in self._dead_counts(self.carry.state).values())
+
+    def _grow_capacity(self, base_carry) -> None:
+        """Rebuild state and engine with more insertion slots, continuing
+        the chain from ``base_carry`` (key, step, stats, temperature and
+        cavity statistics carry over; energies and caches are rebuilt)."""
+        st = base_carry.state
+        name_of = {i: n for n, i in self.meta["species"].items()}
+        mt = _np(st.mol_type)
+        live = _np(st.mol_alive) & _movable_np(st)
+        extra = {name_of[t]: max(int((live & (mt == t)).sum()),
+                                 int(self.cfg.corrtime), 64)
+                 for t in self._insert_types}
+        self.state, self.meta = grow_mol_capacity(
+            st, self.meta, extra, ensure_species=tuple(extra),
+            pad_atoms_multiple=512 if self.flags.polar_mixed else 0)
+        if not self.quiet:
+            self.out.write(
+                f"MC: molecule capacity grown to "
+                f"{self.state.n_mol_slots} slots "
+                f"({self.state.n_atom_slots} atom slots)\n")
+        self.opts = capacity_opts(self.opts, self.flags, self.state)
+        self._make_engine()
+        fresh = chain_mod.init_carry(self.state, self.flags, self.params,
+                                     self.opts, self.seed)
+        self.carry = dataclasses.replace(
+            fresh, key=base_carry.key, step=base_carry.step,
+            stats=base_carry.stats, temperature=base_carry.temperature,
+            cavity=base_carry.cavity)
+
+    def _corrtime_io(self, step: int):
+        obs = _obs_to_dict(self.carry.obs)
+        T = float(self.carry.temperature)
+        self.avg.update(obs, ensemble=self.cfg.ensemble,
+                        temperature=self.cfg.temperature,
+                        volume=float(self.carry.state.pbc.volume),
+                        particle_mass=self._particle_mass(),
+                        free_volume=self.cfg.free_volume,
+                        fugacity=(self.cfg.fugacities[0]
+                                  if self.cfg.fugacities else None),
+                        pressure=self.cfg.pressure)
+        if self.fp_energy:
+            out_io.write_observables(self.fp_energy, step, obs, T)
+        if self.fp_energy_csv:
+            out_io.write_observables(self.fp_energy_csv, step, obs, T,
+                                     csv=True)
+
+    def run(self) -> AvgObservables:
+        cfg = self.cfg
+        self.fp_energy = None
+        self.fp_energy_csv = None
+        if _live(cfg.energy_output):
+            self.fp_energy = out_io.open_energy_file(cfg.energy_output)
+        if _live(cfg.energy_output_csv):
+            self.fp_energy_csv = out_io.open_energy_file(
+                cfg.energy_output_csv, csv=True)
+        perf = out_io.PerformanceTimer(cfg.numsteps)
+        first_frame = True
+
+        # initial-state output (setup_mpi, src/System.MonteCarlo.cpp:178-206)
+        self._corrtime_io(0)
+        if not self.quiet:
+            self.out.write("MC: initial values:\n")
+            self._display()
+
+        step = 0
+        while step < cfg.numsteps:
+            n = min(cfg.corrtime, cfg.numsteps - step)
+            if n != cfg.corrtime:
+                runner = chain_mod.make_chunk_runner(
+                    self.flags, self.params, self.opts, n,
+                    topology=self.topology)
+            else:
+                runner = self.run_chunk
+            prev_carry = self.carry
+            self.carry, stats = runner(self.carry)
+            if cfg.ensemble == const.ENSEMBLE_UVT and \
+                    bool(stats.capacity_reject.any()):
+                # an INSERT hit the capacity ceiling: discard the chunk,
+                # regrow from the pre-chunk state and re-run the window
+                # (the chunk's in-place plane commits are rebuilt too)
+                self._grow_capacity(prev_carry)
+                continue
+            del prev_carry
+            # full recompute every corrtime: kills Delta-E drift
+            self.carry = self.refresh(self.carry)
+            step += n
+
+            ns = nodestats_from_counters(
+                _np(self.carry.stats.accept), _np(self.carry.stats.reject),
+                float(self.carry.stats.boltzmann_factor),
+                polarization_iterations=float(
+                    stats.polarization_iterations[-1]),
+                cavity_bias_probability=float(self.carry.cavity[0])
+                if cfg.cavity_bias else 0.0)
+            self.avg.update_nodestats(ns)
+
+            self._corrtime_io(step)
+            if cfg.pqr_restart != "/dev/null":
+                pqr_io.write_state_pqr(cfg.pqr_restart, self.carry.state,
+                                       self.meta, wrapall=cfg.wrapall,
+                                       long_output=cfg.long_output)
+            if _live(cfg.traj_output):
+                traj_io.append_traj_frame(cfg.traj_output, self.carry.state,
+                                          self.meta, step,
+                                          wrapall=cfg.wrapall,
+                                          long_output=cfg.long_output,
+                                          first=first_frame)
+                first_frame = False
+            if cfg.polarization:
+                traj_io.write_dipoles(cfg.dipole_output, self.carry.state,
+                                      first=(step <= cfg.corrtime))
+                if _live(cfg.field_output):
+                    self._write_field(step)
+            if not self.quiet:
+                perf.report(step, self.out)
+                self._display()
+            if step < cfg.numsteps and self._headroom_low():
+                self._grow_capacity(self.carry)
+
+        if cfg.pqr_output != "/dev/null":
+            pqr_io.write_state_pqr(cfg.pqr_output, self.carry.state,
+                                   self.meta, wrapall=cfg.wrapall,
+                                   long_output=cfg.long_output)
+        for f in (self.fp_energy, self.fp_energy_csv):
+            if f:
+                f.close()
+        return self.avg
+
+    def _write_field(self, step: int):
+        """Per-molecule static+induced field log (write_field,
+        src/System.Output.cpp:1184-1229).  E_static is the refreshed
+        polar cache's static field of the current state (the twin
+        recomputes it with its dense thole_field); the induced field is
+        backed out of the dipoles (mu/alpha - E_static)."""
+        st = self.carry.state
+        e_static = _np(pcache_mod.static_field(st, self.flags, self.params,
+                                               self.carry.pcache))
+        alpha = _np(st.polarizability)
+        safe = np.where(alpha == 0.0, 1.0, alpha)
+        e_ind = np.where(alpha[:, None] != 0.0,
+                         _np(st.mu) / safe[:, None] - e_static, 0.0)
+        traj_io.write_fields(self.cfg.field_output, st, e_static, e_ind,
+                             first=(step <= self.cfg.corrtime))
+
+    def _display(self):
+        out_io.display_averages(
+            self.avg, temperature=float(self.carry.temperature),
+            simulated_annealing=self.cfg.simulated_annealing,
+            gwp=self.cfg.gwp, ensemble=self.cfg.ensemble,
+            sorbate_count=1, polar_rrms=self.cfg.polar_rrms, out=self.out)

@@ -108,6 +108,18 @@ class SystemState:
         return torch.sum(self._movable() & (
             self.nuclear_spin == const.NUCLEAR_SPIN_ORTHO)).to(torch.float64)
 
+    def mol_com(self):
+        """[M,3] centers of mass (mass-weighted; src/System.cpp:1347-1374),
+        the twin's segment sums as ``index_add``."""
+        w = torch.where(self.aalive, self.mass, 0.0)
+        M = self.n_mol_slots
+        num = torch.zeros((M, 3), dtype=self.pos.dtype,
+                          device=self.pos.device).index_add_(
+            0, self.mol_id, w[:, None] * self.pos)
+        den = torch.zeros(M, dtype=w.dtype, device=w.device).index_add_(
+            0, self.mol_id, w)
+        return num / torch.where(den == 0.0, 1.0, den)[:, None]
+
     def replace(self, **kw) -> "SystemState":
         return dataclasses.replace(self, **kw)
 
@@ -171,13 +183,12 @@ def build_state(atoms: list[AtomRecord], basis: np.ndarray,
                 device=None) -> tuple[SystemState, dict]:
     """Assemble a SystemState on ``device`` from parsed atom records
     (state.py:190-352).  ``extra_mol_capacity`` > 0 reserves dead copies of
-    the last movable molecule for uVT insertion headroom.  Returns
+    the last movable molecule for uVT insertion headroom; a dict
+    ``{moleculetype: count}`` reserves per-species headroom.  Returns
     (state, meta)."""
     atoms = list(atoms)
     if not atoms:
         raise ValueError("no atoms to build state from")
-    if isinstance(extra_mol_capacity, dict):
-        raise NotImplementedError("per-species extra_mol_capacity")
 
     mols: list[list[AtomRecord]] = []
     cur_id = None
@@ -194,7 +205,15 @@ def build_state(atoms: list[AtomRecord], basis: np.ndarray,
         species.setdefault(m[0].moleculetype, len(species))
 
     extra: list[list[AtomRecord]] = []
-    if extra_mol_capacity > 0:
+    if isinstance(extra_mol_capacity, dict):
+        for mt, count in extra_mol_capacity.items():
+            cand = [m for m in mols
+                    if not m[0].frozen and m[0].moleculetype == mt]
+            if not cand:
+                raise ValueError(
+                    f"no movable {mt} molecule to use as insertion template")
+            extra.extend([cand[-1]] * count)
+    elif extra_mol_capacity > 0:
         cand = [m for m in mols
                 if not m[0].frozen and
                 (template_moleculetype is None or
@@ -264,6 +283,123 @@ def topology(state: SystemState) -> tuple[np.ndarray, np.ndarray]:
     first = np.unique(mol_id, return_index=True)
     starts[first[0]] = first[1]
     return starts, counts.astype(np.int64)
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def state_to_records(state: SystemState, meta: dict,
+                     atom_idx=None) -> list[AtomRecord]:
+    """Atoms of a state back to host AtomRecords in slot order, the live
+    atoms by default (state.py:370-404); molecule_id values only delimit
+    grouping."""
+    mol_id = _np(state.mol_id)
+    pos = _np(state.pos)
+    cols = {k: _np(getattr(state, k))
+            for k in ("mass", "charge", "polarizability", "epsilon",
+                      "sigma", "omega", "gwp_alpha", "c6", "c8", "c10",
+                      "c9", "frozen", "adiabatic", "spectre", "target")}
+    if atom_idx is None:
+        atom_idx = np.nonzero(_np(state.aalive))[0]
+    out = []
+    for a in atom_idx:
+        m = int(mol_id[a])
+        rec = {k: (bool(v[a]) if v.dtype == bool else float(v[a]))
+               for k, v in cols.items()}
+        out.append(AtomRecord(
+            atomtype=meta["atomtypes"][a],
+            moleculetype=meta["moleculetypes"][m], molecule_id=m + 1,
+            x=float(pos[a, 0]), y=float(pos[a, 1]), z=float(pos[a, 2]),
+            **rec))
+    return out
+
+
+def _pad_extra(state: SystemState, meta: dict, records, extra,
+               pad_atoms_multiple: int):
+    """Bump the first species' headroom so the regrown atom capacity lands
+    on a multiple of ``pad_atoms_multiple`` (state.py:407-431); no-op for
+    int extras or when no multiple is reachable within
+    ``pad_atoms_multiple`` template molecules."""
+    if not pad_atoms_multiple or not isinstance(extra, dict) or not extra:
+        return extra
+    mt_names = meta["moleculetypes"]
+    mol_id = _np(state.mol_id)
+    per_atom = {}
+    for name in extra:
+        m = next(i for i, nm in enumerate(mt_names) if nm == name)
+        per_atom[name] = int((mol_id == m).sum())
+    base_atoms = len(records) + sum(extra[n] * per_atom[n] for n in extra)
+    name0 = next(iter(extra))
+    s = max(per_atom[name0], 1)
+    for k in range(pad_atoms_multiple):
+        if (base_atoms + k * s) % pad_atoms_multiple == 0:
+            out = dict(extra)
+            out[name0] += k
+            return out
+    return extra
+
+
+def grow_mol_capacity(state: SystemState, meta: dict, extra_mol_capacity,
+                      ensure_species=(), pad_atoms_multiple: int = 0
+                      ) -> tuple[SystemState, dict]:
+    """Rebuild a state with more dead insertion slots (state.py:434-505),
+    on the state's device, keeping the live contents, the PBC, the
+    per-molecule nuclear spins and the live atoms' dipoles.  Species
+    indices stay stable.  ``ensure_species``: insertable species that
+    must keep an insertion template even with no live molecule — one dead
+    exemplar of each is rebuilt as a template and flipped back to dead."""
+    records = state_to_records(state, meta)
+    mol_alive = _np(state.mol_alive)
+    mol_id = _np(state.mol_id)
+    mol_frozen = _np(state.mol_frozen)
+    live_names = {meta["moleculetypes"][m] for m in np.nonzero(mol_alive)[0]}
+    appended = 0
+    for name in ensure_species:
+        if name in live_names:
+            continue
+        cand = [m for m in range(state.n_mol_slots)
+                if meta["moleculetypes"][m] == name and not mol_alive[m]
+                and not mol_frozen[m]]
+        if not cand:
+            raise ValueError(f"no template molecule for species {name}")
+        records.extend(state_to_records(
+            state, meta, atom_idx=np.nonzero(mol_id == cand[0])[0]))
+        appended += 1
+
+    rot = {}
+    rg, ru = _np(state.rot_partfunc_g), _np(state.rot_partfunc_u)
+    for m, name in enumerate(meta["moleculetypes"]):
+        rot.setdefault(name, (float(rg[m]), float(ru[m])))
+    dev = state.pos.device
+    new_state, new_meta = build_state(
+        records, np.eye(3),  # placeholder basis; the real PBC is kept
+        species_names=list(meta["species"]),
+        extra_mol_capacity=_pad_extra(state, meta, records,
+                                      extra_mol_capacity,
+                                      pad_atoms_multiple),
+        rot_partfunc=rot, device=dev)
+
+    # live molecules land at slots 0..n_live-1 in slot order
+    live_mols = np.nonzero(mol_alive)[0]
+    ns = _np(new_state.nuclear_spin).copy()
+    ns[:len(live_mols)] = _np(state.nuclear_spin)[live_mols]
+    live_atoms = np.nonzero(_np(state.aalive))[0]
+    mu = _np(new_state.mu).copy()
+    mu[:len(live_atoms)] = _np(state.mu)[live_atoms]
+    alive_new = _np(new_state.mol_alive).copy()
+    if appended:
+        # the rebuilt templates are the last ``appended`` live slots
+        n_live = new_meta["n_live_molecules"]
+        alive_new[n_live - appended:n_live] = False
+        new_meta["n_live_molecules"] = n_live - appended
+    alive_t = torch.as_tensor(alive_new, device=dev)
+    new_state = new_state.replace(
+        pbc=state.pbc,
+        nuclear_spin=torch.as_tensor(ns, device=dev),
+        mu=torch.as_tensor(mu, device=dev), mol_alive=alive_t,
+        aalive=alive_t.index_select(0, new_state.mol_id))
+    return new_state, new_meta
 
 
 def state_from_jax(numpy_fields: dict, device=None) -> SystemState:

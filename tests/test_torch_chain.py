@@ -13,6 +13,7 @@ torch.set_num_threads(1)
 import torch_co2_system as co2  # noqa: E402
 from mpmcxx_tpu.mc import chain as chain_j  # noqa: E402
 from mpmcxx_tpu.state import topology as topology_j  # noqa: E402
+from mpmcxx_tpu_torch import constants as const  # noqa: E402
 from mpmcxx_tpu_torch.mc import chain as chain_t  # noqa: E402
 from mpmcxx_tpu_torch.ops.energy import \
     energy_breakdown_blocked as eb_t  # noqa: E402
@@ -22,18 +23,23 @@ from mpmcxx_tpu_torch.state import topology as topology_t  # noqa: E402
 CHUNK, N_CHUNKS = 16, 2
 
 
-def _run(chain, topology, system):
+def _run(chain, topology, system, refresh=False):
     state, _, flags, params, opts = system
     carry = chain.init_carry(state, flags, params, opts, seed=0)
     runner = chain.make_chunk_runner(flags, params, opts, CHUNK,
                                      topology=topology(state))
-    per_chunk, movetype, accepted = [], [], []
+    refresher = chain.make_refresher(flags, params, opts)
+    per_chunk, movetype, accepted, bf = [], [], [], []
     for _ in range(N_CHUNKS):
         carry, outs = runner(carry)
-        per_chunk.append((float(carry.obs.energy), float(carry.obs.N)))
+        if refresh:
+            carry = refresher(carry)
+        per_chunk.append((float(carry.obs.energy), float(carry.obs.N),
+                          np.array(carry.cavity)))
         movetype += [int(m) for m in np.asarray(outs.movetype)]
         accepted += [bool(a) for a in np.asarray(outs.accepted)]
-    return carry, per_chunk, movetype, accepted
+        bf += [float(b) for b in np.asarray(outs.boltzmann_factor)]
+    return carry, per_chunk, movetype, accepted, bf
 
 
 @pytest.fixture(scope="module")
@@ -43,11 +49,11 @@ def chains():
 
 
 def test_chain_trajectory_matches_jax(chains):
-    (cj, ej, mj, aj), (ct, et, mt, at) = chains
+    (cj, ej, mj, aj, _), (ct, et, mt, at, _) = chains
     assert mt == mj
     assert at == aj
     assert sum(at) > 0 and {0, 1, 2} <= set(mt)
-    for (e_j, n_j), (e_t, n_t) in zip(ej, et):
+    for (e_j, n_j, _), (e_t, n_t, _) in zip(ej, et):
         assert n_t == n_j
         # f32 SCF planes summed in another order
         assert e_t == pytest.approx(e_j, rel=1e-6)
@@ -55,6 +61,60 @@ def test_chain_trajectory_matches_jax(chains):
                                   np.asarray(cj.stats.accept))
     np.testing.assert_array_equal(ct.stats.reject.numpy(),
                                   np.asarray(cj.stats.reject))
+
+
+def _cavity(system, opts_mod):
+    state, meta, flags, params, opts = system
+    return state, meta, flags, params, dataclasses.replace(
+        opts, cavity_bias=True, cavity_grid_size=5, cavity_radius=2.6,
+        cavity_darts=int(co2.L ** 3 * 0.1))
+
+
+@pytest.fixture(scope="module")
+def cavity_chains():
+    return (_run(chain_j, topology_j, _cavity(co2.jax_system(), chain_j),
+                 refresh=True),
+            _run(chain_t, topology_t, _cavity(co2.torch_system(), chain_t),
+                 refresh=True))
+
+
+def test_cavity_chain_matches_jax(cavity_chains):
+    """Cavity-biased insertion: the same move and accept sequences and,
+    through the Boltzmann factors (the biased factor carries the cavity
+    volume and the prior open fraction), the same biased sequence; the
+    cavity averages across two corrtime refreshes agree."""
+    (cj, ej, mj, aj, bj), (ct, et, mt, at, bt) = cavity_chains
+    assert mt == mj and at == aj
+    # BF = exp(-dE/T) (x the cavity terms): dE carries the f32 SCF's
+    # ~1e-6 relative polarization difference, a few mK here, so the factors
+    # agree to ~|d dE| / T; a biased and an unbiased factor differ by
+    # V / (V_cavity p), ~100 here
+    np.testing.assert_allclose(bt, bj, rtol=1e-4)
+    c = ct.cavity
+    assert co2.L ** 3 / float(c[1] * c[0]) > 10.0
+    for (e_j, n_j, c_j), (e_t, n_t, c_t) in zip(ej, et):
+        assert n_t == n_j
+        assert e_t == pytest.approx(e_j, rel=1e-6)
+        np.testing.assert_allclose(c_t, c_j, rtol=1e-12)
+    assert ct.cavity[3] == 2.0 and 0.0 < float(ct.cavity[0]) < 1.0
+    assert {const.MOVETYPE_INSERT, const.MOVETYPE_REMOVE} <= set(mt)
+
+
+def test_cavity_biased_flags(cavity_chains):
+    """The port's StepOut.biased: every insert with an open cavity point
+    and no other move type than insert and remove is biased."""
+    system = _cavity(co2.torch_system(), chain_t)
+    state, _, flags, params, opts = system
+    carry = chain_t.init_carry(state, flags, params, opts, seed=0)
+    runner = chain_t.make_chunk_runner(flags, params, opts, CHUNK,
+                                       topology=topology_t(state))
+    _, outs = runner(carry)
+    mt = outs.movetype
+    ins = mt == const.MOVETYPE_INSERT
+    rem = mt == const.MOVETYPE_REMOVE
+    assert bool(outs.biased[ins].all()) and bool(ins.any())
+    assert not bool(outs.biased[~(ins | rem)].any())
+    assert [int(m) for m in mt] == cavity_chains[0][2][:CHUNK]
 
 
 def test_incremental_tracks_full_recompute(chains):
@@ -91,7 +151,7 @@ def test_unported_flag_raises(flag):
                                   topology=topology_t(state))
 
 
-@pytest.mark.parametrize("opt", [{"ensemble": 1}, {"cavity_bias": True},
+@pytest.mark.parametrize("opt", [{"ensemble": 1}, {"spectre": True},
                                  {"quantum_rotation": True}])
 def test_unported_option_raises(opt):
     state, _, flags, params, opts = co2.torch_system()

@@ -1,7 +1,9 @@
-"""chip_smoke.py, the on-card check of the PyTorch/CUDA port, as far as a
-machine without a GPU can exercise it: it imports cleanly, refuses to run
-without CUDA or outside a checkout, builds the flagship with the port,
-and neither it nor the port imports jax or the JAX package."""
+"""chip_smoke.py, the on-card check of the PyTorch/CUDA port, and the
+port's command line, as far as a machine without a GPU can exercise them:
+chip_smoke imports cleanly, refuses to run without CUDA or outside a
+checkout, and builds the flagship with the port; the CLI refuses to run
+without CUDA unless given ``--device cpu``, and then runs an input to its
+end; neither imports jax or the JAX package."""
 
 import os
 import shutil
@@ -11,6 +13,8 @@ import sys
 import pytest
 
 pytest.importorskip("torch")
+
+import torch_co2_system as co2  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -63,6 +67,70 @@ def test_builds_flagship_without_jax():
     r = _run(["-c", code], ROOT)
     assert r.returncode == 0, r.stderr
     assert r.stdout.split() == ["11264", "10112", "3585"]
+
+
+CLI_RUN_IN = """job_name tiny
+ensemble uvt
+temperature 150.0
+pressure 20.0
+insert_probability 0.3
+move_factor 0.1
+numsteps 4
+corrtime 2
+seed 0
+polarization on
+polar_iterative on
+polar_ewald on
+polar_mixed on
+polar_max_iter 4
+polar_damp_type exponential
+polar_damp 2.1304
+cavity_bias on
+cavity_grid 4
+cavity_radius 2.6
+pqr_input co2.pqr
+basis1 28 0 0
+basis2 0 28 0
+basis3 0 0 28
+"""
+
+
+def _cli_input(tmp_path):
+    """A run.in and a CO2 PQR of 8 framework atoms and 171 CO2 (1,034 atom
+    slots after the runner's uVT headroom: the blocked path)."""
+    co2.write_pqr(str(tmp_path / "co2.pqr"), co2.records(5, 28.0, 171, 6))
+    (tmp_path / "run.in").write_text(CLI_RUN_IN)
+
+
+def test_cli_without_device_exits_nonzero_without_cuda(tmp_path):
+    _cli_input(tmp_path)
+    r = _run(["-m", "mpmcxx_tpu_torch.cli", "run.in"], tmp_path)
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr
+    assert "Simulation complete" not in r.stdout
+    assert not (tmp_path / "tiny.energy.dat").exists()
+
+
+def test_cli_runs_on_cpu_without_jax(tmp_path):
+    """``--device cpu`` runs the cavity-biased uVT input to its end with
+    jax and the JAX package made unimportable."""
+    _cli_input(tmp_path)
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mpmcxx_tpu'] = None\n"
+        "from mpmcxx_tpu_torch import cli\n"
+        "sys.exit(cli.main(['--device', 'cpu', 'run.in']))\n")
+    r = _run(["-c", code], tmp_path)
+    assert r.returncode == 0, r.stderr
+    assert "SIM_CONTROL: cavity-biased umbrella sampling activated" in \
+        r.stdout
+    assert r.stdout.splitlines()[-1] == "SIM_CONTROL: Simulation complete!"
+    rows = [ln.split() for ln in
+            (tmp_path / "tiny.energy.dat").read_text().splitlines()[1:]]
+    assert [float(r[0]) for r in rows] == [0.0, 2.0, 4.0]
+    for name in ("tiny.restart.pqr", "tiny.final.pqr", "tiny.dipole.dat"):
+        assert (tmp_path / name).stat().st_size > 0, name
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):

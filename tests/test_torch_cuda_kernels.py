@@ -11,6 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from mpmcxx_tpu_torch.ops import cuda_cavity  # noqa: E402
 from mpmcxx_tpu_torch.ops import cuda_polar  # noqa: E402
 from mpmcxx_tpu_torch.ops import polar_cache  # noqa: E402
 
@@ -99,3 +100,25 @@ def test_wrappers_reject_bad_inputs(cuda):
                                                           device=cuda),
                                       torch.zeros(2, 3, A, device=cuda),
                                       torch.tensor(0, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,A", [(300, 70), (4097, 1000), (1, 0)])
+def test_occupancy_kernel_bit_equal_to_plain(cuda, P, A):
+    """K3 against its plain version, bitwise, with atoms placed at
+    r (1 +- 1e-12) of the points and a third of them dead."""
+    r = 2.6
+    rng = np.random.default_rng(P + A)
+    pts = rng.uniform(-10, 10, (P, 3))
+    u = rng.normal(size=(A, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    near = pts[rng.integers(0, P, A)] + u * (
+        r * (1 + 1e-12 * rng.choice([-1.0, 1.0], A)))[:, None]
+    alive = rng.uniform(size=A) > 1 / 3
+    args = [torch.from_numpy(x).to(cuda) for x in (pts, near, alive)]
+    before = cuda_cavity.occupancy.launches
+    got = cuda_cavity.occupancy(*args, r)
+    want = cuda_cavity.occupancy_plain(*args, r)
+    torch.cuda.synchronize()
+    assert cuda_cavity.occupancy.launches == before + 1
+    assert got.dtype == torch.bool and torch.equal(got, want)

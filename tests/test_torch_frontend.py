@@ -1,0 +1,137 @@
+"""The port's front end (config parser and validation, fugacities, PQR
+reader/writer, startup echo) against the JAX package's on the same
+inputs.  Host-side Python in both packages: equality is exact, except the
+fugacities (1e-12 relative, numpy in both)."""
+
+import dataclasses
+import glob
+import io
+import os
+import warnings
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from mpmcxx_tpu.config import parser as parser_j  # noqa: E402
+from mpmcxx_tpu.config import validate as validate_j  # noqa: E402
+from mpmcxx_tpu.io import pqr as pqr_j  # noqa: E402
+from mpmcxx_tpu.mc import fugacity as fug_j  # noqa: E402
+from mpmcxx_tpu.state import build_state as build_state_j  # noqa: E402
+from mpmcxx_tpu_torch import constants as const  # noqa: E402
+from mpmcxx_tpu_torch.config import parser as parser_t  # noqa: E402
+from mpmcxx_tpu_torch.config import validate as validate_t  # noqa: E402
+from mpmcxx_tpu_torch.io import pqr as pqr_t  # noqa: E402
+from mpmcxx_tpu_torch.mc import fugacity as fug_t  # noqa: E402
+from mpmcxx_tpu_torch.state import build_state as build_state_t  # noqa: E402
+from test_validate import ERROR_TABLE  # noqa: E402
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(HERE)
+EXAMPLES = sorted(glob.glob(os.path.join(REPO, "examples", "*", "run.in")))
+MOF_CO2 = os.path.join(REPO, "examples", "gcmc-mof-co2", "mof_co2.pqr")
+
+
+def _validated(validate, cfg):
+    # a pi_nvt input wants a Trotter number (-P) >= 4
+    n = 4 if cfg.ensemble == const.ENSEMBLE_PATH_INTEGRAL_NVT else 1
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return validate(cfg, n_systems=n)
+
+
+@pytest.mark.parametrize("path", EXAMPLES,
+                         ids=[p.split(os.sep)[-2] for p in EXAMPLES])
+def test_example_config_matches_jax(path):
+    cj = parser_j.read_config(path)
+    ct = parser_t.read_config(path)
+    assert dataclasses.asdict(ct) == dataclasses.asdict(cj)
+    cj, ct = _validated(validate_j.validate, cj), \
+        _validated(validate_t.validate, ct)
+    assert dataclasses.asdict(ct) == dataclasses.asdict(cj)
+    assert dataclasses.asdict(ct.to_flags()) == \
+        dataclasses.asdict(cj.to_flags())
+    assert dataclasses.asdict(ct.to_params()) == \
+        dataclasses.asdict(cj.to_params())
+
+
+@pytest.mark.parametrize(
+    "extra,base", [(e, b) for e, b, _, _ in ERROR_TABLE],
+    ids=[f"{m[:40]}@{anchor}" for _, _, m, anchor in ERROR_TABLE])
+def test_validate_error_matches_jax(extra, base):
+    msgs = []
+    for parser, validate in ((parser_j, validate_j), (parser_t, validate_t)):
+        with pytest.raises(parser.ConfigError) as e:
+            _validated(validate.validate, parser.parse_config(base + extra))
+        msgs.append(str(e.value))
+    assert msgs[1] == msgs[0]
+
+
+@pytest.mark.parametrize("fn,args", [
+    ("h2_fugacity", (77.0, 1.0)), ("h2_fugacity", (77.0, 100.0)),
+    ("h2_fugacity", (298.0, 100.0)), ("co2_fugacity", (298.0, 50.0)),
+    ("co2_fugacity", (298.0, 1.0)), ("ch4_fugacity", (298.0, 50.0)),
+    ("n2_fugacity", (78.0, 0.5)), ("pr_fugacity", ("ch4", 298.0, 50.0))])
+def test_fugacity_matches_jax(fn, args):
+    want = getattr(fug_j, fn)(*args)
+    assert getattr(fug_t, fn)(*args) == pytest.approx(want, rel=1e-12)
+
+
+def test_read_pqr_matches_jax(tmp_path):
+    rj = pqr_j.read_pqr(MOF_CO2, scale_charge=0.5)
+    rt = pqr_t.read_pqr(MOF_CO2, scale_charge=0.5)
+    assert len(rt) == len(rj) == 117
+    assert [dataclasses.asdict(a) for a in rt] == \
+        [dataclasses.asdict(a) for a in rj]
+    p = tmp_path / "box.pqr"
+    p.write_text("".join(
+        f"REMARK BOX BASIS[{i}] = {r[0]} {r[1]} {r[2]}\n"
+        for i, r in enumerate(np.eye(3) * 24.0 + 0.5)) + "END\n")
+    np.testing.assert_array_equal(pqr_t.read_pqr_box(str(p)),
+                                  pqr_j.read_pqr_box(str(p)))
+    assert pqr_t.read_pqr_box(MOF_CO2) is None
+
+
+@pytest.mark.parametrize("wrapall", [True, False])
+def test_write_state_pqr_byte_equal(tmp_path, wrapall):
+    basis = np.eye(3) * 24.0
+    sj, mj = build_state_j(pqr_j.read_pqr(MOF_CO2), basis,
+                           extra_mol_capacity=4)
+    st, mt = build_state_t(pqr_t.read_pqr(MOF_CO2), basis,
+                           extra_mol_capacity=4)
+    # move one molecule out of the cell so the COM wrap has work to do
+    shift = np.zeros_like(np.asarray(sj.pos))
+    shift[np.asarray(sj.mol_id) == 3] = [30.0, -13.0, 0.5]
+    sj = sj.replace(pos=sj.pos + shift)
+    st = st.replace(pos=st.pos + torch.from_numpy(shift))
+    pj, pt = tmp_path / "jax.pqr", tmp_path / "torch.pqr"
+    pqr_j.write_state_pqr(str(pj), sj, mj, wrapall=wrapall)
+    pqr_j.drain()
+    pqr_t.write_state_pqr(str(pt), st, mt, wrapall=wrapall)
+    assert pt.read_bytes() == pj.read_bytes()
+
+
+def test_sim_control_echo_matches_golden(tmp_path, monkeypatch):
+    """The port's startup echo of examples/gcmc-mof-co2 equals the
+    reference binary's (tests/golden/sim_control/gcmc_mof_co2.txt, the
+    fixture of tests/test_sim_control_echo.py).  The runner sizes the
+    headroom so the system takes the blocked path (> 1024 slots)."""
+    from mpmcxx_tpu_torch.io.output import display_sim_control
+    from mpmcxx_tpu_torch.runner import Simulation
+    monkeypatch.chdir(tmp_path)
+    src = os.path.join(REPO, "examples", "gcmc-mof-co2")
+    for name in ("run.in", "mof_co2.pqr"):
+        with open(os.path.join(src, name)) as f:
+            (tmp_path / name).write_text(f.read())
+    sim = Simulation(parser_t.read_config("run.in"), quiet=True,
+                     uvt_capacity_factor=20.0, device="cpu")
+    assert sim.state.n_atom_slots > 1024
+    buf = io.StringIO()
+    buf.write("SIM_CONTROL: running parameters found in: run.in\n")
+    buf.write("SIM_CONTROL: Finished reading config file.\n")
+    display_sim_control(sim.cfg, out=buf, n_systems=1)
+    with open(os.path.join(HERE, "golden", "sim_control",
+                           "gcmc_mof_co2.txt")) as f:
+        assert buf.getvalue().splitlines() == f.read().splitlines()

@@ -121,3 +121,26 @@ def test_cpu_wrappers_do_not_count_launches():
         torch.tensor(5))
     assert (cuda_polar.contract_planes.launches,
             cuda_polar.write_plane_strips.launches) == before
+
+
+@pytest.mark.parametrize("slots", [0, 16384, 16385, 19712])
+def test_cache_slot_bound(monkeypatch, slots):
+    """On the CPU ``supports`` takes the JAX package's branch (16,384
+    slots); on a card the bound is its memory: three plane copies of
+    12 A^2 bytes within DEVICE_MEMORY_SHARE of total_memory, so an
+    80 GiB card takes the CO2 flagship's 19,712 runner slots."""
+    from mpmcxx_tpu import flags as fl_j
+    from mpmcxx_tpu_torch import flags as fl_t
+    kw = dict(polarization=True, polar_iterative=True, polar_ewald=True,
+              polar_mixed=True)
+    assert pc_t.supports(fl_t.FFlags(**kw), slots) == \
+        pc_j.supports(fl_j.FFlags(**kw), slots)
+
+    class Props:
+        total_memory = 80 * 2 ** 30
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: Props)
+    cap = pc_t.max_slots("cuda")
+    assert 36 * cap ** 2 <= pc_t.DEVICE_MEMORY_SHARE * Props.total_memory \
+        < 36 * (cap + 1) ** 2
+    assert pc_t.supports(fl_t.FFlags(**kw), slots, "cuda")

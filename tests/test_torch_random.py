@@ -59,3 +59,23 @@ def test_batched_keys_match_one_by_one():
     for i in range(5):
         want = jax.random.uniform(jax.random.split(kj[i], 3)[2], (6,))
         np.testing.assert_array_equal(got[i], np.asarray(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-0.5, 0.5), (-3.0, 7.25),
+                                   ("normal", 1.0)])
+def test_uniform_bounds_as_scalars_unchanged(dtype, lo, hi):
+    """uniform() keeps its bounds as Python scalars (no device copy); its
+    draws equal, bit for bit, those of the bounds as 0-d tensors of the
+    draw's dtype (this module's earlier form).  (jax agrees bit for bit at
+    the bounds the chain uses, test_uniform_bit_equal; at others XLA may
+    fuse the scale and shift into one rounding.)"""
+    np_dt = np.float64 if dtype == torch.float64 else np.float32
+    if lo == "normal":
+        lo = float(np.nextafter(np_dt(-1.0), np_dt(0.0)))
+    kt = rnd.split(rnd.PRNGKey(11), 4)
+    got = rnd.uniform(kt, (257,), dtype, lo, hi)
+    base = rnd.uniform(kt, (257,), dtype)          # floats in [0, 1)
+    lo_t, hi_t = torch.tensor(lo, dtype=dtype), torch.tensor(hi, dtype=dtype)
+    want = torch.maximum(lo_t, base * (hi_t - lo_t) + lo_t)
+    assert torch.equal(got, want)

@@ -17,11 +17,13 @@ EXTRA = 6
 E2REDUCED = 408.7816
 
 
-def records(seed: int = 11):
-    """(kwargs per atom) for AtomRecord of either package."""
+def records(seed: int = 11, box: float = L, n_mol: int = N_MOL,
+            g: int = 4):
+    """(kwargs per atom) for AtomRecord of either package: the 8 framework
+    atoms and ``n_mol`` CO2 on a jittered g^3 lattice of ``box``."""
     rng = np.random.default_rng(seed)
     out = []
-    s = L / 2
+    s = box / 2
     for i in range(2):
         for j in range(2):
             for k in range(2):
@@ -33,16 +35,18 @@ def records(seed: int = 11):
                     charge=q * E2REDUCED, epsilon=flagship.FRAME_EPS,
                     sigma=flagship.FRAME_SIG,
                     polarizability=flagship.FRAME_ALPHA))
-    g = 4
     pts = (np.stack(np.meshgrid(*[np.arange(g)] * 3, indexing="ij"),
-                    -1).reshape(-1, 3) + 0.5) * (L / g) - L / 2
-    coms = pts[rng.choice(len(pts), N_MOL, replace=False)] + \
-        rng.uniform(-0.3, 0.3, (N_MOL, 3))
-    u = rng.normal(size=(N_MOL, 3))
+                    -1).reshape(-1, 3) + 0.5) * (box / g) - box / 2
+    frame = np.array([[r["x"], r["y"], r["z"]] for r in out])
+    near = np.linalg.norm(pts[:, None] - frame[None], axis=-1).min(1) < 3.0
+    pts = pts[~near]
+    coms = pts[rng.choice(len(pts), n_mol, replace=False)] + \
+        rng.uniform(-0.3, 0.3, (n_mol, 3))
+    u = rng.normal(size=(n_mol, 3))
     u /= np.linalg.norm(u, axis=1, keepdims=True)
     mols = np.round(np.stack([coms, coms + flagship.CO2_BOND * u,
                               coms - flagship.CO2_BOND * u], 1), 3)
-    for m in range(N_MOL):
+    for m in range(n_mol):
         for site, (at, mass, q, al, eps, sig) in \
                 enumerate(flagship.CO2_SITES):
             p = mols[m, site]
@@ -101,3 +105,18 @@ def jax_state_numpy(state):
     out["pbc"] = {k: np.asarray(getattr(state.pbc, k))
                   for k in ("basis", "reciprocal", "volume", "cutoff")}
     return out
+
+
+def write_pqr(path: str, recs) -> None:
+    """``recs`` as a 20-token PQR (charges in e, F freezes the framework),
+    every value exact at the file's precision."""
+    with open(path, "w") as f:
+        for i, r in enumerate(recs, 1):
+            f.write(f"ATOM  {i:5d} {r['atomtype']:<4s} "
+                    f"{r['moleculetype']:<3s} {'F' if r.get('frozen') else 'M'}"
+                    f" {r['molecule_id']:4d}   "
+                    f"{r['x']:8.3f}{r['y']:8.3f}{r['z']:8.3f} "
+                    f"{r['mass']:.5f} {r['charge'] / E2REDUCED:8.5f} "
+                    f"{r['polarizability']:.5f} {r['epsilon']:.5f} "
+                    f"{r['sigma']:.5f} 0.00000 0.00000\n")
+        f.write("END\n")
