@@ -4,8 +4,12 @@ PyTorch versions and launch counts.
 JAX twin: mpmcxx_tpu/ops/pallas_polar.py.
 
 - K1 ``contract_planes`` (csrc/contract_planes.cu) replaces
-  ``contract_pallas_sym``: ``-T mu`` over the f32 SCF planes.  Bound by
-  device-memory bytes (1.52 GB per call in mode 3 at A = 11,264).
+  ``contract_pallas_sym`` and ``contract_pallas``: ``-T mu`` over the full
+  f32 SCF planes, no symmetry assumed.  Bound by device-memory bytes
+  (1.52 GB per call in mode 3 at A = 11,264).
+- K4 ``contract_planes_tri`` (csrc/contract_planes_tri.cu) replaces
+  ``contract_pallas_tri``: the same ``-T mu`` for symmetric T, reading each
+  unordered 64 x 64 tile pair once (about half of K1's bytes).
 - K2 ``write_plane_strips`` (csrc/write_plane_strips.cu) replaces
   ``write_columns_pallas`` and the row update of
   ``polar_cache.write_symmetric_rows``: the commit's row and column strips
@@ -51,24 +55,38 @@ def _on_cpu(t) -> bool:
 # K1: SCF contraction
 # --------------------------------------------------------------------------
 
-def contract_planes_plain(planes, mu, l: float = 0.0):
-    """Eager form of polar.contract_mixed (polar.py:884-897): ``-T mu`` in
-    f32 over the 3-, 4- or 5-plane tuple, returned as [A,3] f64."""
+def _unfold(planes, l: float):
+    """(co or None, cd, dx, dy, dz) of a 3-, 4- or 5-plane tuple; mode 3
+    recomputes (co, cd) from the masked displacements, mode 4 has no co
+    (s = -(s . mu))."""
     from .polar import coeffs_from_d
     if len(planes) == 3:
         dx, dy, dz = planes
         co, cd = coeffs_from_d(dx, dy, dz, l)
-    else:
-        co = planes[0] if len(planes) == 5 else None
-        cd, dx, dy, dz = planes[-4:]
-    m = mu.to(torch.float32)
-    mx, my, mz = m[:, 0][None, :], m[:, 1][None, :], m[:, 2][None, :]
+        return co, cd, dx, dy, dz
+    co = planes[0] if len(planes) == 5 else None
+    return (co,) + tuple(planes[-4:])
+
+
+def _t_mu(terms, m, dim: int):
+    """Sum over axis ``dim`` of T_ij m, f32: m [n,3] is the mu of the
+    columns (dim 1, row sums) or of the rows (dim 0, column sums)."""
+    co, cd, dx, dy, dz = terms
+    shape = (1, -1) if dim == 1 else (-1, 1)
+    mx, my, mz = (m[:, k].reshape(shape) for k in range(3))
     dot = dx * mx + dy * my + dz * mz
     s = -dot if co is None else co * dot
-    ex = torch.sum(s * dx + cd * mx, dim=1)
-    ey = torch.sum(s * dy + cd * my, dim=1)
-    ez = torch.sum(s * dz + cd * mz, dim=1)
-    return -torch.stack([ex, ey, ez], dim=1).to(torch.float64)
+    return torch.stack([torch.sum(s * dx + cd * mx, dim=dim),
+                        torch.sum(s * dy + cd * my, dim=dim),
+                        torch.sum(s * dz + cd * mz, dim=dim)], dim=1)
+
+
+def contract_planes_plain(planes, mu, l: float = 0.0):
+    """Eager form of polar.contract_mixed (polar.py:884-897): ``-T mu`` in
+    f32 over the 3-, 4- or 5-plane tuple, returned as [A,3] f64.  It is the
+    reference of both K1 and K4 on the card."""
+    return -_t_mu(_unfold(planes, l), mu.to(torch.float32), 1).to(
+        torch.float64)
 
 
 def contract_planes(planes, mu, l: float = 0.0):
@@ -99,6 +117,69 @@ def contract_planes(planes, mu, l: float = 0.0):
 
 
 contract_planes.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K4: SCF contraction over the tile triangle
+# --------------------------------------------------------------------------
+
+TRI_TILE = 64     # the kernel's b (csrc/contract_planes_tri.cu kTile)
+
+
+def contract_planes_tri_plain(planes, mu, l: float = 0.0):
+    """K4's schedule in PyTorch: ``-T mu`` for symmetric T from the
+    TRI_TILE x TRI_TILE tile pairs I <= J only, [A,3] f64.  Tile (I, J)
+    adds its row sums (T_ij mu_j) to slot J of the rows of I and, off the
+    diagonal, its column sums (T_ji mu_i = T_ij mu_i) to slot I of the
+    columns of J; the nr slots of each atom are then added.  The last tile
+    is ragged when TRI_TILE does not divide A."""
+    A = planes[0].shape[0]
+    b = TRI_TILE
+    nr = -(-A // b)
+    m = mu.to(torch.float32)
+    part = torch.zeros((nr, A, 3), dtype=torch.float32, device=mu.device)
+    for I in range(nr):
+        ri = slice(I * b, min(A, (I + 1) * b))
+        for J in range(I, nr):
+            cj = slice(J * b, min(A, (J + 1) * b))
+            terms = _unfold(tuple(p[ri, cj] for p in planes), l)
+            part[J, ri] = _t_mu(terms, m[cj], 1)
+            if J != I:
+                part[I, cj] = _t_mu(terms, m[ri], 0)
+    return -part.sum(dim=0).to(torch.float64)
+
+
+def contract_planes_tri(planes, mu, l: float = 0.0):
+    """``-T mu`` over square f32 planes of a symmetric T (antisymmetric d,
+    symmetric co and cd; the modes of contract_planes), mu [A,3]; returns
+    [A,3] f64.  Any A: the kernel masks the ragged last tile."""
+    if _on_cpu(planes[0]):
+        return contract_planes_tri_plain(planes, mu, l)
+    mode = len(planes)
+    A = planes[0].shape[0]
+    if mode not in (3, 4, 5):
+        raise ValueError(f"contract_planes_tri: {mode} planes")
+    for p in planes:
+        _check_cuda_f32("contract_planes_tri plane", p, (A, A))
+    if tuple(mu.shape) != (A, 3) or mu.device != planes[0].device:
+        raise ValueError(f"contract_planes_tri: mu {tuple(mu.shape)} on "
+                         f"{mu.device} for {A}x{A} planes")
+    lib = kernels.load()
+    m = mu.to(torch.float32).t().contiguous()          # [3, A] SoA
+    nr = -(-A // TRI_TILE)
+    scratch = torch.empty((nr, A, 3), dtype=torch.float32, device=mu.device)
+    out = torch.empty((A, 3), dtype=torch.float32, device=mu.device)
+    rc = lib.mpmcxx_contract_planes_tri(
+        _void_ptrs(planes), mode, m.data_ptr(), l, scratch.data_ptr(),
+        out.data_ptr(), A, torch.cuda.current_stream(mu.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"contract_planes_tri launch failed: CUDA error {rc}")
+    contract_planes_tri.launches += 1
+    return -out.to(torch.float64)
+
+
+contract_planes_tri.launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -78,6 +78,9 @@ def load() -> ctypes.CDLL:
             lib.mpmcxx_contract_planes.argtypes = [
                 ctypes.POINTER(vp), ci, vp, ctypes.c_float, vp, ci, vp]
             lib.mpmcxx_contract_planes.restype = ci
+            lib.mpmcxx_contract_planes_tri.argtypes = [
+                ctypes.POINTER(vp), ci, vp, ctypes.c_float, vp, vp, ci, vp]
+            lib.mpmcxx_contract_planes_tri.restype = ci
             lib.mpmcxx_write_plane_strips.argtypes = [
                 ctypes.POINTER(vp), ci, vp, vp, vp, ci, ci, vp]
             lib.mpmcxx_write_plane_strips.restype = ci

@@ -4,8 +4,9 @@ JAX twin: mpmcxx_tpu/ops/polar.py.  Ported: the Ewald static field
 (real_term, recip_term; src/System.Energy.cpp:2834-2940), the float32
 pair-coefficient planes of the mixed-precision SCF (mixed_coeff_scalars,
 plane_mode, coeffs_from_d, fold_outer_rows, mixed_field_coeffs), the
-contraction ``-T mu`` over those planes (contract_mixed, which runs the
-hand-written CUDA kernel of ops/cuda_polar.py on a CUDA tensor), and the
+contraction ``-T mu`` over those planes (contract_mixed, which runs a
+hand-written CUDA kernel of ops/cuda_polar.py on a CUDA tensor, chosen by
+the JAX package's MPMCXX_SYM_KERNEL / MPMCXX_TRI_KERNEL switch), and the
 fixed-iteration Jacobi solve (thole_iterative, finish_polar,
 polar_blocked).  Energy = -1/2 sum mu . E_static in Kelvin.
 """
@@ -13,6 +14,7 @@ polar_blocked).  Energy = -1/2 sum mu . E_static in Kelvin.
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple
 
 import torch
@@ -235,14 +237,38 @@ def mixed_field_coeffs(state: SystemState, flags: FFlags, params: RunParams,
     return planes, torch.where(state.atom_alive()[:, None], E, 0.0)
 
 
+def supported(A: int) -> bool:
+    """pallas_polar.supported (pallas_polar.py:116-117): the square sizes
+    the JAX package's contraction kernels take."""
+    return A >= 256 and A % 128 == 0
+
+
+def use_tri(shape) -> bool:
+    """Whether the JAX package's contract_mixed, off the CPU, runs
+    contract_pallas_tri on planes of ``shape`` (polar.py:865-883), with the
+    environment read now: square supported planes, MPMCXX_SYM_KERNEL not
+    "0" and MPMCXX_TRI_KERNEL "1".  (Its _pick_b_sym test holds for every
+    supported A.)"""
+    rows, cols = shape
+    return (rows == cols and supported(rows)
+            and os.environ.get("MPMCXX_SYM_KERNEL", "1") != "0"
+            and os.environ.get("MPMCXX_TRI_KERNEL", "0") == "1")
+
+
 def contract_mixed(coeffs, mu, l=None):
     """ef_induced = -T mu from the 3-, 4- or 5-plane f32 tuple of
     fold_outer_rows; the 3-plane mode needs the damping width ``l``
-    (params.polar_damp).  Runs kernel K1 (ops/cuda_polar.contract_planes)
-    on CUDA tensors, its plain PyTorch version on CPU tensors."""
+    (params.polar_damp).  Where the JAX package would run
+    contract_pallas_tri (use_tri) this runs kernel K4
+    (ops/cuda_polar.contract_planes_tri), otherwise kernel K1
+    (contract_planes); each takes its plain PyTorch version on CPU
+    tensors."""
     if len(coeffs) == 3 and l is None:
         raise ValueError("3-plane mixed coefficients need l=polar_damp")
-    return cuda_polar.contract_planes(coeffs, mu, 0.0 if l is None else l)
+    l = 0.0 if l is None else l
+    if use_tri(coeffs[0].shape):
+        return cuda_polar.contract_planes_tri(coeffs, mu, l)
+    return cuda_polar.contract_planes(coeffs, mu, l)
 
 
 def polar_blocked(state: SystemState, flags: FFlags, params: RunParams,

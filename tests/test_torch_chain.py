@@ -1,6 +1,6 @@
-"""The slice as a whole: the same small CO2-flagship-shaped system through
-the JAX chain (init_carry + make_chunk_runner) and the port's, seed 0,
-2 chunks x 16 uVT moves."""
+"""The slice as a whole: the same small flagship-shaped systems (CO2, and
+the H2 and monatomic shapes) through the JAX chain (init_carry +
+make_chunk_runner) and the port's, seed 0, 2 chunks x 16 uVT moves."""
 
 import dataclasses
 
@@ -15,6 +15,7 @@ from mpmcxx_tpu.mc import chain as chain_j  # noqa: E402
 from mpmcxx_tpu.state import topology as topology_j  # noqa: E402
 from mpmcxx_tpu_torch import constants as const  # noqa: E402
 from mpmcxx_tpu_torch.mc import chain as chain_t  # noqa: E402
+from mpmcxx_tpu_torch.ops import cuda_polar  # noqa: E402
 from mpmcxx_tpu_torch.ops.energy import \
     energy_breakdown_blocked as eb_t  # noqa: E402
 from mpmcxx_tpu_torch.state import state_from_jax  # noqa: E402
@@ -61,6 +62,88 @@ def test_chain_trajectory_matches_jax(chains):
                                   np.asarray(cj.stats.accept))
     np.testing.assert_array_equal(ct.stats.reject.numpy(),
                                   np.asarray(cj.stats.reject))
+
+
+# the schedule switch each flagship shape runs under on the card
+SHAPE_ENV = {"h2": {"MPMCXX_TRI_KERNEL": "1"},
+             "ar": {"MPMCXX_SYM_KERNEL": "0"}}
+
+
+@pytest.fixture(scope="module", params=sorted(SHAPE_ENV))
+def shaped_chains(request):
+    """The H2 shape (S = 5, 768 slots) with MPMCXX_TRI_KERNEL=1, so K4's
+    plain version drives every contraction of the port's run, and the
+    monatomic shape (S = 1, 256 slots) with MPMCXX_SYM_KERNEL=0 (K1's).
+    The JAX package runs its CPU contraction either way.  Returns
+    (model, JAX run, port run, plain-version calls of the port run)."""
+    model = request.param
+    jax_run = _run(chain_j, topology_j, co2.jax_system(model))
+    calls = {"contract_planes_plain": 0, "contract_planes_tri_plain": 0}
+    with pytest.MonkeyPatch.context() as mp:
+        for k in ("MPMCXX_SYM_KERNEL", "MPMCXX_TRI_KERNEL"):
+            mp.delenv(k, raising=False)
+        for k, v in SHAPE_ENV[model].items():
+            mp.setenv(k, v)
+        for name in calls:
+            def counted(*a, _n=name, _f=getattr(cuda_polar, name), **k):
+                calls[_n] += 1
+                return _f(*a, **k)
+            mp.setattr(cuda_polar, name, counted)
+        port_run = _run(chain_t, topology_t, co2.torch_system(model=model))
+    return model, jax_run, port_run, calls
+
+
+def test_flagship_shape_chain_matches_jax(shaped_chains):
+    """Same moves, accept decisions and N as the JAX chain, energies
+    within 1e-6, through the contraction the switch picks."""
+    model, (cj, ej, mj, aj, _), (ct, et, mt, at, _), calls = shaped_chains
+    S = len(co2.MODELS[model][1])
+    assert int(ct.state.mol_id.bincount().max()) == max(S, 8)
+    assert ct.state.n_atom_slots == {"h2": 768, "ar": 256}[model]
+    assert mt == mj and at == aj
+    assert sum(at) > 0 and {0, 1, 2} <= set(mt)
+    for (e_j, n_j, _), (e_t, n_t, _) in zip(ej, et):
+        assert n_t == n_j
+        # f32 SCF planes summed in another order
+        assert e_t == pytest.approx(e_j, rel=1e-6)
+    np.testing.assert_array_equal(ct.stats.accept.numpy(),
+                                  np.asarray(cj.stats.accept))
+    np.testing.assert_array_equal(ct.stats.reject.numpy(),
+                                  np.asarray(cj.stats.reject))
+    used, unused = ("contract_planes_tri_plain", "contract_planes_plain") \
+        if model == "h2" else ("contract_planes_plain",
+                               "contract_planes_tri_plain")
+    assert calls[used] >= 4 * CHUNK * N_CHUNKS and calls[unused] == 0
+
+
+def test_flagship_shape_incremental_tracks_full(shaped_chains):
+    model, _, (ct, *_), _ = shaped_chains
+    _, _, flags, params, _ = co2.torch_system(model=model)
+    eb = eb_t(ct.state, flags, params)
+    assert float(ct.obs.rd_energy) == pytest.approx(float(eb.rd), rel=1e-9)
+    assert float(ct.obs.coulombic_energy) == pytest.approx(
+        float(eb.coulombic), rel=1e-9)
+    assert float(ct.obs.polarization_energy) == pytest.approx(
+        float(eb.polarization), rel=2e-6)
+
+
+@pytest.mark.parametrize("model,build", [
+    ("co2", "build_state_co2"), ("h2", "build_state_h2"),
+    ("ar", "build_state")])
+def test_flagship_build_matches_jax(model, build):
+    """chip_smoke.build_flagship (numpy and the port only) builds each
+    flagship's state field for field as tools/flagship.py's JAX-side
+    build function does, and the same move window S."""
+    import flagship
+    import chip_smoke
+    sj, _, _, _, oj = getattr(flagship, build)()
+    st, _, _, _, ot = chip_smoke.build_flagship(model, "cpu")
+    fields = co2.jax_state_numpy(sj)
+    for f in dataclasses.fields(st):
+        if f.name != "pbc":
+            np.testing.assert_array_equal(getattr(st, f.name).numpy(),
+                                          fields[f.name], err_msg=f.name)
+    assert ot.max_mol_atoms == oj.max_mol_atoms
 
 
 def _cavity(system, opts_mod):

@@ -50,9 +50,15 @@ def test_exits_nonzero_outside_a_checkout(tmp_path):
     assert '"ok"' not in r.stdout
 
 
-def test_builds_flagship_without_jax():
+@pytest.mark.parametrize("model,shape", [
+    ("co2", ["11264", "10112", "3585", "3"]),
+    ("h2", ["10752", "10512", "2049", "5"]),
+    ("ar", ["10752", "10240", "10241", "1"])])
+def test_builds_flagship_without_jax(model, shape):
     """The port and chip_smoke run with jax and the JAX package made
-    unimportable; the flagship they build has the reference's shape."""
+    unimportable; each flagship they build (CO2, H2, monatomic) has the
+    shape of tools/flagship.py's JAX-side build function: atom slots, live
+    atoms, molecule slots and the move window S."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -60,13 +66,14 @@ def test_builds_flagship_without_jax():
         "import chip_smoke\n"
         "from mpmcxx_tpu_torch.mc import chain\n"
         "from mpmcxx_tpu_torch.ops import energy, kernels, polar_cache\n"
-        "state, meta, flags, params, opts = chip_smoke.build_flagship('cpu')\n"
+        f"state, meta, flags, params, opts = chip_smoke.build_flagship("
+        f"{model!r}, 'cpu')\n"
         "chain.require_options(flags, params, opts)\n"
         "print(state.n_atom_slots, int(state.aalive.sum()),\n"
-        "      state.n_mol_slots)\n")
+        "      state.n_mol_slots, opts.max_mol_atoms)\n")
     r = _run(["-c", code], ROOT)
     assert r.returncode == 0, r.stderr
-    assert r.stdout.split() == ["11264", "10112", "3585"]
+    assert r.stdout.split() == shape
 
 
 CLI_RUN_IN = """job_name tiny

@@ -64,6 +64,65 @@ def test_contract_kernel_matches_plain(cuda, A, mode):
                  torch.linalg.norm(want)) <= 1e-5
 
 
+def _nonsym_planes(A, mode, seed, device):
+    """Planes with no symmetry at all (test_pallas.py:127-149), as B1
+    contract_pallas takes them; mode 3 keeps pair distances in 1-12 A."""
+    rng = np.random.default_rng(seed)
+    if mode == 3:
+        u = rng.normal(size=(A, A, 3))
+        u /= np.linalg.norm(u, axis=-1, keepdims=True)
+        d = u * rng.uniform(1.0, 12.0, size=(A, A))[..., None]
+        planes = [d[..., i] for i in range(3)]
+    else:
+        scales = (0.01, 0.01, 1.0, 1.0, 1.0) if mode == 5 else \
+            (0.01, 0.1, 0.1, 0.1)
+        planes = [rng.normal(size=(A, A)) * s for s in scales]
+    return tuple(torch.from_numpy(p.astype(np.float32)).to(device)
+                 for p in planes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("A", [1024, 1000])
+@pytest.mark.parametrize("mode", [3, 4, 5])
+def test_contract_kernel_nonsym_matches_plain(cuda, A, mode):
+    """K1 as B1's counterpart: the full-plane pass on planes with no
+    symmetry."""
+    planes = _nonsym_planes(A, mode, 20 + mode, cuda)
+    mu = torch.from_numpy(
+        np.random.default_rng(A - mode).normal(size=(A, 3)) * 0.1).to(cuda)
+    before = cuda_polar.contract_planes.launches
+    got = cuda_polar.contract_planes(planes, mu, L_DAMP)
+    want = cuda_polar.contract_planes_plain(planes, mu, L_DAMP)
+    torch.cuda.synchronize()
+    assert cuda_polar.contract_planes.launches == before + 1
+    # f32 sums of A terms in another order
+    assert float(torch.linalg.norm(got - want) /
+                 torch.linalg.norm(want)) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("A", [1024, 1000])     # 1,000: ragged last tile
+@pytest.mark.parametrize("mode", [3, 4, 5])
+def test_tri_kernel_matches_plain(cuda, A, mode):
+    """K4 against the full-plane plain version and its own triangle plain
+    version; two launches on the same input are bitwise equal."""
+    planes = _planes(A, mode, 10 + mode, cuda)
+    mu = torch.from_numpy(
+        np.random.default_rng(A + mode).normal(size=(A, 3)) * 0.1).to(cuda)
+    before = cuda_polar.contract_planes_tri.launches
+    got = cuda_polar.contract_planes_tri(planes, mu, L_DAMP)
+    again = cuda_polar.contract_planes_tri(planes, mu, L_DAMP)
+    torch.cuda.synchronize()
+    assert cuda_polar.contract_planes_tri.launches == before + 2
+    assert got.dtype == torch.float64 and got.shape == (A, 3)
+    assert torch.equal(got, again)
+    # f32 sums of A terms in another order
+    for want in (cuda_polar.contract_planes_plain(planes, mu, L_DAMP),
+                 cuda_polar.contract_planes_tri_plain(planes, mu, L_DAMP)):
+        assert float(torch.linalg.norm(got - want) /
+                     torch.linalg.norm(want)) <= 1e-5
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("start", [0, 517, 1021])
 @pytest.mark.parametrize("valid", [(True, True, True), (False, True, True)])
@@ -95,6 +154,15 @@ def test_wrappers_reject_bad_inputs(cuda):
         cuda_polar.contract_planes(tuple(p.double() for p in planes), mu)
     with pytest.raises(ValueError):
         cuda_polar.contract_planes(tuple(p.t() for p in planes), mu)
+    for bad in (tuple(p.double() for p in planes),
+                tuple(p.t() for p in planes),
+                planes[:2] + (planes[2].cpu(),),
+                tuple(p[:, :A - 1].contiguous() for p in planes),
+                planes[:2]):
+        with pytest.raises(ValueError):
+            cuda_polar.contract_planes_tri(bad, mu)
+    with pytest.raises(ValueError):
+        cuda_polar.contract_planes_tri(planes, mu[:-1])
     with pytest.raises(ValueError):
         cuda_polar.write_plane_strips(planes, torch.zeros(2, 3, A,
                                                           device=cuda),

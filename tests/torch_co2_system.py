@@ -1,7 +1,11 @@
-"""A small CO2-flagship-shaped system built into both packages from one
-seeded numpy recipe: 8 frozen charged framework atoms and 40 rigid 3-site
-CO2 sorbates (tools/flagship.py CO2_SITES) in an 18 A box, with 6 dead
-insertion slots, under the flagship's force field and uVT options."""
+"""A small flagship-shaped system built into both packages from one
+seeded numpy recipe: 8 frozen charged framework atoms and 40 rigid
+sorbates in an 18 A box, with dead insertion slots, under the flagship's
+force field and uVT options.  The sorbate is one of the three flagship
+models of tools/flagship.py (``MODELS``): 3-site CO2 (CO2_SITES, 6 dead
+slots: 134 atom slots), 5-site H2 (H2_SITES, 112 dead slots: 768 atom
+slots, a size the triangle contraction schedules take) or monatomic Ar
+(208 dead slots: 256 atom slots, the smallest such size)."""
 
 import os
 import sys
@@ -15,12 +19,26 @@ L = 18.0
 N_MOL = 40
 EXTRA = 6
 E2REDUCED = 408.7816
+AR_SITES = (("Ar", flagship.SORB_MASS, 0.0, flagship.SORB_ALPHA,
+             flagship.SORB_EPS, flagship.SORB_SIG),)
+# model -> (moleculetype, site table, site offsets along the molecular
+# axis, dead insertion slots)
+MODELS = {
+    "co2": ("CO2", flagship.CO2_SITES,
+            (0.0, flagship.CO2_BOND, -flagship.CO2_BOND), EXTRA),
+    "h2": ("H2", flagship.H2_SITES,
+           (0.0, flagship.H2_BOND, -flagship.H2_BOND, flagship.H2_NOFF,
+            -flagship.H2_NOFF), 112),
+    "ar": ("ARG", AR_SITES, (0.0,), 208),
+}
 
 
 def records(seed: int = 11, box: float = L, n_mol: int = N_MOL,
-            g: int = 4):
+            g: int = 4, model: str = "co2"):
     """(kwargs per atom) for AtomRecord of either package: the 8 framework
-    atoms and ``n_mol`` CO2 on a jittered g^3 lattice of ``box``."""
+    atoms and ``n_mol`` sorbates of ``model`` (see MODELS), centred on a
+    jittered g^3 lattice of ``box`` and randomly oriented."""
+    moltype, sites, offsets, _ = MODELS[model]
     rng = np.random.default_rng(seed)
     out = []
     s = box / 2
@@ -44,20 +62,18 @@ def records(seed: int = 11, box: float = L, n_mol: int = N_MOL,
         rng.uniform(-0.3, 0.3, (n_mol, 3))
     u = rng.normal(size=(n_mol, 3))
     u /= np.linalg.norm(u, axis=1, keepdims=True)
-    mols = np.round(np.stack([coms, coms + flagship.CO2_BOND * u,
-                              coms - flagship.CO2_BOND * u], 1), 3)
+    mols = np.round(np.stack([coms + o * u for o in offsets], 1), 3)
     for m in range(n_mol):
-        for site, (at, mass, q, al, eps, sig) in \
-                enumerate(flagship.CO2_SITES):
+        for site, (at, mass, q, al, eps, sig) in enumerate(sites):
             p = mols[m, site]
             out.append(dict(
-                atomtype=at, moleculetype="CO2", molecule_id=100 + m,
+                atomtype=at, moleculetype=moltype, molecule_id=100 + m,
                 x=p[0], y=p[1], z=p[2], mass=mass, charge=q * E2REDUCED,
                 epsilon=eps, sigma=sig, polarizability=al))
     return out
 
 
-def config(pkg_flags, pkg_const, MCOptions, max_iter=4):
+def config(pkg_flags, pkg_const, MCOptions, max_iter=4, max_mol_atoms=3):
     """(flags, params, opts) of the flagship scaled to the small box."""
     alpha = 3.5 / (L / 2.0)
     flags = pkg_flags.FFlags(
@@ -71,29 +87,35 @@ def config(pkg_flags, pkg_const, MCOptions, max_iter=4):
     opts = MCOptions(
         ensemble=pkg_const.ENSEMBLE_UVT, move_factor=0.1,
         insert_probability=0.3, fugacity=20.0, incremental=True,
-        polar_incremental=True, max_mol_atoms=3, blocked_energy=True)
+        polar_incremental=True, max_mol_atoms=max_mol_atoms,
+        blocked_energy=True)
     return flags, params, opts
 
 
-def jax_system():
+def jax_system(model: str = "co2"):
     from mpmcxx_tpu import constants as const
     from mpmcxx_tpu import flags as fl
     from mpmcxx_tpu.mc.chain import MCOptions
     from mpmcxx_tpu.state import AtomRecord, build_state
-    state, meta = build_state([AtomRecord(**r) for r in records()],
-                              np.eye(3) * L, extra_mol_capacity=EXTRA)
-    return (state, meta) + config(fl, const, MCOptions)
+    _, sites, _, extra = MODELS[model]
+    state, meta = build_state(
+        [AtomRecord(**r) for r in records(model=model)], np.eye(3) * L,
+        extra_mol_capacity=extra)
+    return (state, meta) + config(fl, const, MCOptions,
+                                  max_mol_atoms=len(sites))
 
 
-def torch_system(device="cpu"):
+def torch_system(device="cpu", model: str = "co2"):
     from mpmcxx_tpu_torch import constants as const
     from mpmcxx_tpu_torch import flags as fl
     from mpmcxx_tpu_torch.mc.chain import MCOptions
     from mpmcxx_tpu_torch.state import AtomRecord, build_state
-    state, meta = build_state([AtomRecord(**r) for r in records()],
-                              np.eye(3) * L, extra_mol_capacity=EXTRA,
-                              device=device)
-    return (state, meta) + config(fl, const, MCOptions)
+    _, sites, _, extra = MODELS[model]
+    state, meta = build_state(
+        [AtomRecord(**r) for r in records(model=model)], np.eye(3) * L,
+        extra_mol_capacity=extra, device=device)
+    return (state, meta) + config(fl, const, MCOptions,
+                                  max_mol_atoms=len(sites))
 
 
 def jax_state_numpy(state):
