@@ -9,25 +9,27 @@ its hand-written kernels, and check the results.
 2. Builds the kernels from ``mpmcxx_tpu_torch/csrc`` (nvcc, sm_90a) and
    prints the build time and ptxas report.
 3. The CO2 flagship (tools/flagship.py, 10,112 live atoms, 11,264 slots),
-   with the contraction-schedule variables unset: K1 ``contract_planes``
-   against its plain PyTorch version in plane modes 3, 4 and 5 on the
-   flagship's own planes, on seeded symmetric planes and on seeded planes
-   with no symmetry (B1 contract_pallas's input) at A = 4,096 (relative
-   error <= 1e-5); K2 ``write_plane_strips`` bitwise on copies
-   of a flagship plane at window starts 0, mid-plane and A - S with
-   all-valid and partly valid windows.  Then its main path:
-   ``init_carry(seed=0)`` and two 64-move chunks of
+   with the contraction-schedule variables unset (the default schedule,
+   K5): K5 ``contract_planes_sym`` against the full-plane plain PyTorch
+   version in plane modes 3, 4 and 5 on the flagship's own planes and on
+   seeded symmetric planes at A = 4,096 and 4,032 (nr = 64 and 63 row
+   tiles, where it is also held against its own schedule's plain
+   version); relative error <= 1e-5, two launches on one input bitwise
+   equal, K1's time and GB/s on the same planes beside K5's.  K2
+   ``write_plane_strips`` bitwise on copies of a flagship plane at window
+   starts 0, mid-plane and A - S with all-valid and partly valid windows.
+   Then its main path: ``init_carry(seed=0)`` and two 64-move chunks of
    ``make_chunk_runner``, checking the initial rd / coulombic /
    polarization within 2e-6 (relative) of the reference binary's single
    point (tests/golden/flagship_co2_singlepoint.json); finite energies;
    incremental rd / coulombic within 1e-8 and polarization within 1e-5
    of a fresh ``energy_breakdown_blocked``; the committed planes within
-   1e-6 of a fresh ``cache_init``; K1 >= 4 and K2 >= 1 launches per move,
-   K2 with S = 3 rows, K4 none.
-4. K1 and K2 as in step 3 at the shapes of step 5's run (the runner's
-   19,712 atom slots, K1 in mode 3); K3 ``occupancy`` bitwise on the 24^3
-   cavity grid against the atoms, on 51,200 seeded darts against that
-   grid's open points, and on points with atoms at r (1 +- 1e-12).
+   1e-6 of a fresh ``cache_init``; K5 >= 4 and K2 >= 1 launches per move,
+   K2 with S = 3 rows, K1 and K4 none.
+4. K5 (mode 3, K1 beside it) and K2 as in step 3 at the shapes of step
+   5's run (the runner's 19,712 atom slots); K3 ``occupancy`` bitwise on
+   the 24^3 cavity grid against the atoms, on 51,200 seeded darts against
+   that grid's open points, and on points with atoms at r (1 +- 1e-12).
 5. The cavity-biased CO2 flagship as a user runs it, through the port's
    command line (``mpmcxx_tpu_torch.cli``) in a temporary directory: a
    ``run.in`` with cavity bias on (24^3 grid, radius 2.6 A) and the
@@ -36,7 +38,10 @@ its hand-written kernels, and check the results.
    each corrtime refresh, incremental energies against the refresh's full
    recompute as in step 3; 0 < cavity mean < 1 and two checkpoints; the
    energy log's rows 0, 64, 128; the restart PQR holding 512 + 3 N atoms;
-   K1 >= 4, K2 >= 1 and K3 >= 2 launches per move, K4 none.
+   K5 >= 4, K2 >= 1 and K3 >= 2 launches per move, K1 and K4 none.  Then
+   one more 16-move chunk of the run's chain under torch.profiler: its
+   device time per move, split by kernel, beside the wall time per move
+   of an unprofiled 16-move chunk.
 6. The H2 flagship (2,000 5-site H2, 10,752 slots): K4
    ``contract_planes_tri`` against the plain version in modes 3, 4 and 5
    on its planes and on seeded symmetric planes at the ragged A = 4,000
@@ -44,19 +49,22 @@ its hand-written kernels, and check the results.
    with K1's time and GB/s on the same planes beside K4's.  Then, with
    ``MPMCXX_TRI_KERNEL=1`` (restored afterwards), its main path as in
    step 3 against tests/golden/flagship_h2_singlepoint.json: K4 >= 4
-   launches per move, K1 none (the recompute included), K2 with S = 5.
-7. The monatomic flagship (9,728 sorbates, 10,752 slots): K1 in mode 3
-   on its planes as in step 3, then, with ``MPMCXX_SYM_KERNEL=0`` (the
-   JAX package's full-plane contract_pallas schedule), its main path as
-   in step 3 (no golden exists): K1 >= 4 launches per move, K4 none, K2
-   with S = 1.
+   launches per move, K1 and K5 none (the recompute included), K2 with
+   S = 5.
+7. The monatomic flagship (9,728 sorbates, 10,752 slots): K1
+   ``contract_planes`` against its plain version in mode 3 on its planes
+   and in modes 3, 4 and 5 on seeded planes with no symmetry (B1
+   contract_pallas's input) at A = 4,096, with their full-plane bound;
+   then, with ``MPMCXX_SYM_KERNEL=0`` (the JAX package's full-plane
+   contract_pallas schedule), its main path as in step 3 (no golden
+   exists): K1 >= 4 launches per move, K4 and K5 none, K2 with S = 1.
 8. Prints ``{"kernels": [...]}`` (per kernel: the sum over the main paths
    of steps 3, 5, 6 and 7 of its launches, each path counted from 0, and
    the count of each path; the time, plain time and bound at the shapes
-   of step 4 for K1-K3 and step 6 for K4; the worst error of the checks),
-   the card's name and power limit, and, last,
-   ``{"ok": true, "device": {...}}``.  Any failure raises: non-zero exit,
-   no result line.
+   of step 4 for K2, K3 and K5, step 6 for K4 and step 7 for K1; the
+   worst error of the checks), the card's name and power limit, and,
+   last, ``{"ok": true, "device": {...}}``.  Any failure raises: non-zero
+   exit, no result line.
 
 Imports torch, numpy and the port only (never jax).
 """
@@ -65,6 +73,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -103,7 +112,9 @@ basis3 0 0 80
 """
 K1_REL_TOL = 1e-5        # f32 sums of ~1e4 terms in another order
 SYNTH_A = 4096
+SYM_SYNTH_A = (4096, 4032)   # K5's 64-row tiles: nr = 64 (even), 63 (odd)
 TRI_SYNTH_A = 4000       # not a multiple of K4's 64-row tile
+PROFILE_MOVES = 16
 TIMING_REPS = 10
 SCHEDULE_VARS = ("MPMCXX_SYM_KERNEL", "MPMCXX_TRI_KERNEL")
 # The card's peaks (NVIDIA H100 SXM data sheet, dense, at 700 W): memory
@@ -182,6 +193,7 @@ def schedule(**env):
 def _wrappers():
     from mpmcxx_tpu_torch.ops import cuda_cavity, cuda_polar
     return {"contract_planes": cuda_polar.contract_planes,
+            "contract_planes_sym": cuda_polar.contract_planes_sym,
             "contract_planes_tri": cuda_polar.contract_planes_tri,
             "write_plane_strips": cuda_polar.write_plane_strips,
             "occupancy": cuda_cavity.occupancy}
@@ -347,14 +359,13 @@ def _mu(A, device, state=None):
     return torch.where(live[:, None], mu, 0.0)
 
 
-def check_k1(cache, state, flags, params, device, label="flagship",
-             modes=(3, 4, 5), synthetic=True):
-    """K1 vs its plain version on ``cache``'s planes (of ``state``) in
-    ``modes`` (and, when ``synthetic``, on seeded symmetric planes and on
-    seeded planes with no symmetry, B1's input, at SYNTH_A); returns the
-    record for the kernels line, timed on ``cache``'s mode-3 planes.  The
-    bound of symmetric planes is that of the tile triangle (the function
-    needs no more: K4 reads just that); of the others, the full planes."""
+def check_k1(cache, state, flags, params, device, label="flagship"):
+    """K1 vs its plain version on ``cache``'s planes (of ``state``) in mode
+    3 and on seeded planes with no symmetry (B1's input) at SYNTH_A in
+    modes 3, 4 and 5; returns the record for the kernels line, timed on
+    ``cache``'s planes.  The bound of the symmetric SCF planes is that of
+    the tile triangle (the function needs no more: K4 and K5 read just
+    that); of the others, the full planes."""
     import torch
     from mpmcxx_tpu_torch.ops import cuda_polar
 
@@ -363,15 +374,11 @@ def check_k1(cache, state, flags, params, device, label="flagship",
     A = planes3[0].shape[0]
     worst_abs = 0.0
     rec = {}
-    cases = [(label, A, state, True,
-              lambda m: _mode_planes(planes3, flags, l, m))]
-    if synthetic:
-        cases += [
-            ("synthetic", SYNTH_A, None, True,
-             lambda m: _synthetic_planes(SYNTH_A, m, 10 + m, device)),
-            ("non-symmetric", SYNTH_A, None, False,
-             lambda m: _nonsym_planes(SYNTH_A, m, 30 + m, device))]
-    for name, A_, st, symmetric, planes_of_mode in cases:
+    cases = [(label, A, state, True, (3,),
+              lambda m: _mode_planes(planes3, flags, l, m)),
+             ("non-symmetric", SYNTH_A, None, False, (3, 4, 5),
+              lambda m: _nonsym_planes(SYNTH_A, m, 30 + m, device))]
+    for name, A_, st, symmetric, modes, planes_of_mode in cases:
         mu = _mu(A_, device, st)
         for mode in modes:
             planes = planes_of_mode(mode)
@@ -410,6 +417,112 @@ def tri_elements(A, b):
     heights^2) / 2, which is A^2/2 + A b/2 when b divides A."""
     heights = [min(b, A - i) for i in range(0, A, b)]
     return (A * A + sum(h * h for h in heights)) // 2
+
+
+def check_k5(cache, state, flags, params, device, label, modes=(3, 4, 5),
+             synthetic=True):
+    """K5 vs the full-plane plain version in ``modes`` on ``cache``'s
+    planes (of ``state``) and, when ``synthetic``, on seeded symmetric
+    planes at each of SYM_SYNTH_A (nr even and odd), where it is also held
+    against contract_planes_sym_plain, its own schedule in PyTorch; each
+    K5 output bitwise equal to a second launch on the same input.  Prints
+    K5's and K1's times and GB/s on the same planes (K5's of the bytes it
+    reads, the tile triangle; K1's of the full planes) and, on ``cache``'s
+    mode-3 planes, one K5 call's device time by kernel; returns the
+    kernels-line record, timed on those planes."""
+    import torch
+    from mpmcxx_tpu_torch.ops import cuda_polar
+
+    l = params.polar_damp
+    b = cuda_polar.SYM_TILE
+    planes3 = (cache.dx, cache.dy, cache.dz)
+    A = planes3[0].shape[0]
+    worst_abs = 0.0
+    rec = {}
+    cases = [(label, A, state,
+              lambda m: _mode_planes(planes3, flags, l, m))]
+    if synthetic:
+        cases += [(f"synthetic nr={A_ // b}", A_, None,
+                   lambda m, A_=A_: _synthetic_planes(A_, m, 50 + m, device))
+                  for A_ in SYM_SYNTH_A]
+    for name, A_, st, planes_of_mode in cases:
+        mu = _mu(A_, device, st)
+        for mode in modes:
+            planes = planes_of_mode(mode)
+            got = cuda_polar.contract_planes_sym(planes, mu, l)
+            again = cuda_polar.contract_planes_sym(planes, mu, l)
+            want = cuda_polar.contract_planes_plain(planes, mu, l)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"K5 {name} mode {mode}: two launches "
+                                     "on one input differ")
+            rel = _rel(got, want)
+            sched_rel = (_rel(got, cuda_polar.contract_planes_sym_plain(
+                planes, mu, l)) if st is None else 0.0)
+            err = float(torch.max(torch.abs(got - want)))
+            ms = _time_ms(
+                lambda: cuda_polar.contract_planes_sym(planes, mu, l))
+            k1_rel = _rel(cuda_polar.contract_planes(planes, mu, l), want)
+            k1_ms = _time_ms(
+                lambda: cuda_polar.contract_planes(planes, mu, l))
+            plain_ms = _time_ms(
+                lambda: cuda_polar.contract_planes_plain(planes, mu, l))
+            tri_gb = mode * tri_elements(A_, b) * 4 / 1e9
+            full_gb = mode * A_ * A_ * 4 / 1e9
+            bound = _contract_bound(A_, mode, tri_elements(A_, b), 2)
+            _say(f"K5 contract_planes_sym {name} A={A_} mode {mode}: "
+                 f"max_abs_err {err:.3e} rel_err {rel:.3e}"
+                 + (f" (vs its schedule's plain {sched_rel:.3e})"
+                    if st is None else "") +
+                 f", repeat bitwise equal;  K5 {ms:.4f} ms "
+                 f"({tri_gb / ms * 1e3:.0f} GB/s of the triangle's "
+                 f"{tri_gb:.3f} GB; bound {bound[0]:.4f} ms, "
+                 f"{bound[0] / ms:.1%})  K1 {k1_ms:.4f} ms "
+                 f"({full_gb / k1_ms * 1e3:.0f} GB/s of {full_gb:.3f} GB, "
+                 f"rel_err {k1_rel:.3e})  plain {plain_ms:.3f} ms")
+            if not max(rel, sched_rel, k1_rel) <= K1_REL_TOL:
+                raise AssertionError(
+                    f"K5 {name} mode {mode}: rel err {rel:.3e} (its "
+                    f"schedule's plain {sched_rel:.3e}, K1 {k1_rel:.3e}) "
+                    f"> {K1_REL_TOL}")
+            worst_abs = max(worst_abs, err)
+            if name == label and mode == 3:
+                rec = {"ms": ms, "plain_ms": plain_ms, "k1_ms": k1_ms,
+                       "bound": bound}
+                split = device_split(
+                    lambda: cuda_polar.contract_planes_sym(planes, mu, l))
+                main_ms = max((ms for ms, _ in split.values()), default=0)
+                _say("  K5 call's device time by kernel: " + (", ".join(
+                    f"{k} {ms:.4f} ms" for k, (ms, _) in split.items()) +
+                    f"; main kernel {bound[0] / main_ms:.1%} of the bound"
+                    if split else "none seen"))
+            del planes
+    rec["max_abs_err"] = worst_abs
+    return rec
+
+
+def device_split(fn, reps=TIMING_REPS):
+    """Device ms and kernels per call of ``fn``, by kernel name
+    (torch.profiler over ``reps`` calls after one warm-up call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            k = re.search(r"(\w+)(?:<[^>]*>)?\(", e.name)
+            key = k.group(1) if k else e.name[:40]
+            ms, n = out.get(key, (0.0, 0.0))
+            out[key] = (ms + e.time_range.elapsed_us() / 1e3 / reps,
+                        n + 1 / reps)
+    return out
 
 
 def check_k4(cache, state, flags, params, device, label="H2 flagship"):
@@ -742,14 +855,68 @@ def run_cli_flagship(workdir, golden, device="cuda"):
     _say(f"CLI second corrtime: {steps} moves in {dt:.3f} s = "
          f"{steps / dt:.2f} moves/s; peak device memory {peak_gb:.2f} GB; "
          f"launches {launches}")
-    for name, per_move in (("contract_planes", 4), ("write_plane_strips", 1),
-                           ("occupancy", 2)):
+    for name, per_move in (("contract_planes_sym", 4),
+                           ("write_plane_strips", 1), ("occupancy", 2)):
         if launches[name] < per_move * n_moves:
             raise AssertionError(f"{name} launched {launches[name]} times "
                                  f"for {n_moves} moves")
-    if launches["contract_planes_tri"]:
-        raise AssertionError("K4 ran on the default schedule")
+    if launches["contract_planes_tri"] or launches["contract_planes"]:
+        raise AssertionError("K1 or K4 ran on the default schedule")
+    profile_chunk(sim)
     return launches
+
+
+# kernel-name fragments -> the kernel they belong to (profiler groups)
+KERNEL_GROUPS = (("contract_sym_kernel", "K5 contract_planes_sym"),
+                 ("sum_sym_slots", "K5 contract_planes_sym"),
+                 ("mu_soa_kernel", "K5 contract_planes_sym"),
+                 ("contract_planes_kernel", "K1 contract_planes"),
+                 ("contract_tri_kernel", "K4 contract_planes_tri"),
+                 ("sum_slots_kernel", "K4 contract_planes_tri"),
+                 ("write_plane_strips", "K2 write_plane_strips"),
+                 ("occupancy_kernel", "K3 occupancy"),
+                 ("Memset", "memsets and copies"),
+                 ("Memcpy", "memsets and copies"))
+
+
+def profile_chunk(sim, moves=PROFILE_MOVES):
+    """After the CLI run: one ``moves``-move chunk of its chain under
+    torch.profiler (after a warm-up chunk), whose device time per move is
+    printed split by kernel (ours by name, every other kernel as "torch
+    kernels"), beside the wall time per move of one more, unprofiled
+    chunk.  Kernels of one stream do not overlap, so their times add."""
+    import torch
+    from mpmcxx_tpu_torch.mc import chain
+
+    run = chain.make_chunk_runner(sim.flags, sim.params, sim.opts, moves,
+                                  topology=sim.topology)
+    carry = [sim.carry]
+
+    def chunk():
+        carry[0], _ = run(carry[0])
+
+    split = device_split(chunk, reps=1)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    chunk()
+    torch.cuda.synchronize()
+    wall_ms = (time.time() - t0) * 1e3 / moves
+    sim.carry = carry[0]
+    groups = {}
+    for name, (ms, n) in split.items():
+        group = next((g for frag, g in KERNEL_GROUPS if frag in name),
+                     "torch kernels")
+        g_ms, g_n = groups.get(group, (0.0, 0.0))
+        groups[group] = (g_ms + ms, g_n + n)
+    device_ms = sum(ms for ms, _ in groups.values()) / moves
+    if device_ms == 0.0:
+        raise AssertionError("the profiler saw no device time")
+    _say(f"CLI profiled chunk ({moves} moves): device {device_ms:.3f} ms "
+         f"per move; unprofiled wall {wall_ms:.3f} ms per move (device busy "
+         f"{device_ms / wall_ms:.1%}, idle {1 - device_ms / wall_ms:.1%})")
+    for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        _say(f"  {group}: {ms / moves:.4f} ms per move "
+             f"({n / moves:.1f} device kernels per move)")
 
 
 def load_golden(root, model):
@@ -776,7 +943,7 @@ def run_flagship_chain(model, state, flags, params, opts, root, card,
     coulombic within 1e-8 and polarization within 1e-5 of a fresh
     ``energy_breakdown_blocked``; the committed planes within 1e-6 of a
     fresh ``cache_init``; ``contraction`` (the kernel the switch picks)
-    launched >= 4 times per move and the other contraction kernel never,
+    launched >= 4 times per move and the other contraction kernels never,
     the recompute included; K2 >= 1 per move, always with the model's S
     window rows.  Returns (launches of the run, second chunk's moves/s)."""
     import torch
@@ -787,8 +954,8 @@ def run_flagship_chain(model, state, flags, params, opts, root, card,
     from mpmcxx_tpu_torch.state import topology
 
     S = opts.max_mol_atoms
-    other = {"contract_planes": "contract_planes_tri",
-             "contract_planes_tri": "contract_planes"}[contraction]
+    others = [k for k in ("contract_planes", "contract_planes_sym",
+                          "contract_planes_tri") if k != contraction]
     windows = set()       # rows of each commit's strips (K2's S)
     commit = pcache.write_symmetric_rows
 
@@ -877,19 +1044,40 @@ def run_flagship_chain(model, state, flags, params, opts, root, card,
         raise AssertionError(f"[{model}] {contraction} launched "
                              f"{launches[contraction]} times for {n_moves} "
                              "moves")
-    if launches_now()[other]:
-        raise AssertionError(f"[{model}] {other} ran on this schedule")
+    ran = [k for k in others if launches_now()[k]]
+    if ran:
+        raise AssertionError(f"[{model}] {ran} ran on this schedule")
     if launches["write_plane_strips"] < n_moves or windows != {S}:
         raise AssertionError(
             f"[{model}] K2 launched {launches['write_plane_strips']} times "
             f"for {n_moves} moves with windows {sorted(windows)}, want S={S}")
     _say(f"[{model}] {contraction} {launches[contraction] / n_moves:.2f} "
-         f"launches per move, {other} none; K2 windows S = {S}")
+         f"launches per move, {' and '.join(others)} none; K2 windows "
+         f"S = {S}")
     return launches, moves_per_s
 
 
-def _entry(name, source, replaces, rec, launches):
-    """A kernels-line entry; ``launches`` maps each path to its count."""
+def ptxas_report(log):
+    """Per kernel of nvcc's build log: its registers, barriers and shared
+    memory ("Used ...") and its stack and spills, named by the kernel's
+    function name (and plane mode, for the templated contractions)."""
+    out, name = [], "?"
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']*)'", line)
+        if entry:
+            k = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d)E)?", entry.group(1))
+            name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
+                    if k else entry.group(1))
+        elif "ptxas info" in line and "Used" in line:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}")
+        elif "spill" in line:
+            out.append(f"{name}: {line.strip()}")
+    return out
+
+
+def _entry(name, source, replaces, rec, launches, **extra):
+    """A kernels-line entry; ``launches`` maps each path to its count;
+    ``extra`` adds keys."""
     bound_ms, bound_by = rec["bound"]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces,
@@ -897,7 +1085,7 @@ def _entry(name, source, replaces, rec, launches):
             "launches_by_path": {p: n[name] for p, n in launches.items()},
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None, **extra}
 
 
 def main() -> int:
@@ -928,9 +1116,8 @@ def main() -> int:
     path = kernels.build()
     kernels.load()
     _say(f"kernels built in {time.time() - t0:.1f} s: {path}")
-    for line in kernels.build_log.splitlines():
-        if "ptxas info" in line and ("Used" in line or "spill" in line):
-            _say("  " + line.strip())
+    for line in ptxas_report(kernels.build_log):
+        _say("  " + line)
 
     def flush():
         torch.cuda.synchronize()
@@ -939,7 +1126,7 @@ def main() -> int:
     launches = {}      # path -> launch counts of its run
     rates = {}         # path -> second chunk's moves/s
 
-    # --- 1. the CO2 flagship: K1, K2 vs plain, then its main path --------
+    # --- 1. the CO2 flagship: K5, K2 vs plain, then its main path --------
     with schedule():
         t0 = time.time()
         state, _, flags, params, opts = build_flagship("co2", device)
@@ -947,12 +1134,13 @@ def main() -> int:
              f"{int(state.aalive.sum())} live atoms ({time.time() - t0:.1f} "
              "s to build)")
         cache = pcache.cache_init(state, flags, params)
-        k1 = check_k1(cache, state, flags, params, device)
+        k5 = check_k5(cache, state, flags, params, device, "CO2 flagship")
         k2 = check_k2(cache, device)
         del cache
         flush()
         launches["co2"], rates["co2"] = run_flagship_chain(
-            "co2", state, flags, params, opts, root, card, "contract_planes")
+            "co2", state, flags, params, opts, root, card,
+            "contract_planes_sym")
         del state
         flush()
 
@@ -963,8 +1151,8 @@ def main() -> int:
         # every kernel at the shapes of the CLI run (19,712 slots)
         cli_state = cli_flagship_state(pqr, device)
         cli_cache = pcache.cache_init(cli_state, flags, params)
-        k1_cli = check_k1(cli_cache, cli_state, flags, params, device,
-                          label="CLI flagship", modes=(3,), synthetic=False)
+        k5_cli = check_k5(cli_cache, cli_state, flags, params, device,
+                          "CLI flagship", modes=(3,), synthetic=False)
         k2_cli = check_k2(cli_cache, device)
         del cli_cache
         k3 = check_k3(cli_state, device)
@@ -997,8 +1185,8 @@ def main() -> int:
          f"{int(state.aalive.sum())} live atoms ({time.time() - t0:.1f} s "
          "to build)")
     cache = pcache.cache_init(state, flags, params)
-    k1_ar = check_k1(cache, state, flags, params, device,
-                     label="monatomic flagship", modes=(3,), synthetic=False)
+    k1 = check_k1(cache, state, flags, params, device,
+                  label="monatomic flagship")
     del cache
     flush()
     with schedule(MPMCXX_SYM_KERNEL="0"):
@@ -1010,19 +1198,23 @@ def main() -> int:
     _say(f"second-chunk moves/s on {card}: " + ", ".join(
         f"{m} {r:.2f}" for m, r in rates.items()) +
         f"; whole check {time.time() - t_start:.1f} s after the card query")
-    k1_all = dict(k1_cli, max_abs_err=max(
-        k1["max_abs_err"], k1_cli["max_abs_err"], k1_ar["max_abs_err"]))
+    k5_all = dict(k5_cli, max_abs_err=max(k5["max_abs_err"],
+                                          k5_cli["max_abs_err"]))
     k2_all = dict(k2_cli, max_abs_err=max(k2["max_abs_err"],
                                           k2_cli["max_abs_err"]))
     kernels_line = {"kernels": [
         _entry("contract_planes", "mpmcxx_tpu_torch/csrc/contract_planes.cu",
-               "mpmcxx_tpu/ops/pallas_polar.py:209, "
-               "mpmcxx_tpu/ops/pallas_polar.py:39", k1_all, launches),
+               "mpmcxx_tpu/ops/pallas_polar.py:39", k1, launches),
+        _entry("contract_planes_sym",
+               "mpmcxx_tpu_torch/csrc/contract_planes_sym.cu",
+               "mpmcxx_tpu/ops/pallas_polar.py:209", k5_all, launches,
+               k1_ms_same_planes=k5_cli["k1_ms"]),
         _entry("write_plane_strips",
                "mpmcxx_tpu_torch/csrc/write_plane_strips.cu",
                "mpmcxx_tpu/ops/pallas_polar.py:134", k2_all, launches),
         _entry("occupancy", "mpmcxx_tpu_torch/csrc/occupancy.cu",
-               "mpmcxx_tpu/ops/pallas_cavity.py:54", k3, launches),
+               "mpmcxx_tpu/ops/pallas_cavity.py:54", k3, launches,
+               darts_ms=k3["darts_ms"]),
         _entry("contract_planes_tri",
                "mpmcxx_tpu_torch/csrc/contract_planes_tri.cu",
                "mpmcxx_tpu/ops/pallas_polar.py:369", k4, launches),

@@ -6,17 +6,17 @@
 // ops/polar.py coeffs_from_d does; mode 4 is (cd, sx, sy, sz) with
 // s = -(s . mu); mode 5 is (co, cd, dx, dy, dz).
 //
-// Replaces the TPU kernels mpmcxx_tpu/ops/pallas_polar.py
-// contract_pallas_sym (:209; the SCF contraction of the flagship's
-// default schedule: 4 calls per MC move plus every full solve) and
-// contract_pallas (:39; the full-plane pass under MPMCXX_SYM_KERNEL=0).
-// It assumes no symmetry of the planes.
+// Replaces the TPU kernel mpmcxx_tpu/ops/pallas_polar.py:39
+// contract_pallas (B1, the full-plane pass under MPMCXX_SYM_KERNEL=0) and
+// serves the XLA branch of the JAX package's switch (square planes of
+// other sizes).  It assumes no symmetry of the planes.
 //
 // Bound: device-memory bytes.  This design streams every plane once: in
 // mode 3 at A = 11,264 that is 3 x 11,264^2 x 4 B = 1.52 GB against
 // ~40 flops + one expf per pair.  On the symmetric planes of the SCF the
-// function needs only the tile triangle, about half those bytes: K4
-// (csrc/contract_planes_tri.cu) reads each unordered tile pair once.
+// function needs only the tile triangle, about half those bytes: K5
+// (csrc/contract_planes_sym.cu, the default schedule) and K4
+// (csrc/contract_planes_tri.cu) read each unordered tile pair once.
 //
 // Design: one warp per row i.  The warp's lanes walk the row's columns
 // with stride 32, so each plane load is one coalesced 128-byte line per

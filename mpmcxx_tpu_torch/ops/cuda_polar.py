@@ -4,9 +4,13 @@ PyTorch versions and launch counts.
 JAX twin: mpmcxx_tpu/ops/pallas_polar.py.
 
 - K1 ``contract_planes`` (csrc/contract_planes.cu) replaces
-  ``contract_pallas_sym`` and ``contract_pallas``: ``-T mu`` over the full
-  f32 SCF planes, no symmetry assumed.  Bound by device-memory bytes
-  (1.52 GB per call in mode 3 at A = 11,264).
+  ``contract_pallas`` and serves the XLA branch of the JAX switch:
+  ``-T mu`` over the full f32 SCF planes, no symmetry assumed.  Bound by
+  device-memory bytes (1.52 GB per call in mode 3 at A = 11,264).
+- K5 ``contract_planes_sym`` (csrc/contract_planes_sym.cu) replaces
+  ``contract_pallas_sym``, the default schedule: the same ``-T mu`` for
+  symmetric T over B2's wrapped-column tile pairing, each unordered
+  64 x 64 tile pair read once, through a ring of asynchronous copies.
 - K4 ``contract_planes_tri`` (csrc/contract_planes_tri.cu) replaces
   ``contract_pallas_tri``: the same ``-T mu`` for symmetric T, reading each
   unordered 64 x 64 tile pair once (about half of K1's bytes).
@@ -84,7 +88,8 @@ def _t_mu(terms, m, dim: int):
 def contract_planes_plain(planes, mu, l: float = 0.0):
     """Eager form of polar.contract_mixed (polar.py:884-897): ``-T mu`` in
     f32 over the 3-, 4- or 5-plane tuple, returned as [A,3] f64.  It is the
-    reference of both K1 and K4 on the card."""
+    reference of K1, K4 and K5 on the card, and what K5's wrapper runs on
+    CPU tensors."""
     return -_t_mu(_unfold(planes, l), mu.to(torch.float32), 1).to(
         torch.float64)
 
@@ -180,6 +185,87 @@ def contract_planes_tri(planes, mu, l: float = 0.0):
 
 
 contract_planes_tri.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K5: SCF contraction over B2's wrapped-column tile pairs
+# --------------------------------------------------------------------------
+
+SYM_TILE = 64     # the kernel's b (csrc/contract_planes_sym.cu kTile)
+
+
+def contract_planes_sym_plain(planes, mu, l: float = 0.0):
+    """K5's schedule in PyTorch: ``-T mu`` for symmetric T, [A,3] f64,
+    with A a multiple of SYM_TILE.  Row tile I is paired with the column
+    tiles J = (I + c) mod nr for c = 0 .. nr // 2; when nr is even the
+    c = nr/2 band is read from I < nr/2 only, so each unordered tile pair
+    is read once.  Tile (I, c) adds its row sums (T_ij mu_j) to the rows
+    of I and, for c > 0, its column sums (T_ji mu_i = T_ij mu_i) to slot c
+    of the columns of J; the slots are then added."""
+    A = planes[0].shape[0]
+    b = SYM_TILE
+    if A % b:
+        raise ValueError(f"contract_planes_sym_plain: A = {A} is not a "
+                         f"multiple of {b}")
+    nr = A // b
+    half = nr // 2
+    m = mu.to(torch.float32)
+    part = torch.zeros((half + 1, A, 3), dtype=torch.float32,
+                       device=mu.device)
+    for I in range(nr):
+        ri = slice(I * b, (I + 1) * b)
+        for c in range(half if nr % 2 == 0 and I >= half else half + 1):
+            J = (I + c) % nr
+            cj = slice(J * b, (J + 1) * b)
+            terms = _unfold(tuple(p[ri, cj] for p in planes), l)
+            part[0, ri] += _t_mu(terms, m[cj], 1)
+            if c:
+                part[c, cj] = _t_mu(terms, m[ri], 0)
+    return -part.sum(dim=0).to(torch.float64)
+
+
+def contract_planes_sym(planes, mu, l: float = 0.0):
+    """``-T mu`` over square f32 planes of a symmetric T (antisymmetric d,
+    symmetric co and cd; the modes of contract_planes) with A a multiple
+    of SYM_TILE, mu [A,3]; returns [A,3] f64.  On CPU tensors it runs
+    contract_planes_plain."""
+    if _on_cpu(planes[0]):
+        return contract_planes_plain(planes, mu, l)
+    mode = len(planes)
+    A = planes[0].shape[0]
+    if mode not in (3, 4, 5):
+        raise ValueError(f"contract_planes_sym: {mode} planes")
+    if A == 0 or A % SYM_TILE:
+        raise ValueError(f"contract_planes_sym: A = {A} is not a positive "
+                         f"multiple of {SYM_TILE}")
+    for p in planes:
+        _check_cuda_f32("contract_planes_sym plane", p, (A, A))
+        if p.data_ptr() % 16:
+            raise ValueError("contract_planes_sym: planes must be 16-byte "
+                             "aligned")
+    if tuple(mu.shape) != (A, 3) or mu.device != planes[0].device:
+        raise ValueError(f"contract_planes_sym: mu {tuple(mu.shape)} on "
+                         f"{mu.device} for {A}x{A} planes")
+    lib = kernels.load()
+    slots = lib.mpmcxx_contract_planes_sym_slots(mode, A)
+    if slots <= 0:
+        raise RuntimeError("contract_planes_sym: no launch configuration "
+                           f"for mode {mode}, A = {A}")
+    m = mu.to(torch.float64).contiguous()
+    # mu's f32 [3, A] copy, then the row and column slots
+    work = torch.empty((slots, A, 3), dtype=torch.float32, device=mu.device)
+    out = torch.empty((A, 3), dtype=torch.float64, device=mu.device)
+    rc = lib.mpmcxx_contract_planes_sym(
+        _void_ptrs(planes), mode, m.data_ptr(), l, work.data_ptr(), slots,
+        out.data_ptr(), A, torch.cuda.current_stream(mu.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"contract_planes_sym launch failed: CUDA error {rc}")
+    contract_planes_sym.launches += 1
+    return out
+
+
+contract_planes_sym.launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 
 JAX twin: none (Pallas kernels compile inside jax; the pattern here is
 that of mpmcxx_tpu/runtime/native.py).  At first use ``nvcc`` compiles
-every ``csrc/*.cu`` source for Hopper (``sm_90a``, ``-O3``, no fast math)
-into one shared library with a plain C interface, written to
+every ``csrc/*.cu`` source for Hopper (``sm_90a``, ``-O3``, no fast math),
+one process per source, all started together, and links the objects into
+one shared library with a plain C interface, written to
 ``mpmcxx_tpu_torch/_build/`` under a name keyed by a hash of the sources
 and flags, and loaded with ctypes.  Nothing is built or imported when
 this module is imported.
@@ -23,7 +24,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -57,14 +58,29 @@ def build() -> str:
     if os.path.exists(lib):
         return lib
     nvcc = _nvcc()
-    os.makedirs(_BUILD, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    r = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *srcs],
-                       capture_output=True, text=True)
-    build_log = r.stdout + r.stderr
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{build_log}")
-    os.replace(tmp, lib)
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in srcs]
+    os.makedirs(_BUILD, exist_ok=True)
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        build_log = "".join(outs)
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{build_log}")
+        r = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                           capture_output=True, text=True)
+        build_log += r.stdout + r.stderr
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{build_log}")
+        os.replace(tmp, lib)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     return lib
 
 
@@ -81,6 +97,12 @@ def load() -> ctypes.CDLL:
             lib.mpmcxx_contract_planes_tri.argtypes = [
                 ctypes.POINTER(vp), ci, vp, ctypes.c_float, vp, vp, ci, vp]
             lib.mpmcxx_contract_planes_tri.restype = ci
+            lib.mpmcxx_contract_planes_sym.argtypes = [
+                ctypes.POINTER(vp), ci, vp, ctypes.c_float, vp, ci, vp, ci,
+                vp]
+            lib.mpmcxx_contract_planes_sym.restype = ci
+            lib.mpmcxx_contract_planes_sym_slots.argtypes = [ci, ci]
+            lib.mpmcxx_contract_planes_sym_slots.restype = ci
             lib.mpmcxx_write_plane_strips.argtypes = [
                 ctypes.POINTER(vp), ci, vp, vp, vp, ci, ci, vp]
             lib.mpmcxx_write_plane_strips.restype = ci

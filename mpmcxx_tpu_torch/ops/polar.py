@@ -6,7 +6,8 @@ pair-coefficient planes of the mixed-precision SCF (mixed_coeff_scalars,
 plane_mode, coeffs_from_d, fold_outer_rows, mixed_field_coeffs), the
 contraction ``-T mu`` over those planes (contract_mixed, which runs a
 hand-written CUDA kernel of ops/cuda_polar.py on a CUDA tensor, chosen by
-the JAX package's MPMCXX_SYM_KERNEL / MPMCXX_TRI_KERNEL switch), and the
+the JAX package's MPMCXX_SYM_KERNEL / MPMCXX_TRI_KERNEL switch: K4, K5 or
+K1 where it runs B3, B2, or B1 and its XLA branch), and the
 fixed-iteration Jacobi solve (thole_iterative, finish_polar,
 polar_blocked).  Energy = -1/2 sum mu . E_static in Kelvin.
 """
@@ -255,19 +256,34 @@ def use_tri(shape) -> bool:
             and os.environ.get("MPMCXX_TRI_KERNEL", "0") == "1")
 
 
+def use_sym(shape) -> bool:
+    """Whether the JAX package's contract_mixed, off the CPU, runs
+    contract_pallas_sym on planes of ``shape`` (polar.py:865-883), with the
+    environment read now: square supported planes, MPMCXX_SYM_KERNEL not
+    "0" and MPMCXX_TRI_KERNEL not "1" (the default)."""
+    rows, cols = shape
+    return (rows == cols and supported(rows)
+            and os.environ.get("MPMCXX_SYM_KERNEL", "1") != "0"
+            and os.environ.get("MPMCXX_TRI_KERNEL", "0") != "1")
+
+
 def contract_mixed(coeffs, mu, l=None):
     """ef_induced = -T mu from the 3-, 4- or 5-plane f32 tuple of
     fold_outer_rows; the 3-plane mode needs the damping width ``l``
     (params.polar_damp).  Where the JAX package would run
     contract_pallas_tri (use_tri) this runs kernel K4
-    (ops/cuda_polar.contract_planes_tri), otherwise kernel K1
-    (contract_planes); each takes its plain PyTorch version on CPU
+    (ops/cuda_polar.contract_planes_tri), where it would run
+    contract_pallas_sym (use_sym) kernel K5 (contract_planes_sym),
+    otherwise (contract_pallas, the XLA branch) kernel K1
+    (contract_planes); each takes a plain PyTorch version on CPU
     tensors."""
     if len(coeffs) == 3 and l is None:
         raise ValueError("3-plane mixed coefficients need l=polar_damp")
     l = 0.0 if l is None else l
     if use_tri(coeffs[0].shape):
         return cuda_polar.contract_planes_tri(coeffs, mu, l)
+    if use_sym(coeffs[0].shape):
+        return cuda_polar.contract_planes_sym(coeffs, mu, l)
     return cuda_polar.contract_planes(coeffs, mu, l)
 
 

@@ -124,6 +124,30 @@ def test_tri_kernel_matches_plain(cuda, A, mode):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("A", [1024, 1280, 4096, 960])   # 960: nr = 15, odd
+@pytest.mark.parametrize("mode", [3, 4, 5])
+def test_sym_kernel_matches_plain(cuda, A, mode):
+    """K5 against the full-plane plain version and its own schedule's
+    plain version; two launches on the same input are bitwise equal."""
+    planes = _planes(A, mode, 40 + mode, cuda)
+    mu = torch.from_numpy(
+        np.random.default_rng(A + 3 * mode).normal(size=(A, 3)) * 0.1).to(
+        cuda)
+    before = cuda_polar.contract_planes_sym.launches
+    got = cuda_polar.contract_planes_sym(planes, mu, L_DAMP)
+    again = cuda_polar.contract_planes_sym(planes, mu, L_DAMP)
+    torch.cuda.synchronize()
+    assert cuda_polar.contract_planes_sym.launches == before + 2
+    assert got.dtype == torch.float64 and got.shape == (A, 3)
+    assert torch.equal(got, again)
+    # f32 sums of A terms in another order
+    for want in (cuda_polar.contract_planes_plain(planes, mu, L_DAMP),
+                 cuda_polar.contract_planes_sym_plain(planes, mu, L_DAMP)):
+        assert float(torch.linalg.norm(got - want) /
+                     torch.linalg.norm(want)) <= 1e-5
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("start", [0, 517, 1021])
 @pytest.mark.parametrize("valid", [(True, True, True), (False, True, True)])
 def test_commit_kernel_bit_equal_to_plain(cuda, start, valid):
@@ -163,6 +187,19 @@ def test_wrappers_reject_bad_inputs(cuda):
             cuda_polar.contract_planes_tri(bad, mu)
     with pytest.raises(ValueError):
         cuda_polar.contract_planes_tri(planes, mu[:-1])
+    for bad in (tuple(p.double() for p in planes),
+                tuple(p.t() for p in planes),
+                planes[:2] + (planes[2].cpu(),),
+                tuple(p[:, :A - 1].contiguous() for p in planes),
+                planes[:2]):
+        with pytest.raises(ValueError):
+            cuda_polar.contract_planes_sym(bad, mu)
+    with pytest.raises(ValueError):
+        cuda_polar.contract_planes_sym(planes, mu[:-1])
+    ragged = _planes(1000, 3, 0, cuda)       # not a multiple of 64 rows
+    with pytest.raises(ValueError):
+        cuda_polar.contract_planes_sym(ragged, torch.zeros(1000, 3,
+                                                           device=cuda))
     with pytest.raises(ValueError):
         cuda_polar.write_plane_strips(planes, torch.zeros(2, 3, A,
                                                           device=cuda),
@@ -171,18 +208,24 @@ def test_wrappers_reject_bad_inputs(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("P,A", [(300, 70), (4097, 1000), (1, 0)])
+@pytest.mark.parametrize("P,A", [(300, 70), (4097, 1000), (1, 0),
+                                 (13824, 19712)])
 def test_occupancy_kernel_bit_equal_to_plain(cuda, P, A):
     """K3 against its plain version, bitwise, with atoms placed at
-    r (1 +- 1e-12) of the points and a third of them dead."""
+    r (1 +- 1e-12) of the points and a third of them dead, interleaved
+    with the live ones; at the CLI run's grid shape (13,824 points, 19,712
+    slots: 54 point tiles x 20 atom chunks) the slots of the second
+    1,024-slot chunk are all dead."""
     r = 2.6
     rng = np.random.default_rng(P + A)
-    pts = rng.uniform(-10, 10, (P, 3))
+    box = 10 if P < 10000 else 40
+    pts = rng.uniform(-box, box, (P, 3))
     u = rng.normal(size=(A, 3))
     u /= np.linalg.norm(u, axis=1, keepdims=True)
     near = pts[rng.integers(0, P, A)] + u * (
         r * (1 + 1e-12 * rng.choice([-1.0, 1.0], A)))[:, None]
     alive = rng.uniform(size=A) > 1 / 3
+    alive[1024:2048] = False
     args = [torch.from_numpy(x).to(cuda) for x in (pts, near, alive)]
     before = cuda_cavity.occupancy.launches
     got = cuda_cavity.occupancy(*args, r)

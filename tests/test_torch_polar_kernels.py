@@ -1,6 +1,6 @@
-"""Kernels K1 (contract_planes), K2 (write_plane_strips) and K4
-(contract_planes_tri) of the port, and contract_mixed's choice between K1
-and K4.
+"""Kernels K1 (contract_planes), K2 (write_plane_strips), K4
+(contract_planes_tri) and K5 (contract_planes_sym) of the port, and
+contract_mixed's choice between K1, K4 and K5.
 
 On the CPU the wrappers run their plain PyTorch versions, which are held
 here against the JAX package's Pallas kernels in interpret mode and its
@@ -157,12 +157,52 @@ def test_tri_plain_ragged_matches_full_plane(mode, A):
                                atol=atol)
 
 
+# (rtol, atol) of test_pallas.py::test_sym_contract_matches_xla_planes
+SYM_TOL = {3: (1e-5, 1e-6), 4: (1e-4, 1e-5), 5: (1e-5, 1e-6)}
+
+
+@pytest.mark.parametrize("A", [256, 384, 640])  # B2's nr at b=128: 2, 3, 5
+@pytest.mark.parametrize("mode", [3, 4, 5])
+def test_sym_plain_matches_contract_pallas_sym(A, mode):
+    """K5's plain version (its 64 x 64 wrapped-column schedule) against B2
+    ``contract_pallas_sym`` (128 x 128, the nr/2 band twice at weight 0.5)
+    in interpret mode, for B2's nr even and odd."""
+    planes = _planes(A, mode, seed=3 * A + mode)
+    mu = np.random.default_rng(A + 11 * mode).normal(size=(A, 3)) * 0.1
+    got = cuda_polar.contract_planes_sym_plain(
+        tuple(torch.from_numpy(p) for p in planes), torch.from_numpy(mu),
+        L_DAMP)
+    assert got.dtype == torch.float64 and got.shape == (A, 3)
+    want = pallas_polar.contract_pallas_sym(
+        tuple(jnp.asarray(p) for p in planes), jnp.asarray(mu), l=L_DAMP,
+        interpret=True)
+    rtol, atol = SYM_TOL[mode]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("A", [1024, 960])   # nr even (16), odd (15) at b=64
+@pytest.mark.parametrize("mode", [3, 4, 5])
+def test_sym_plain_matches_full_plane(mode, A):
+    """K5's schedule reads each unordered tile pair once, the nr/2 band
+    from one side only, and gives the full-plane contraction."""
+    planes = tuple(torch.from_numpy(p)
+                   for p in _planes(A, mode, seed=A + mode))
+    mu = torch.from_numpy(
+        np.random.default_rng(A - mode).normal(size=(A, 3)) * 0.1)
+    got = cuda_polar.contract_planes_sym_plain(planes, mu, L_DAMP)
+    want = cuda_polar.contract_planes_plain(planes, mu, L_DAMP)
+    rtol, atol = TOL[mode]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=rtol,
+                               atol=atol)
+
+
 SCHEDULE_ENVS = [{}, {"MPMCXX_TRI_KERNEL": "1"}, {"MPMCXX_SYM_KERNEL": "0"},
                  {"MPMCXX_SYM_KERNEL": "0", "MPMCXX_TRI_KERNEL": "1"},
                  {"MPMCXX_SYM_KERNEL": "1", "MPMCXX_TRI_KERNEL": "0"}]
 # the port's kernel for each TPU kernel of polar.py:865-883
 PORT_KERNEL = {"contract_pallas_tri": "contract_planes_tri",
-               "contract_pallas_sym": "contract_planes",
+               "contract_pallas_sym": "contract_planes_sym",
                "contract_pallas": "contract_planes",
                "xla": "contract_planes"}
 
@@ -172,9 +212,10 @@ PORT_KERNEL = {"contract_pallas_tri": "contract_planes_tri",
 @pytest.mark.parametrize("env", SCHEDULE_ENVS)
 def test_schedule_switch_matches_jax(monkeypatch, env, shape):
     """contract_mixed picks K4 exactly where the JAX package, off the CPU,
-    runs contract_pallas_tri, and K1 for every other branch of
-    polar.py:865-883 (B2, B1, XLA).  The JAX side runs with its backend
-    reported as a TPU and its kernels replaced by recorders."""
+    runs contract_pallas_tri, K5 where it runs contract_pallas_sym, and K1
+    for the other branches of polar.py:865-883 (B1, XLA).  The JAX side
+    runs with its backend reported as a TPU and its kernels replaced by
+    recorders."""
     import jax
     for k in ("MPMCXX_SYM_KERNEL", "MPMCXX_TRI_KERNEL"):
         monkeypatch.delenv(k, raising=False)
@@ -198,13 +239,15 @@ def test_schedule_switch_matches_jax(monkeypatch, env, shape):
     jax_kernel = called[0] if called else "xla"
 
     ran = []
-    for name in ("contract_planes", "contract_planes_tri"):
+    for name in ("contract_planes", "contract_planes_tri",
+                 "contract_planes_sym"):
         monkeypatch.setattr(cuda_polar, name,
                             lambda *a, _n=name, **k: ran.append(_n))
     polar_t.contract_mixed(tuple(torch.from_numpy(p) for p in planes),
                            torch.zeros(shape[1], 3), l=L_DAMP)
     assert ran == [PORT_KERNEL[jax_kernel]]
     assert polar_t.use_tri(shape) == (jax_kernel == "contract_pallas_tri")
+    assert polar_t.use_sym(shape) == (jax_kernel == "contract_pallas_sym")
 
 
 WINDOW_A, WINDOW_S = 512, 3
@@ -247,15 +290,18 @@ def test_write_symmetric_rows_bit_equal(start, valid):
 def test_cpu_wrappers_do_not_count_launches():
     before = (cuda_polar.contract_planes.launches,
               cuda_polar.contract_planes_tri.launches,
+              cuda_polar.contract_planes_sym.launches,
               cuda_polar.write_plane_strips.launches)
     planes = tuple(torch.from_numpy(p) for p in _planes(256, 3, 0))
     cuda_polar.contract_planes(planes, torch.zeros(256, 3), L_DAMP)
     cuda_polar.contract_planes_tri(planes, torch.zeros(256, 3), L_DAMP)
+    cuda_polar.contract_planes_sym(planes, torch.zeros(256, 3), L_DAMP)
     cuda_polar.write_plane_strips(
         planes, torch.zeros(3, 3, 256), torch.zeros(3, 3, 256),
         torch.tensor(5))
     assert (cuda_polar.contract_planes.launches,
             cuda_polar.contract_planes_tri.launches,
+            cuda_polar.contract_planes_sym.launches,
             cuda_polar.write_plane_strips.launches) == before
 
 
