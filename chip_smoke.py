@@ -15,9 +15,12 @@ its hand-written kernels, and check the results.
    seeded symmetric planes at A = 4,096 and 4,032 (nr = 64 and 63 row
    tiles, where it is also held against its own schedule's plain
    version); relative error <= 1e-5, two launches on one input bitwise
-   equal, K1's time and GB/s on the same planes beside K5's.  K2
+   equal, K1's time (the call and its main kernel) and GB/s on the same
+   planes beside K5's, with K1's full-plane bound.  K2
    ``write_plane_strips`` bitwise on copies of a flagship plane at window
-   starts 0, mid-plane and A - S with all-valid and partly valid windows.
+   starts 0, mid-plane and A - S with all-valid and partly valid windows
+   of S = 3 and 1 rows, the start int64 and int32; its device time
+   (torch.profiler) beside the event-timed call.
    Then its main path: ``init_carry(seed=0)`` and two 64-move chunks of
    ``make_chunk_runner``, checking the initial rd / coulombic /
    polarization within 2e-6 (relative) of the reference binary's single
@@ -52,12 +55,17 @@ its hand-written kernels, and check the results.
    launches per move, K1 and K5 none (the recompute included), K2 with
    S = 5.
 7. The monatomic flagship (9,728 sorbates, 10,752 slots): K1
-   ``contract_planes`` against its plain version in mode 3 on its planes
-   and in modes 3, 4 and 5 on seeded planes with no symmetry (B1
-   contract_pallas's input) at A = 4,096, with their full-plane bound;
-   then, with ``MPMCXX_SYM_KERNEL=0`` (the JAX package's full-plane
-   contract_pallas schedule), its main path as in step 3 (no golden
-   exists): K1 >= 4 launches per move, K4 and K5 none, K2 with S = 1.
+   ``contract_planes`` against its plain version (relative error <= 1e-5,
+   two launches bitwise equal, [R, 3] out) in mode 3 on its planes and on
+   the middle quarter of their rows ([A/4, A], as a row-sharded caller
+   passes them), and in modes 3, 4 and 5 on seeded planes with no
+   symmetry (B1 contract_pallas's input) at A = 4,096, on the middle
+   quarter of their rows and at A = 4,001 (A % 4 != 0, no TMA), each
+   call's time and its main kernel's beside the full-plane bound (and on
+   the flagship's symmetric planes the triangle's); then, with
+   ``MPMCXX_SYM_KERNEL=0`` (the JAX package's full-plane contract_pallas
+   schedule), its main path as in step 3 (no golden exists): K1 >= 4
+   launches per move, K4 and K5 none, K2 with S = 1.
 8. Prints ``{"kernels": [...]}`` (per kernel: the sum over the main paths
    of steps 3, 5, 6 and 7 of its launches, each path counted from 0, and
    the count of each path; the time, plain time and bound at the shapes
@@ -112,6 +120,7 @@ basis3 0 0 80
 """
 K1_REL_TOL = 1e-5        # f32 sums of ~1e4 terms in another order
 SYNTH_A = 4096
+RAGGED_A = 4001          # A % 4 != 0: no TMA tensor map (16-byte rows)
 SYM_SYNTH_A = (4096, 4032)   # K5's 64-row tiles: nr = 64 (even), 63 (odd)
 TRI_SYNTH_A = 4000       # not a multiple of K4's 64-row tile
 PROFILE_MOVES = 16
@@ -160,12 +169,13 @@ def _bound(nbytes, ops, ops_per_s):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _contract_bound(A, mode, elements, directions):
+def _contract_bound(A, mode, elements, directions, rows=None):
     """Bound of ``-T mu`` that reads ``elements`` entries of each of the
-    ``mode`` f32 planes once (the tile triangle of symmetric planes, A^2
+    ``mode`` f32 planes once (the tile triangle of symmetric planes, R x A
     of planes with no symmetry), taking ``directions`` sums from each, and
-    mu [3,A] f32, and writes [A,3] f32."""
-    nbytes = mode * elements * 4 + 2 * 3 * A * 4
+    mu [3,A] f32, and writes [R,3] f32 (R = ``rows``, A by default)."""
+    rows = A if rows is None else rows
+    nbytes = mode * elements * 4 + 3 * (A + rows) * 4
     ops = elements * (COEFF_OPS[mode] + directions * DIRECTION_OPS)
     return _bound(nbytes, ops, F32_OPS_PER_S)
 
@@ -360,12 +370,17 @@ def _mu(A, device, state=None):
 
 
 def check_k1(cache, state, flags, params, device, label="flagship"):
-    """K1 vs its plain version on ``cache``'s planes (of ``state``) in mode
-    3 and on seeded planes with no symmetry (B1's input) at SYNTH_A in
-    modes 3, 4 and 5; returns the record for the kernels line, timed on
-    ``cache``'s planes.  The bound of the symmetric SCF planes is that of
-    the tile triangle (the function needs no more: K4 and K5 read just
-    that); of the others, the full planes."""
+    """K1 vs its plain version (relative error <= K1_REL_TOL; two launches
+    on one input bitwise equal) on ``cache``'s planes (of ``state``) in
+    mode 3 and on the quarter of their rows from the middle ([A/4, A], the
+    self-pairs off the slice's diagonal); on seeded planes with no
+    symmetry (B1's input) at SYNTH_A, at the ragged RAGGED_A (A % 4 != 0:
+    the cp.async fill) and on the middle quarter of the SYNTH_A rows, in
+    modes 3, 4 and 5.  Prints each call's event-timed and main-kernel
+    (profiler) times beside the full-plane bound, and beside the tile
+    triangle's bound on ``cache``'s whole planes (symmetric: K4 and K5
+    need no more); returns the record for the kernels line, timed on
+    ``cache``'s mode-3 planes."""
     import torch
     from mpmcxx_tpu_torch.ops import cuda_polar
 
@@ -374,41 +389,77 @@ def check_k1(cache, state, flags, params, device, label="flagship"):
     A = planes3[0].shape[0]
     worst_abs = 0.0
     rec = {}
-    cases = [(label, A, state, True, (3,),
+
+    def middle(planes):
+        n = planes[0].shape[1]
+        return tuple(p[3 * n // 8:3 * n // 8 + n // 4] for p in planes)
+
+    cases = [(label, state, True, (3,),
               lambda m: _mode_planes(planes3, flags, l, m)),
-             ("non-symmetric", SYNTH_A, None, False, (3, 4, 5),
-              lambda m: _nonsym_planes(SYNTH_A, m, 30 + m, device))]
-    for name, A_, st, symmetric, modes, planes_of_mode in cases:
-        mu = _mu(A_, device, st)
+             (f"{label} rows [A/4, A]", state, False, (3,),
+              lambda m: middle(planes3)),
+             ("non-symmetric", None, False, (3, 4, 5),
+              lambda m: _nonsym_planes(SYNTH_A, m, 30 + m, device)),
+             ("non-symmetric rows [A/4, A]", None, False, (3, 4, 5),
+              lambda m: middle(_nonsym_planes(SYNTH_A, m, 30 + m, device))),
+             ("non-symmetric ragged", None, False, (3, 4, 5),
+              lambda m: _nonsym_planes(RAGGED_A, m, 40 + m, device))]
+    for name, st, symmetric, modes, planes_of_mode in cases:
         for mode in modes:
             planes = planes_of_mode(mode)
+            R, A_ = planes[0].shape
+            mu = _mu(A_, device, st)
             got = cuda_polar.contract_planes(planes, mu, l)
+            again = cuda_polar.contract_planes(planes, mu, l)
             want = cuda_polar.contract_planes_plain(planes, mu, l)
             torch.cuda.synchronize()
+            if got.shape != (R, 3) or not torch.equal(got, again):
+                raise AssertionError(
+                    f"K1 {name} mode {mode}: shape {tuple(got.shape)}, or "
+                    "two launches on one input differ")
             rel = _rel(got, want)
             err = float(torch.max(torch.abs(got - want)))
             ms = _time_ms(lambda: cuda_polar.contract_planes(planes, mu, l))
+            main_ms, seen = _main_ms(
+                lambda: cuda_polar.contract_planes(planes, mu, l))
             plain_ms = _time_ms(
                 lambda: cuda_polar.contract_planes_plain(planes, mu, l))
-            bound = (_contract_bound(A_, mode, tri_elements(
-                A_, cuda_polar.TRI_TILE), 2) if symmetric else
-                _contract_bound(A_, mode, A_ * A_, 1))
-            _say(f"K1 contract_planes {name} A={A_} mode {mode}: "
-                 f"max_abs_err {err:.3e} rel_err {rel:.3e}  kernel "
-                 f"{ms:.3f} ms  plain {plain_ms:.3f} ms  "
-                 f"({mode * A_ * A_ * 4 / ms / 1e6:.0f} GB/s of planes)  "
-                 f"bound {bound[0]:.4f} ms ({bound[1]}, "
-                 f"{'triangle' if symmetric else 'full planes'})")
+            full = _contract_bound(A_, mode, R * A_, 1, R)
+            tri = (_contract_bound(A_, mode, tri_elements(
+                A_, cuda_polar.TRI_TILE), 2) if symmetric else None)
+            _say(f"K1 contract_planes {name} {R}x{A_} mode {mode}: "
+                 f"max_abs_err {err:.3e} rel_err {rel:.3e}, repeat bitwise "
+                 f"equal;  kernel {ms:.4f} ms (main kernel {main_ms:.4f}, "
+                 f"{seen} launches recorded; "
+                 f"{mode * R * A_ * 4 / ms / 1e6:.0f} GB/s of planes)  "
+                 f"plain {plain_ms:.3f} ms  bound {full[0]:.4f} ms "
+                 f"({full[1]}, full planes: call {full[0] / ms:.1%}, main "
+                 f"{full[0] / main_ms:.1%})"
+                 + (f", {tri[0]:.4f} ms ({tri[1]}, the triangle of the "
+                    "symmetric planes; K1's contract reaches at most half "
+                    "of it)" if tri else ""))
             if not rel <= K1_REL_TOL:
                 raise AssertionError(
                     f"K1 {name} mode {mode}: rel err {rel:.3e} > "
                     f"{K1_REL_TOL}")
             worst_abs = max(worst_abs, err)
             if name == label and mode == 3:
-                rec = {"ms": ms, "plain_ms": plain_ms, "bound": bound}
+                rec = {"ms": ms, "main_ms": main_ms, "plain_ms": plain_ms,
+                       "bound": tri, "bound_full_planes_ms": full[0]}
             del planes
     rec["max_abs_err"] = worst_abs
     return rec
+
+
+def _main_ms(fn):
+    """(device ms of one launch, launches recorded) of the main kernel of
+    ``fn`` (the kernel with the most device time) over TIMING_REPS calls
+    under torch.profiler: the mean over the launches it recorded."""
+    split = device_split(fn)
+    if not split:
+        raise AssertionError("the profiler saw no kernel")
+    ms, n = max(split.values())
+    return ms / n, round(n * TIMING_REPS)
 
 
 def tri_elements(A, b):
@@ -427,9 +478,10 @@ def check_k5(cache, state, flags, params, device, label, modes=(3, 4, 5),
     against contract_planes_sym_plain, its own schedule in PyTorch; each
     K5 output bitwise equal to a second launch on the same input.  Prints
     K5's and K1's times and GB/s on the same planes (K5's of the bytes it
-    reads, the tile triangle; K1's of the full planes) and, on ``cache``'s
-    mode-3 planes, one K5 call's device time by kernel; returns the
-    kernels-line record, timed on those planes."""
+    reads, the tile triangle; K1's of the full planes, with its main
+    kernel's time on ``cache``'s planes) and, on ``cache``'s mode-3
+    planes, one K5 call's device time by kernel; returns the kernels-line
+    record, timed on those planes."""
     import torch
     from mpmcxx_tpu_torch.ops import cuda_polar
 
@@ -465,11 +517,15 @@ def check_k5(cache, state, flags, params, device, label, modes=(3, 4, 5),
             k1_rel = _rel(cuda_polar.contract_planes(planes, mu, l), want)
             k1_ms = _time_ms(
                 lambda: cuda_polar.contract_planes(planes, mu, l))
+            k1_main_ms = (_main_ms(
+                lambda: cuda_polar.contract_planes(planes, mu, l))[0]
+                if st is not None else None)
             plain_ms = _time_ms(
                 lambda: cuda_polar.contract_planes_plain(planes, mu, l))
             tri_gb = mode * tri_elements(A_, b) * 4 / 1e9
             full_gb = mode * A_ * A_ * 4 / 1e9
             bound = _contract_bound(A_, mode, tri_elements(A_, b), 2)
+            k1_bound = _contract_bound(A_, mode, A_ * A_, 1)
             _say(f"K5 contract_planes_sym {name} A={A_} mode {mode}: "
                  f"max_abs_err {err:.3e} rel_err {rel:.3e}"
                  + (f" (vs its schedule's plain {sched_rel:.3e})"
@@ -477,9 +533,14 @@ def check_k5(cache, state, flags, params, device, label, modes=(3, 4, 5),
                  f", repeat bitwise equal;  K5 {ms:.4f} ms "
                  f"({tri_gb / ms * 1e3:.0f} GB/s of the triangle's "
                  f"{tri_gb:.3f} GB; bound {bound[0]:.4f} ms, "
-                 f"{bound[0] / ms:.1%})  K1 {k1_ms:.4f} ms "
-                 f"({full_gb / k1_ms * 1e3:.0f} GB/s of {full_gb:.3f} GB, "
-                 f"rel_err {k1_rel:.3e})  plain {plain_ms:.3f} ms")
+                 f"{bound[0] / ms:.1%})  K1 {k1_ms:.4f} ms"
+                 + (f", main kernel {k1_main_ms:.4f}" if k1_main_ms else "")
+                 + f" ({full_gb / k1_ms * 1e3:.0f} GB/s of {full_gb:.3f} "
+                 f"GB; its full-plane bound {k1_bound[0]:.4f} ms, call "
+                 f"{k1_bound[0] / k1_ms:.1%}"
+                 + (f", main {k1_bound[0] / k1_main_ms:.1%}"
+                    if k1_main_ms else "")
+                 + f"; rel_err {k1_rel:.3e})  plain {plain_ms:.3f} ms")
             if not max(rel, sched_rel, k1_rel) <= K1_REL_TOL:
                 raise AssertionError(
                     f"K5 {name} mode {mode}: rel err {rel:.3e} (its "
@@ -491,37 +552,46 @@ def check_k5(cache, state, flags, params, device, label, modes=(3, 4, 5),
                        "bound": bound}
                 split = device_split(
                     lambda: cuda_polar.contract_planes_sym(planes, mu, l))
-                main_ms = max((ms for ms, _ in split.values()), default=0)
-                _say("  K5 call's device time by kernel: " + (", ".join(
-                    f"{k} {ms:.4f} ms" for k, (ms, _) in split.items()) +
-                    f"; main kernel {bound[0] / main_ms:.1%} of the bound"
-                    if split else "none seen"))
+                if not split:
+                    raise AssertionError("the profiler saw no K5 kernel")
+                main_ms = max(ms / n for ms, n in split.values())
+                _say("  K5 call's device time by kernel (mean of the "
+                     "launches recorded): " + ", ".join(
+                         f"{k} {ms / n:.4f} ms" for k, (ms, n) in
+                         split.items()) +
+                     f"; main kernel {bound[0] / main_ms:.1%} of the bound")
             del planes
     rec["max_abs_err"] = worst_abs
     return rec
 
 
-def device_split(fn, reps=TIMING_REPS):
+def device_split(fn, reps=TIMING_REPS, tries=3):
     """Device ms and kernels per call of ``fn``, by kernel name
-    (torch.profiler over ``reps`` calls after one warm-up call)."""
+    (torch.profiler over ``reps`` calls after one warm-up call).  A
+    session that records no device event at all (seen once in a run of
+    this script) is run again, up to ``tries`` sessions; every call of
+    ``fn`` runs the same work, so the sessions are alike."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            k = re.search(r"(\w+)(?:<[^>]*>)?\(", e.name)
-            key = k.group(1) if k else e.name[:40]
-            ms, n = out.get(key, (0.0, 0.0))
-            out[key] = (ms + e.time_range.elapsed_us() / 1e3 / reps,
-                        n + 1 / reps)
+    for _ in range(tries):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                k = re.search(r"(\w+)(?:<[^>]*>)?\(", e.name)
+                key = k.group(1) if k else e.name[:40]
+                ms, n = out.get(key, (0.0, 0.0))
+                out[key] = (ms + e.time_range.elapsed_us() / 1e3 / reps,
+                            n + 1 / reps)
+        if out:
+            break
     return out
 
 
@@ -588,21 +658,29 @@ def check_k4(cache, state, flags, params, device, label="H2 flagship"):
 
 
 def check_k2(cache, device):
-    """K2 vs its plain version, bitwise; returns the kernels-line record."""
+    """K2 vs its plain version, bitwise, on copies of ``cache``'s plane at
+    window starts 0, mid-plane and A - S, for S = 3 (CO2) with all-valid
+    and partly valid windows and S = 1 (monatomic), the start as the
+    chain's int64 and once as int32.  Times the main path's commit (three
+    planes, S = 3): the kernel's device time (torch.profiler) and the
+    event-timed call (the wrapper's host work included).  Returns the
+    kernels-line record, whose ms is the device time."""
     import torch
     from mpmcxx_tpu_torch.ops import cuda_polar
     from mpmcxx_tpu_torch.ops.polar_cache import commit_strips
 
     A = cache.dx.shape[0]
-    S = 3
     rng = np.random.default_rng(7)
-    rec = {}
-    for start in (0, A // 2 + 1, A - S):
-        for valid in ((True, True, True), (True, False, True)):
+    cases = [(3, v, torch.int64) for v in ((True, True, True),
+                                           (True, False, True))]
+    cases += [(1, (True,), torch.int64), (1, (False,), torch.int64),
+              (3, (True, True, True), torch.int32)]
+    for S, valid, dtype in cases:
+        for start in (0, A // 2 + 1, A - S):
             base = (cache.dx.clone(),)
             rows = (torch.from_numpy(rng.normal(size=(S, A)).astype(
                 np.float32)).to(device),)
-            st = torch.tensor(start, device=device)
+            st = torch.tensor(start, dtype=dtype, device=device)
             vt = torch.tensor(valid, device=device)
             blend, cols = commit_strips(base, rows, st, vt, -1.0)
             k = (base[0].clone(),)
@@ -611,27 +689,40 @@ def check_k2(cache, device):
             cuda_polar.write_plane_strips_plain(p, blend, cols, st)
             torch.cuda.synchronize()
             if not torch.equal(k[0], p[0]):
-                raise AssertionError(f"K2 start {start} valid {valid}: "
-                                     "kernel differs from plain")
-            _say(f"K2 write_plane_strips start={start} valid={valid}: "
-                 "bitwise equal")
+                raise AssertionError(f"K2 S={S} start {start} valid {valid} "
+                                     f"{dtype}: kernel differs from plain")
+            _say(f"K2 write_plane_strips S={S} start={start} valid={valid} "
+                 f"{str(dtype).split('.')[-1]}: bitwise equal")
             del base, k, p
-    # time the commit shape of the main path: three planes, S = 3
+    # the commit shape of the main path: three planes, S = 3
+    S = 3
     planes = (cache.dx, cache.dy, cache.dz)
     st = torch.tensor(A // 2, device=device)
     vt = torch.ones(S, dtype=torch.bool, device=device)
     rows = tuple(pl.index_select(0, st + torch.arange(S, device=device))
                  for pl in planes)
     blend, cols = commit_strips(planes, rows, st, vt, -1.0)
-    rec["ms"] = _time_ms(
-        lambda: cuda_polar.write_plane_strips(planes, blend, cols, st))
-    rec["plain_ms"] = _time_ms(
-        lambda: cuda_polar.write_plane_strips_plain(planes, blend, cols, st))
-    rec["max_abs_err"] = 0.0
-    # reads the row and column strips, writes them into the planes
-    rec["bound"] = _bound(4 * len(planes) * S * A * 4, 0, F32_OPS_PER_S)
+
+    def call():
+        cuda_polar.write_plane_strips(planes, blend, cols, st)
+    split = {k: v for k, v in device_split(call).items()
+             if "write_plane_strips" in k}
+    if not split:
+        raise AssertionError("the profiler saw no K2 kernel")
+    rec = {"ms": sum(ms / n for ms, n in split.values()),
+           "call_ms": _time_ms(call),
+           "plain_ms": _time_ms(lambda: cuda_polar.write_plane_strips_plain(
+               planes, blend, cols, st)),
+           "max_abs_err": 0.0,
+           # reads the row and column strips, writes them into the planes
+           "bound": _bound(4 * len(planes) * S * A * 4, 0, F32_OPS_PER_S)}
     _say(f"K2 write_plane_strips 3 planes A={A} S={S}: kernel "
-         f"{rec['ms']:.4f} ms  plain {rec['plain_ms']:.4f} ms")
+         f"{rec['ms']:.4f} ms of device time (profiler, the mean of "
+         f"{sum(n for _, n in split.values()) * TIMING_REPS:.0f} launches "
+         f"recorded of {TIMING_REPS}), call {rec['call_ms']:.4f} ms "
+         f"(events), plain "
+         f"{rec['plain_ms']:.4f} ms, bound {rec['bound'][0]:.5f} ms "
+         f"({rec['bound'][1]}; launch-bound)")
     return rec
 
 
@@ -871,6 +962,7 @@ KERNEL_GROUPS = (("contract_sym_kernel", "K5 contract_planes_sym"),
                  ("sum_sym_slots", "K5 contract_planes_sym"),
                  ("mu_soa_kernel", "K5 contract_planes_sym"),
                  ("contract_planes_kernel", "K1 contract_planes"),
+                 ("sum_row_slots", "K1 contract_planes"),
                  ("contract_tri_kernel", "K4 contract_planes_tri"),
                  ("sum_slots_kernel", "K4 contract_planes_tri"),
                  ("write_plane_strips", "K2 write_plane_strips"),
@@ -1204,14 +1296,17 @@ def main() -> int:
                                           k2_cli["max_abs_err"]))
     kernels_line = {"kernels": [
         _entry("contract_planes", "mpmcxx_tpu_torch/csrc/contract_planes.cu",
-               "mpmcxx_tpu/ops/pallas_polar.py:39", k1, launches),
+               "mpmcxx_tpu/ops/pallas_polar.py:39", k1, launches,
+               main_ms=k1["main_ms"],
+               bound_full_planes_ms=k1["bound_full_planes_ms"]),
         _entry("contract_planes_sym",
                "mpmcxx_tpu_torch/csrc/contract_planes_sym.cu",
                "mpmcxx_tpu/ops/pallas_polar.py:209", k5_all, launches,
                k1_ms_same_planes=k5_cli["k1_ms"]),
         _entry("write_plane_strips",
                "mpmcxx_tpu_torch/csrc/write_plane_strips.cu",
-               "mpmcxx_tpu/ops/pallas_polar.py:134", k2_all, launches),
+               "mpmcxx_tpu/ops/pallas_polar.py:134", k2_all, launches,
+               call_ms=k2_all["call_ms"]),
         _entry("occupancy", "mpmcxx_tpu_torch/csrc/occupancy.cu",
                "mpmcxx_tpu/ops/pallas_cavity.py:54", k3, launches,
                darts_ms=k3["darts_ms"]),

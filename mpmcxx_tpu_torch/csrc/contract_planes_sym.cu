@@ -59,9 +59,10 @@
 //   tensor map reads.
 // Math and sums are f32, as on the TPU.
 
-#include <cuda.h>          // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -132,59 +133,6 @@ int row_slots(const Schedule& sc, int G) {
     r = n > r ? n : r;
   }
   return r;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// The box of `map` at (column x, row y) into shared memory at dst.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int x, int y, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x),
-      "r"(y)
-      : "memory");
 }
 
 __device__ __forceinline__ void consumers_sync() {
@@ -508,52 +456,6 @@ int grid_blocks(int* blocks) {
   return 0;
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up once.
-int encoder(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (q != cudaDriverEntryPointSuccess || p == nullptr)
-      return static_cast<int>(cudaErrorNotSupported);
-    cached = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = cached;
-  return 0;
-}
-
-// The 2-D map of a row-major [rows, cols] f32 array whose box is
-// box_rows x 64 columns.
-int tensor_map(EncodeTiled enc, CUtensorMap* map, const void* base,
-               int rows, int cols, int box_rows) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 4};
-  const cuuint32_t box[2] = {kTile, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = enc(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
 int grid_for(int mode, int A, int* G) {
   int rc;
   switch (mode) {
@@ -607,8 +509,9 @@ extern "C" int mpmcxx_contract_planes_sym(const void* const* planes,
   if (e) return e;
   CUtensorMap m[6];
   for (int k = 0; k < 5 && !e; ++k)
-    e = tensor_map(enc, &m[k], planes[k < mode ? k : 0], A, A, kStageRows);
-  if (!e) e = tensor_map(enc, &m[5], mu32, 3, A, 3);
+    e = tensor_map(enc, &m[k], planes[k < mode ? k : 0], A, A, kStageRows,
+                   kTile);
+  if (!e) e = tensor_map(enc, &m[5], mu32, 3, A, 3, kTile);
   if (e) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   mu_soa_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(

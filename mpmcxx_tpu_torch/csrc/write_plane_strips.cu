@@ -10,52 +10,108 @@
 // column writes touch disjoint addresses, so the result is exact and does
 // not depend on scheduling: it is bitwise the plain version's.
 //
-// Replaces the TPU kernel mpmcxx_tpu/ops/pallas_polar.py
+// Replaces the TPU kernel mpmcxx_tpu/ops/pallas_polar.py:134
 // write_columns_pallas and the row dynamic_update_slice of
 // write_symmetric_rows.
 //
 // Bound: launch latency.  A commit moves 2 x S x A floats per plane
-// (~270 KB for S = 3, A = 11,264, three planes); the column strip is a
-// strided write (one float per row-major line).  The window start is a
-// device int32 the kernel reads itself, so the MC step never waits on the
-// host for it.
+// (~0.7 MB for S = 3, A = 19,712, three planes: 0.2 us at 3.35 TB/s); the
+// column strip is a strided write (S floats per row-major line).  The
+// design keeps the device part short:
+// - The window start is the caller's 0-d device int64 (or int32), read by
+//   the kernel itself: no cast launch, and the MC step never waits on the
+//   host for it.
+// - Grid (segments, planes): blockIdx.y is the plane; the first S x
+//   row_segs blocks of a plane write its row strip (row s, one segment of
+//   columns each), the rest its column strip (one thread per row, its S
+//   floats).  Index math is 32-bit within a row, with one division per
+//   block and none per element.  A thread issues its loads before it
+//   reads the start, so the two wait on memory together.
+// - Row strips move 16 bytes a thread where the rows allow it (A % 4 == 0
+//   and 16-byte aligned bases), element by element only in the float4
+//   that holds the window's edge.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kMaxPlanes = 5;
+constexpr int kThreads = 256;
+constexpr int kChunk = 8;      // column-strip floats a thread loads at once
 
 struct PlanePtrs {
   float* p[kMaxPlanes];
 };
 
-__global__ void write_plane_strips_kernel(PlanePtrs planes,
-                                          const float* __restrict__ blend,
-                                          const float* __restrict__ cols,
-                                          const int* __restrict__ start_ptr,
-                                          int S, int A) {
-  const int start = *start_ptr;
-  // the caller clips the window into [0, A - S]; stay in bounds anyway
-  if (start < 0 || start > A - S) return;
-  float* plane = planes.p[blockIdx.y];
-  const size_t strip = static_cast<size_t>(S) * A;
-  const float* bl = blend + blockIdx.y * strip;
-  const float* cl = cols + blockIdx.y * strip;
-  for (size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-       idx < 2 * strip; idx += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    if (idx < strip) {
-      const int s = static_cast<int>(idx / A);
-      const int j = static_cast<int>(idx % A);
-      if (j >= start && j < start + S) continue;
-      plane[static_cast<size_t>(start + s) * A + j] = bl[idx];
+// The window start, or -1 where it is outside [0, A - S] (the caller
+// clips it there; stay in bounds anyway).
+__device__ __forceinline__ int window_start(const void* start, int is_64,
+                                            int S, int A) {
+  const long long st = is_64 ? *static_cast<const long long*>(start)
+                             : *static_cast<const int*>(start);
+  return st < 0 || st > A - S ? -1 : static_cast<int>(st);
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+write_plane_strips_kernel(const __grid_constant__ PlanePtrs planes,
+                          const float* __restrict__ blend,
+                          const float* __restrict__ cols,
+                          const void* __restrict__ start_ptr,
+                          int start_is_64, int S, int A, int row_segs) {
+  const int p = blockIdx.y;
+  const int row_blocks = S * row_segs;
+  const int b = blockIdx.x;
+  if (b < row_blocks) {
+    const int s = b / row_segs;
+    const int seg = b - s * row_segs;
+    const float* src = blend + static_cast<size_t>(p * S + s) * A;
+    if (VEC) {
+      const int g = seg * kThreads + threadIdx.x;     // float4 of the row
+      if (g >= A / 4) return;
+      const float4 v = reinterpret_cast<const float4*>(src)[g];
+      const int start = window_start(start_ptr, start_is_64, S, A);
+      if (start < 0) return;
+      float* dst = planes.p[p] + static_cast<size_t>(start + s) * A;
+      const int j = 4 * g, end = start + S;
+      if (j + 4 <= start || j >= end) {
+        reinterpret_cast<float4*>(dst)[g] = v;
+      } else {
+        const float w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (j + k < start || j + k >= end) dst[j + k] = w[k];
+      }
     } else {
-      const size_t k = idx - strip;
-      const int i = static_cast<int>(k / S);
-      const int s = static_cast<int>(k % S);
-      plane[static_cast<size_t>(i) * A + start + s] =
-          cl[static_cast<size_t>(s) * A + i];
+      const int j = seg * kThreads + threadIdx.x;
+      if (j >= A) return;
+      const float v = src[j];
+      const int start = window_start(start_ptr, start_is_64, S, A);
+      if (start < 0 || (j >= start && j < start + S)) return;
+      planes.p[p][static_cast<size_t>(start + s) * A + j] = v;
+    }
+  } else {
+    // row i of the column strip: its S floats, kChunk loads at a time
+    const int i = (b - row_blocks) * kThreads + threadIdx.x;
+    if (i >= A) return;
+    const float* src = cols + static_cast<size_t>(p * S) * A + i;
+    float v[kChunk];
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k)
+      if (k < S) v[k] = src[static_cast<size_t>(k) * A];
+    const int start = window_start(start_ptr, start_is_64, S, A);
+    if (start < 0) return;
+    float* dst = planes.p[p] + static_cast<size_t>(i) * A + start;
+    for (int s0 = 0;;) {
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k)
+        if (s0 + k < S) dst[s0 + k] = v[k];
+      s0 += kChunk;
+      if (s0 >= S) break;
+#pragma unroll
+      for (int k = 0; k < kChunk; ++k)
+        if (s0 + k < S) v[k] = src[static_cast<size_t>(s0 + k) * A];
     }
   }
 }
@@ -63,23 +119,31 @@ __global__ void write_plane_strips_kernel(PlanePtrs planes,
 }  // namespace
 
 // planes: host array of n_planes device pointers to [A, A] f32 planes;
-// blend, cols: device [n_planes, S, A] f32; start: device int32 scalar.
-// Launches on `stream` and returns cudaGetLastError() (0 = launched).
+// blend, cols: device [n_planes, S, A] f32; start: device 0-d int64
+// (start_is_64) or int32.  Launches on `stream` and returns
+// cudaGetLastError() (0 = launched).
 extern "C" int mpmcxx_write_plane_strips(void* const* planes, int n_planes,
                                          const float* blend,
-                                         const float* cols, const int* start,
-                                         int S, int A, void* stream) {
-  if (n_planes < 1 || n_planes > kMaxPlanes)
+                                         const float* cols, const void* start,
+                                         int start_is_64, int S, int A,
+                                         void* stream) {
+  if (n_planes < 1 || n_planes > kMaxPlanes || S < 1 || S > A)
     return static_cast<int>(cudaErrorInvalidValue);
   PlanePtrs ptrs = {};
-  for (int i = 0; i < n_planes; ++i) ptrs.p[i] = static_cast<float*>(planes[i]);
-  const int threads = 256;
-  const size_t work = 2 * static_cast<size_t>(S) * A;
-  size_t nblk = (work + threads - 1) / threads;
-  if (nblk > 1024) nblk = 1024;
-  const dim3 grid(static_cast<unsigned>(nblk), n_planes);
-  write_plane_strips_kernel<<<grid, threads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      ptrs, blend, cols, start, S, A);
+  bool vec = A % 4 == 0 && reinterpret_cast<uintptr_t>(blend) % 16 == 0;
+  for (int i = 0; i < n_planes; ++i) {
+    ptrs.p[i] = static_cast<float*>(planes[i]);
+    vec = vec && reinterpret_cast<uintptr_t>(planes[i]) % 16 == 0;
+  }
+  const int row_segs = vec ? (A / 4 + kThreads - 1) / kThreads
+                           : (A + kThreads - 1) / kThreads;
+  const dim3 grid(S * row_segs + (A + kThreads - 1) / kThreads, n_planes);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec)
+    write_plane_strips_kernel<true><<<grid, kThreads, 0, s>>>(
+        ptrs, blend, cols, start, start_is_64, S, A, row_segs);
+  else
+    write_plane_strips_kernel<false><<<grid, kThreads, 0, s>>>(
+        ptrs, blend, cols, start, start_is_64, S, A, row_segs);
   return static_cast<int>(cudaGetLastError());
 }

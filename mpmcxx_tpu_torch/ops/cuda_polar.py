@@ -5,8 +5,10 @@ JAX twin: mpmcxx_tpu/ops/pallas_polar.py.
 
 - K1 ``contract_planes`` (csrc/contract_planes.cu) replaces
   ``contract_pallas`` and serves the XLA branch of the JAX switch:
-  ``-T mu`` over the full f32 SCF planes, no symmetry assumed.  Bound by
-  device-memory bytes (1.52 GB per call in mode 3 at A = 11,264).
+  ``-T mu`` over [R, A] f32 planes (square, or a slice of rows), no
+  symmetry assumed, on persistent blocks fed through a ring of
+  asynchronous copies.  Bound by device-memory bytes (1.39 GB per call in
+  mode 3 at A = 10,752).
 - K5 ``contract_planes_sym`` (csrc/contract_planes_sym.cu) replaces
   ``contract_pallas_sym``, the default schedule: the same ``-T mu`` for
   symmetric T over B2's wrapped-column tile pairing, each unordered
@@ -87,7 +89,8 @@ def _t_mu(terms, m, dim: int):
 
 def contract_planes_plain(planes, mu, l: float = 0.0):
     """Eager form of polar.contract_mixed (polar.py:884-897): ``-T mu`` in
-    f32 over the 3-, 4- or 5-plane tuple, returned as [A,3] f64.  It is the
+    f32 over the 3-, 4- or 5-plane tuple of [R,A] planes (square, or a
+    slice of rows) with mu [A,3], returned as [R,3] f64.  It is the
     reference of K1, K4 and K5 on the card, and what K5's wrapper runs on
     CPU tensors."""
     return -_t_mu(_unfold(planes, l), mu.to(torch.float32), 1).to(
@@ -95,30 +98,40 @@ def contract_planes_plain(planes, mu, l: float = 0.0):
 
 
 def contract_planes(planes, mu, l: float = 0.0):
-    """``-T mu`` over square f32 planes (3: masked d with in-kernel
-    coefficients from damping width ``l``; 4: (cd, s); 5: (co, cd, d)),
-    mu [A,3]; returns [A,3] f64."""
+    """``-T mu`` over [R,A] f32 planes, square or a slice of rows, with no
+    symmetry assumed (3: masked d with in-kernel coefficients from damping
+    width ``l``; 4: (cd, s); 5: (co, cd, d)), mu [A,3]; returns [R,3]
+    f64."""
     if _on_cpu(planes[0]):
         return contract_planes_plain(planes, mu, l)
     mode = len(planes)
-    A = planes[0].shape[0]
     if mode not in (3, 4, 5):
         raise ValueError(f"contract_planes: {mode} planes")
+    R, A = planes[0].shape if planes[0].dim() == 2 else (0, 0)
+    if R < 1 or A < 1:
+        raise ValueError(f"contract_planes: planes of shape "
+                         f"{tuple(planes[0].shape)}")
     for p in planes:
-        _check_cuda_f32("contract_planes plane", p, (A, A))
+        _check_cuda_f32("contract_planes plane", p, (R, A))
     if tuple(mu.shape) != (A, 3) or mu.device != planes[0].device:
         raise ValueError(f"contract_planes: mu {tuple(mu.shape)} on "
-                         f"{mu.device} for {A}x{A} planes")
+                         f"{mu.device} for {R}x{A} planes")
     lib = kernels.load()
-    m = mu.to(torch.float32).t().contiguous()          # [3, A] SoA
-    out = torch.empty((A, 3), dtype=torch.float32, device=mu.device)
+    m = mu.to(torch.float64).contiguous()
+    ptrs = _void_ptrs(planes)
+    slots = lib.mpmcxx_contract_planes_slots(ptrs, mode, m.data_ptr(), R, A)
+    if slots <= 0:
+        raise RuntimeError("contract_planes: no launch configuration for "
+                           f"mode {mode}, {R}x{A} planes")
+    work = torch.empty((slots, R, 3), dtype=torch.float32, device=mu.device)
+    out = torch.empty((R, 3), dtype=torch.float64, device=mu.device)
     rc = lib.mpmcxx_contract_planes(
-        _void_ptrs(planes), mode, m.data_ptr(), l, out.data_ptr(), A,
-        torch.cuda.current_stream(mu.device).cuda_stream)
+        ptrs, mode, m.data_ptr(), l, work.data_ptr(), slots, out.data_ptr(),
+        R, A, torch.cuda.current_stream(mu.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"contract_planes launch failed: CUDA error {rc}")
     contract_planes.launches += 1
-    return -out.to(torch.float64)
+    return out
 
 
 contract_planes.launches = 0
@@ -288,7 +301,7 @@ def write_plane_strips(planes, blend, cols, start):
     """In place on each [A,A] f32 plane: rows start..start+S-1 from
     ``blend[p]`` and columns start..start+S-1 from ``cols[p]`` (both
     [P,S,A]), the columns winning inside the S x S window.  ``start`` is a
-    0-d integer tensor on the planes' device."""
+    0-d int64 or int32 tensor on the planes' device, read by the kernel."""
     if _on_cpu(planes[0]):
         return write_plane_strips_plain(planes, blend, cols, start)
     A = planes[0].shape[0]
@@ -300,14 +313,13 @@ def write_plane_strips(planes, blend, cols, start):
         _check_cuda_f32("write_plane_strips plane", p, (A, A))
     _check_cuda_f32("write_plane_strips blend", blend, (P, S, A))
     _check_cuda_f32("write_plane_strips cols", cols, (P, S, A))
-    if start.dim() != 0 or start.device != planes[0].device:
-        raise ValueError("write_plane_strips: start must be a 0-d tensor "
-                         "on the planes' device")
-    lib = kernels.load()
-    start32 = start.to(torch.int32)
-    rc = lib.mpmcxx_write_plane_strips(
+    if start.dim() != 0 or start.device != planes[0].device or \
+            start.dtype not in (torch.int64, torch.int32):
+        raise ValueError("write_plane_strips: start must be a 0-d int64 or "
+                         "int32 tensor on the planes' device")
+    rc = kernels.load().mpmcxx_write_plane_strips(
         _void_ptrs(planes), P, blend.data_ptr(), cols.data_ptr(),
-        start32.data_ptr(), S, A,
+        start.data_ptr(), start.dtype == torch.int64, S, A,
         torch.cuda.current_stream(blend.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(

@@ -5,9 +5,9 @@ that of mpmcxx_tpu/runtime/native.py).  At first use ``nvcc`` compiles
 every ``csrc/*.cu`` source for Hopper (``sm_90a``, ``-O3``, no fast math),
 one process per source, all started together, and links the objects into
 one shared library with a plain C interface, written to
-``mpmcxx_tpu_torch/_build/`` under a name keyed by a hash of the sources
-and flags, and loaded with ctypes.  Nothing is built or imported when
-this module is imported.
+``mpmcxx_tpu_torch/_build/`` under a name keyed by a hash of the sources,
+the headers they share (``csrc/*.cuh``) and the flags, and loaded with
+ctypes.  Nothing is built or imported when this module is imported.
 """
 
 from __future__ import annotations
@@ -35,6 +35,10 @@ def _sources():
     return sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
 
 
+def _headers():
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     for cand in ((os.path.join(home, "bin", "nvcc") if home else None),
@@ -51,7 +55,7 @@ def build() -> str:
     global build_log
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + _headers():
         with open(s, "rb") as f:
             h.update(os.path.basename(s).encode() + f.read())
     lib = os.path.join(_BUILD, f"libmpmcxx_kernels_{h.hexdigest()[:16]}.so")
@@ -92,8 +96,12 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(build())
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.mpmcxx_contract_planes.argtypes = [
-                ctypes.POINTER(vp), ci, vp, ctypes.c_float, vp, ci, vp]
+                ctypes.POINTER(vp), ci, vp, ctypes.c_float, vp, ci, vp, ci,
+                ci, vp]
             lib.mpmcxx_contract_planes.restype = ci
+            lib.mpmcxx_contract_planes_slots.argtypes = [
+                ctypes.POINTER(vp), ci, vp, ci, ci]
+            lib.mpmcxx_contract_planes_slots.restype = ci
             lib.mpmcxx_contract_planes_tri.argtypes = [
                 ctypes.POINTER(vp), ci, vp, ctypes.c_float, vp, vp, ci, vp]
             lib.mpmcxx_contract_planes_tri.restype = ci
@@ -104,7 +112,7 @@ def load() -> ctypes.CDLL:
             lib.mpmcxx_contract_planes_sym_slots.argtypes = [ci, ci]
             lib.mpmcxx_contract_planes_sym_slots.restype = ci
             lib.mpmcxx_write_plane_strips.argtypes = [
-                ctypes.POINTER(vp), ci, vp, vp, vp, ci, ci, vp]
+                ctypes.POINTER(vp), ci, vp, vp, vp, ci, ci, ci, vp]
             lib.mpmcxx_write_plane_strips.restype = ci
             lib.mpmcxx_occupancy.argtypes = [
                 vp, vp, vp, ctypes.c_double, ci, ci, vp, vp]

@@ -274,9 +274,9 @@ def contract_mixed(coeffs, mu, l=None):
     contract_pallas_tri (use_tri) this runs kernel K4
     (ops/cuda_polar.contract_planes_tri), where it would run
     contract_pallas_sym (use_sym) kernel K5 (contract_planes_sym),
-    otherwise (contract_pallas, the XLA branch) kernel K1
-    (contract_planes); each takes a plain PyTorch version on CPU
-    tensors."""
+    otherwise (contract_pallas, the XLA branch: other square sizes and
+    [R, A] row slices, returning [R, 3]) kernel K1 (contract_planes);
+    each takes a plain PyTorch version on CPU tensors."""
     if len(coeffs) == 3 and l is None:
         raise ValueError("3-plane mixed coefficients need l=polar_damp")
     l = 0.0 if l is None else l

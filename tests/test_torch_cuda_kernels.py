@@ -64,19 +64,21 @@ def test_contract_kernel_matches_plain(cuda, A, mode):
                  torch.linalg.norm(want)) <= 1e-5
 
 
-def _nonsym_planes(A, mode, seed, device):
-    """Planes with no symmetry at all (test_pallas.py:127-149), as B1
-    contract_pallas takes them; mode 3 keeps pair distances in 1-12 A."""
+def _nonsym_planes(A, mode, seed, device, rows=None):
+    """[rows, A] planes (rows = A by default) with no symmetry at all
+    (test_pallas.py:127-149), as B1 contract_pallas and the XLA branch
+    take them; mode 3 keeps pair distances in 1-12 A."""
     rng = np.random.default_rng(seed)
+    shape = (A if rows is None else rows, A)
     if mode == 3:
-        u = rng.normal(size=(A, A, 3))
+        u = rng.normal(size=shape + (3,))
         u /= np.linalg.norm(u, axis=-1, keepdims=True)
-        d = u * rng.uniform(1.0, 12.0, size=(A, A))[..., None]
+        d = u * rng.uniform(1.0, 12.0, size=shape)[..., None]
         planes = [d[..., i] for i in range(3)]
     else:
         scales = (0.01, 0.01, 1.0, 1.0, 1.0) if mode == 5 else \
             (0.01, 0.1, 0.1, 0.1)
-        planes = [rng.normal(size=(A, A)) * s for s in scales]
+        planes = [rng.normal(size=shape) * s for s in scales]
     return tuple(torch.from_numpy(p.astype(np.float32)).to(device)
                  for p in planes)
 
@@ -98,6 +100,56 @@ def test_contract_kernel_nonsym_matches_plain(cuda, A, mode):
     # f32 sums of A terms in another order
     assert float(torch.linalg.norm(got - want) /
                  torch.linalg.norm(want)) <= 1e-5
+
+
+# square (TMA fill), ragged units, row slices, A % 4 != 0 (cp.async fill)
+RECT_SHAPES = [(1024, 1024), (1000, 1000), (256, 1024), (37, 1001),
+               (1001, 1001), (1, 640)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", RECT_SHAPES)
+@pytest.mark.parametrize("mode", [3, 4, 5])
+def test_contract_kernel_rect_matches_plain(cuda, shape, mode):
+    """K1 on [R, A] planes, square or a slice of rows, as the XLA branch
+    takes them: [R, 3] f64 within rel 1e-5 of the plain version, and two
+    launches on one input bitwise equal."""
+    R, A = shape
+    planes = _nonsym_planes(A, mode, R + mode, cuda, rows=R)
+    mu = torch.from_numpy(
+        np.random.default_rng(R + A).normal(size=(A, 3)) * 0.1).to(cuda)
+    before = cuda_polar.contract_planes.launches
+    got = cuda_polar.contract_planes(planes, mu, L_DAMP)
+    again = cuda_polar.contract_planes(planes, mu, L_DAMP)
+    want = cuda_polar.contract_planes_plain(planes, mu, L_DAMP)
+    torch.cuda.synchronize()
+    assert cuda_polar.contract_planes.launches == before + 2
+    assert got.dtype == torch.float64 and got.shape == (R, 3)
+    assert torch.equal(got, again)
+    # f32 sums of A terms in another order
+    assert float(torch.linalg.norm(got - want) /
+                 torch.linalg.norm(want)) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", [3, 4, 5])
+def test_contract_kernel_middle_rows_of_symmetric_planes(cuda, mode):
+    """K1 on a quarter of the rows from the middle of symmetric planes
+    (the self-pairs off the slice's diagonal), against the plain version
+    and against the same rows of the whole planes' contraction."""
+    A = 1024
+    planes = _planes(A, mode, 60 + mode, cuda)
+    mu = torch.from_numpy(
+        np.random.default_rng(mode).normal(size=(A, 3)) * 0.1).to(cuda)
+    r0, r1 = 3 * A // 8, 5 * A // 8
+    rows = tuple(p[r0:r1] for p in planes)
+    got = cuda_polar.contract_planes(rows, mu, L_DAMP)
+    whole = cuda_polar.contract_planes(planes, mu, L_DAMP)[r0:r1]
+    want = cuda_polar.contract_planes_plain(rows, mu, L_DAMP)
+    torch.cuda.synchronize()
+    for ref in (want, whole):
+        assert float(torch.linalg.norm(got - ref) /
+                     torch.linalg.norm(ref)) <= 1e-5
 
 
 @pytest.mark.gpu
@@ -170,6 +222,35 @@ def test_commit_kernel_bit_equal_to_plain(cuda, start, valid):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("P", [1, 3, 5])
+@pytest.mark.parametrize("S", [1, 3, 5])
+@pytest.mark.parametrize("A", [1024, 1001])     # 16-byte rows or not
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_commit_kernel_strips_bit_equal_to_plain(cuda, P, S, A, dtype):
+    """K2 on P planes with an S-row window at starts 0, mid-plane and
+    A - S, the start as the chain's int64 or as int32: bitwise its plain
+    version, one launch each."""
+    rng = np.random.default_rng(P * S + A)
+    for start in (0, A // 2 + 1, A - S):
+        base = tuple(torch.from_numpy(rng.normal(size=(A, A)).astype(
+            np.float32)).to(cuda) for _ in range(P))
+        rows = tuple(torch.from_numpy(rng.normal(size=(S, A)).astype(
+            np.float32)).to(cuda) for _ in range(P))
+        st = torch.tensor(start, dtype=dtype, device=cuda)
+        valid = torch.from_numpy(np.arange(S) % 2 == 0).to(cuda)
+        blend, cols = polar_cache.commit_strips(base, rows, st, valid, -1.0)
+        k = tuple(p.clone() for p in base)
+        p = tuple(x.clone() for x in base)
+        before = cuda_polar.write_plane_strips.launches
+        cuda_polar.write_plane_strips(k, blend, cols, st)
+        cuda_polar.write_plane_strips_plain(p, blend, cols, st)
+        torch.cuda.synchronize()
+        assert cuda_polar.write_plane_strips.launches == before + 1
+        for a, b in zip(k, p):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
 def test_wrappers_reject_bad_inputs(cuda):
     A = 256
     planes = _planes(A, 3, 0, cuda)
@@ -178,6 +259,19 @@ def test_wrappers_reject_bad_inputs(cuda):
         cuda_polar.contract_planes(tuple(p.double() for p in planes), mu)
     with pytest.raises(ValueError):
         cuda_polar.contract_planes(tuple(p.t() for p in planes), mu)
+    rows = tuple(p[:64] for p in planes)                    # [64, A]: taken
+    for bad_planes, bad_mu in (
+            (rows, mu[:64]),                                # mu of the rows
+            (planes[:2] + (planes[2].cpu(),), mu),          # mixed devices
+            (planes, mu.cpu()),
+            (rows[:2] + (planes[2],), mu),                  # shapes differ
+            (tuple(p[:0] for p in planes), mu),             # no rows
+            (tuple(p[:, ::2] for p in planes), mu[::2]),    # not contiguous
+            (tuple(p.half() for p in planes), mu),
+            (planes[:2], mu),
+            (planes + planes[:3], mu)):                     # 6 planes
+        with pytest.raises(ValueError):
+            cuda_polar.contract_planes(bad_planes, bad_mu)
     for bad in (tuple(p.double() for p in planes),
                 tuple(p.t() for p in planes),
                 planes[:2] + (planes[2].cpu(),),
@@ -204,6 +298,19 @@ def test_wrappers_reject_bad_inputs(cuda):
         cuda_polar.write_plane_strips(planes, torch.zeros(2, 3, A,
                                                           device=cuda),
                                       torch.zeros(2, 3, A, device=cuda),
+                                      torch.tensor(0, device=cuda))
+    strip = torch.zeros(3, 3, A, device=cuda)
+    for bad_start in (torch.tensor(0.0, device=cuda),
+                      torch.tensor(0, dtype=torch.int16, device=cuda),
+                      torch.tensor([0], device=cuda),
+                      torch.tensor(0)):
+        with pytest.raises(ValueError):
+            cuda_polar.write_plane_strips(planes, strip, strip, bad_start)
+    with pytest.raises(ValueError):
+        cuda_polar.write_plane_strips(planes, strip.double(), strip,
+                                      torch.tensor(0, device=cuda))
+    with pytest.raises(ValueError):
+        cuda_polar.write_plane_strips(planes, strip, strip.transpose(1, 2),
                                       torch.tensor(0, device=cuda))
 
 

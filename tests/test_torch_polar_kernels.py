@@ -4,7 +4,8 @@ contract_mixed's choice between K1, K4 and K5.
 
 On the CPU the wrappers run their plain PyTorch versions, which are held
 here against the JAX package's Pallas kernels in interpret mode and its
-XLA paths (tests/test_torch_cuda_kernels.py holds the CUDA kernels
+XLA paths, contract_mixed on rectangular row slices included
+(tests/test_torch_cuda_kernels.py holds the CUDA kernels
 against the plain versions on the card)."""
 
 import jax.numpy as jnp
@@ -77,20 +78,21 @@ def test_contract_plain_matches_jax(A, mode):
                                    rtol=rtol, atol=atol)
 
 
-def _nonsym_planes(A, mode, seed):
-    """Planes with no symmetry at all (test_pallas.py:127-149): the
-    full-plane pass assumes none.  Mode 3 keeps pair distances in the
-    physical 1-12 A range (see _planes)."""
+def _nonsym_planes(A, mode, seed, rows=None):
+    """[rows, A] planes (rows = A by default) with no symmetry at all
+    (test_pallas.py:127-149): the full-plane pass assumes none.  Mode 3
+    keeps pair distances in the physical 1-12 A range (see _planes)."""
     rng = np.random.default_rng(seed)
+    shape = (A if rows is None else rows, A)
     if mode == 3:
-        u = rng.normal(size=(A, A, 3))
+        u = rng.normal(size=shape + (3,))
         u /= np.linalg.norm(u, axis=-1, keepdims=True)
-        d = u * rng.uniform(1.0, 12.0, size=(A, A))[..., None]
+        d = u * rng.uniform(1.0, 12.0, size=shape)[..., None]
         return [d[..., i].astype(np.float32) for i in range(3)]
     # mode 4's s = sqrt(-co) d is ~0.1 d (test_pallas.py:57-60)
     scales = (0.01, 0.01, 1.0, 1.0, 1.0) if mode == 5 else \
         (0.01, 0.1, 0.1, 0.1)
-    return [(rng.normal(size=(A, A)) * s).astype(np.float32)
+    return [(rng.normal(size=shape) * s).astype(np.float32)
             for s in scales]
 
 
@@ -118,6 +120,34 @@ def test_full_plane_plain_matches_contract_pallas(monkeypatch, bc_max, mode):
     # f32 sums of A terms in another order (test_pallas.py:148-149; the
     # folded mode 4 as at :65-66)
     rtol, atol = (1e-4, 1e-5) if mode == 4 else (2e-5, 1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("shape", [(96, 256), (37, 1001), (1, 640)])
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("mode", [3, 4, 5])
+def test_contract_mixed_rect_matches_jax(shape, symmetric, mode):
+    """The port's contract_mixed on [R, A] planes (K1's route, as a
+    row-sharded caller passes them) against the JAX package's
+    contract_mixed, whose XLA branch takes any [R, A]: rows from the
+    middle of symmetric planes (the self-pairs off the slice's diagonal)
+    and planes with no symmetry."""
+    R, A = shape
+    seed = 7 * R + A + mode
+    if symmetric:
+        r0 = (A - R) // 2
+        planes = [p[r0:r0 + R] for p in _planes(A, mode, seed)]
+    else:
+        planes = _nonsym_planes(A, mode, seed, rows=R)
+    mu = np.random.default_rng(seed).normal(size=(A, 3)) * 0.1
+    got = polar_t.contract_mixed(
+        tuple(torch.from_numpy(np.ascontiguousarray(p)) for p in planes),
+        torch.from_numpy(mu), l=L_DAMP)
+    assert got.dtype == torch.float64 and got.shape == (R, 3)
+    want = polar.contract_mixed(tuple(jnp.asarray(p) for p in planes),
+                                jnp.asarray(mu), l=L_DAMP)
+    rtol, atol = TOL[mode]
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=rtol,
                                atol=atol)
 
@@ -285,6 +315,38 @@ def test_write_symmetric_rows_bit_equal(start, valid):
         jnp.asarray(with_rows), jnp.asarray(cols),
         jnp.asarray(start, jnp.int32), interpret=True)
     np.testing.assert_array_equal(pt.numpy(), np.asarray(pallas))
+
+
+@pytest.mark.parametrize("S", [1, 5])
+@pytest.mark.parametrize("start", [0, 200, WINDOW_A - 5])
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_write_plane_strips_start_dtypes(S, start, dtype):
+    """K2's entry point with the window start as the chain's int64 or as
+    int32 (the kernel reads both) gives, bit for bit, the JAX twin's
+    write_symmetric_rows and, from the same strips, the Pallas
+    write_columns_pallas, for S = 1 (monatomic) and 5 (H2)."""
+    A = WINDOW_A
+    rng = np.random.default_rng(S * A + start)
+    plane = rng.normal(size=(A, A)).astype(np.float32)
+    rows = rng.normal(size=(S, A)).astype(np.float32)
+    valid = np.arange(S) % 2 == 0
+    st = torch.tensor(start, dtype=dtype)
+    base = (torch.from_numpy(plane.copy()),)
+    blend, cols = pc_t.commit_strips(base, (torch.from_numpy(rows),), st,
+                                     torch.from_numpy(valid), -1.0)
+    cuda_polar.write_plane_strips(base, blend, cols, st)
+    got = base[0].numpy()
+
+    want = pc_j.write_symmetric_rows(jnp.asarray(plane), jnp.asarray(rows),
+                                     jnp.asarray(start, jnp.int32),
+                                     jnp.asarray(valid), -1.0)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    with_rows = plane.copy()
+    with_rows[start:start + S] = blend[0].numpy()
+    pallas = pallas_polar.write_columns_pallas(
+        jnp.asarray(with_rows), jnp.asarray(got[:, start:start + S]),
+        jnp.asarray(start, jnp.int32), interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(pallas))
 
 
 def test_cpu_wrappers_do_not_count_launches():
