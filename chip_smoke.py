@@ -66,8 +66,36 @@ its hand-written kernels, and check the results.
    ``MPMCXX_SYM_KERNEL=0`` (the JAX package's full-plane contract_pallas
    schedule), its main path as in step 3 (no golden exists): K1 >= 4
    launches per move, K4 and K5 none, K2 with S = 1.
-8. Prints ``{"kernels": [...]}`` (per kernel: the sum over the main paths
-   of steps 3, 5, 6 and 7 of its launches, each path counted from 0, and
+8. The seven standard-ensemble examples (``examples/``: gcmc-cavity-argon,
+   gcmc-mof-co2, -h2 and -mixture, nvt-, npt- and nve-argon) through the
+   port's CLI in a temporary directory, at tests/test_examples.py's
+   QUICK_STEPS with corrtime half of them, each on the dense path: exit
+   code 0, a finite energy log, the incremental energies against each
+   refresh (rd and coulombic 1e-8; polarization 1e-5 where a polar
+   cache carries it), K1 >= 4 launches per move on the polarizable ones
+   (the XLA branch at 63-213 slots) and no other contraction, K3 >= 1
+   per move on the cavity-biased one, no SCF kernel on the LJ-only
+   ones, a volume move proposed in NPT; wall seconds and steps/s.  Then
+   K1 against its plain version on the polarizable examples' committed
+   planes (square, and their first quarter of rows) and on seeded planes
+   with no symmetry at A = 57 (modes 3, 4 and 5, square and rows):
+   relative error <= 1e-5, repeats bitwise.
+9. The CO2 flagship's PQR through the CLI without the polar and cavity
+   lines (19,712 slots, blocked, incremental LJ/Ewald, 2 corrtimes of
+   64): initial rd and coulombic within 2e-6 of the golden, incremental
+   vs each refresh within 1e-8, K1, K2, K4 and K5 never launched;
+   moves/s.
+10. The monatomic flagship in NPT with its polar cache (build_flagship,
+   default schedule, volume moves as npt-argon's, 2 A displacements),
+   checked as in step 3 at the final box, with K2 once per local move
+   and at least one volume move proposed; the wall time of one volume
+   move (its full recompute and cache rebuild).
+11. The monatomic flagship with polar_mixed off: 8 moves, each a blocked
+   full recompute whose SCF contracts in float64 row tiles; energies
+   against a fresh ``energy_breakdown_blocked``, no f32-plane kernel
+   launched; ms per move.
+12. Prints ``{"kernels": [...]}`` (per kernel: the sum over the main paths
+   of steps 3, 5-11 of its launches, each path counted from 0, and
    the count of each path; the time, plain time and bound at the shapes
    of step 4 for K2, K3 and K5, step 6 for K4 and step 7 for K1; the
    worst error of the checks), the card's name and power limit, and,
@@ -78,10 +106,12 @@ Imports torch, numpy and the port only (never jax).
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -118,6 +148,25 @@ basis1 80 0 0
 basis2 0 80 0
 basis3 0 0 80
 """
+# the flagship CLI run without polarization (phase b): no SCF, no cavity
+RUN_IN_NOPOLAR = "\n".join(
+    ln for ln in RUN_IN.replace("flagship_cav", "flagship_lj").splitlines()
+    if not ln.startswith(("polar", "cavity"))) + "\n"
+# the examples that run through the port (tests/test_examples.py's
+# QUICK_STEPS; corrtime half of it) and the polarizable ones among them
+EXAMPLE_STEPS = {"gcmc-cavity-argon": 60, "gcmc-mof-co2": 40,
+                 "gcmc-mof-h2": 40, "gcmc-mof-mixture": 40,
+                 "nvt-argon": 200, "npt-argon": 200, "nve-argon": 200}
+POLAR_EXAMPLES = ("gcmc-mof-co2", "gcmc-mof-h2", "gcmc-mof-mixture")
+SMALL_A = 57             # a ragged small plane beside the examples' own
+NPT_PRESSURE = 50.0      # atm; npt-argon's volume move settings below
+NPT_VOLUME_PROBABILITY = 0.05
+NPT_VOLUME_CHANGE = 0.12
+F64_MOVES = 8            # moves of the float64 SCF phase (d)
+# phases (c) and (d): 2 A steps instead of the flagship's half cutoff
+# (20 A), under which about 1 in 100 displacements is accepted, so that
+# local moves are accepted beside the volume moves and full recomputes
+SMALL_MOVE_FACTOR = 0.05
 K1_REL_TOL = 1e-5        # f32 sums of ~1e4 terms in another order
 SYNTH_A = 4096
 RAGGED_A = 4001          # A % 4 != 0: no TMA tensor map (16-byte rows)
@@ -840,43 +889,72 @@ def _instrument_chain(log):
     return undo
 
 
-def run_cli_flagship(workdir, golden, device="cuda"):
-    """Step 6: the cavity-biased flagship through the port's CLI in
-    ``workdir`` (which holds flagship_co2.pqr); returns the launch counts
-    of the run."""
+def _run_cli(workdir, args):
+    """``cli.run(args)`` in ``workdir`` with every launch count 0 just
+    before and the chain instrumented (_instrument_chain); returns (the
+    Simulation, its chain log, launch counts, wall s, stdout)."""
     import torch
     from mpmcxx_tpu_torch import cli
-    from mpmcxx_tpu_torch import constants as const
-    from mpmcxx_tpu_torch.io.pqr import read_pqr
-
-    with open(os.path.join(workdir, "run.in"), "w") as f:
-        f.write(RUN_IN)
     log = {"chunks": [], "refresh": []}
     undo = _instrument_chain(log)
     stdout = io.StringIO()
     cwd = os.getcwd()
     zero_launches()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     try:
         os.chdir(workdir)
         with contextlib.redirect_stdout(stdout):
-            rc, sim = cli.run(["--device", str(device), "run.in"])
+            rc, sim = cli.run(args)
         torch.cuda.synchronize()
     finally:
         os.chdir(cwd)
         undo()
-    wall = time.time() - t0
-    launches = launches_now()
+    if rc != 0:
+        raise AssertionError(f"the CLI run in {workdir} exited with {rc}")
+    return sim, log, launches_now(), time.time() - t0, stdout.getvalue()
+
+
+def _check_refreshes(label, log, fields, n_refresh):
+    """Before each corrtime refresh, the incremental energies against the
+    refresh's full recompute, each field within its tolerance: relative,
+    of 1 K where the full value is smaller (a term that is 0 exactly, as
+    when the last charged molecule left, keeps its Delta-E sums' rounding)."""
+    if len(log["refresh"]) != n_refresh:
+        raise AssertionError(f"{label}: {len(log['refresh'])} refreshes, "
+                             f"want {n_refresh}")
+    for c, (inc, full) in enumerate(log["refresh"]):
+        for name, tol in fields:
+            diff = abs(inc[name] - full[name])
+            rel = diff / max(abs(full[name]), 1.0)
+            ok = rel <= tol
+            _say(f"{label} corrtime {c + 1}: incremental {name} "
+                 f"{inc[name]:.9f} vs full {full[name]:.9f}: rel {rel:.2e} "
+                 f"(tol {tol:g})")
+            if not ok:
+                raise AssertionError(f"{label} {name}: incremental vs full "
+                                     f"rel {rel}")
+
+
+def run_cli_flagship(workdir, golden, device="cuda"):
+    """Step 6: the cavity-biased flagship through the port's CLI in
+    ``workdir`` (which holds flagship_co2.pqr); returns the launch counts
+    of the run."""
+    import torch
+    from mpmcxx_tpu_torch import constants as const
+    from mpmcxx_tpu_torch.io.pqr import read_pqr
+
+    with open(os.path.join(workdir, "run.in"), "w") as f:
+        f.write(RUN_IN)
+    torch.cuda.reset_peak_memory_stats()
+    sim, log, launches, wall, stdout = _run_cli(
+        workdir, ["--device", str(device), "run.in"])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for line in stdout.getvalue().splitlines():
+    for line in stdout.splitlines():
         if line.startswith(("SIM_CONTROL: Simulation complete",
                             "OUTPUT: Grand Total", "OUTPUT: Cavity",
                             "OUTPUT: AR")):
             _say("  cli| " + line)
-    _say(f"CLI run: exit code {rc}, {wall:.1f} s wall including set-up")
-    if rc != 0:
-        raise AssertionError(f"the CLI run exited with {rc}")
+    _say(f"CLI run: exit code 0, {wall:.1f} s wall including set-up")
 
     n_moves = 2 * CHUNK
     st = sim.carry.state
@@ -901,19 +979,9 @@ def run_cli_flagship(workdir, golden, device="cuda"):
              f"{golden[comp]:.6f}: rel {rel:.2e} (tol 2e-06)")
         if not rel <= 2e-6:
             raise AssertionError(f"CLI initial {comp} off the golden: {rel}")
-    # incremental vs the refresh's full recompute, at each corrtime
-    for c, (inc, full) in enumerate(log["refresh"]):
-        for name, tol in (("rd_energy", 1e-8), ("coulombic_energy", 1e-8),
-                          ("polarization_energy", 1e-5)):
-            rel = abs(inc[name] - full[name]) / abs(full[name])
-            _say(f"CLI corrtime {c + 1}: incremental {name} "
-                 f"{inc[name]:.9f} vs full {full[name]:.9f}: rel {rel:.2e} "
-                 f"(tol {tol:g})")
-            if not rel <= tol:
-                raise AssertionError(f"CLI {name}: incremental vs full "
-                                     f"rel {rel}")
-    if len(log["refresh"]) != 2:
-        raise AssertionError(f"{len(log['refresh'])} refreshes, want 2")
+    _check_refreshes("CLI", log, (("rd_energy", 1e-8),
+                                  ("coulombic_energy", 1e-8),
+                                  ("polarization_energy", 1e-5)), 2)
     cav = sim.carry.cavity.tolist()
     _say(f"cavity carry: mean open fraction {cav[0]:.6f}, dart volume "
          f"{cav[1]:.3f} A^3, snapshot {cav[2]:.6f}, checkpoints {cav[3]:g}")
@@ -1026,18 +1094,21 @@ def _close(got, want, tol):
 
 
 def run_flagship_chain(model, state, flags, params, opts, root, card,
-                       contraction):
+                       contraction, label=None):
     """One flagship's main path under the schedule switch in force:
     ``init_carry(seed=0)`` and two CHUNK-move chunks of
     ``make_chunk_runner``, every launch count 0 just before.  Checks the
     initial rd / coulombic / polarization against the model's golden
     (where one exists, rel 2e-6); finite energies; incremental rd /
     coulombic within 1e-8 and polarization within 1e-5 of a fresh
-    ``energy_breakdown_blocked``; the committed planes within 1e-6 of a
-    fresh ``cache_init``; ``contraction`` (the kernel the switch picks)
-    launched >= 4 times per move and the other contraction kernels never,
-    the recompute included; K2 >= 1 per move, always with the model's S
-    window rows.  Returns (launches of the run, second chunk's moves/s)."""
+    ``energy_breakdown_blocked`` (at the final box, after NPT volume
+    moves); the committed planes within 1e-6 of a fresh ``cache_init``;
+    ``contraction`` (the kernel the switch picks) launched >= 4 times per
+    move and the other contraction kernels never, the recompute included;
+    K2 >= 1 per move that is not a volume move (a volume move rebuilds
+    the planes), always with the model's S window rows; in NPT at least
+    one volume move proposed.  Returns (launches of the run, second
+    chunk's moves/s, the carry)."""
     import torch
     from mpmcxx_tpu_torch import constants as const
     from mpmcxx_tpu_torch.mc import chain
@@ -1046,6 +1117,7 @@ def run_flagship_chain(model, state, flags, params, opts, root, card,
     from mpmcxx_tpu_torch.state import topology
 
     S = opts.max_mol_atoms
+    model = label or model
     others = [k for k in ("contract_planes", "contract_planes_sym",
                           "contract_planes_tri") if k != contraction]
     windows = set()       # rows of each commit's strips (K2's S)
@@ -1078,6 +1150,7 @@ def run_flagship_chain(model, state, flags, params, opts, root, card,
                     raise AssertionError(
                         f"[{model}] initial {comp} off the reference: {rel}")
         moves_per_s = None
+        movetypes = []
         for c in range(2):
             torch.cuda.synchronize()
             t0 = time.time()
@@ -1085,6 +1158,7 @@ def run_flagship_chain(model, state, flags, params, opts, root, card,
             torch.cuda.synchronize()
             dt = time.time() - t0
             moves_per_s = CHUNK / dt
+            movetypes.append(outs.movetype)
             _say(f"[{model}] chunk {c}: {CHUNK} moves in {dt:.3f} s = "
                  f"{moves_per_s:.2f} moves/s; E = "
                  f"{float(carry.obs.energy):.6f} K, N = {int(carry.obs.N)}")
@@ -1139,14 +1213,254 @@ def run_flagship_chain(model, state, flags, params, opts, root, card,
     ran = [k for k in others if launches_now()[k]]
     if ran:
         raise AssertionError(f"[{model}] {ran} ran on this schedule")
-    if launches["write_plane_strips"] < n_moves or windows != {S}:
+    n_volume = int((torch.cat(movetypes) == const.MOVETYPE_VOLUME).sum())
+    if opts.ensemble == const.ENSEMBLE_NPT:
+        vol = const.MOVETYPE_VOLUME
+        _say(f"[{model}] volume moves: {acc[vol] + rej[vol]} proposed, "
+             f"{acc[vol]} accepted")
+        if n_volume == 0:
+            raise AssertionError(f"[{model}] no volume move was proposed")
+    if launches["write_plane_strips"] < n_moves - n_volume or \
+            windows != {S}:
         raise AssertionError(
             f"[{model}] K2 launched {launches['write_plane_strips']} times "
-            f"for {n_moves} moves with windows {sorted(windows)}, want S={S}")
+            f"for {n_moves - n_volume} local moves with windows "
+            f"{sorted(windows)}, want S={S}")
     _say(f"[{model}] {contraction} {launches[contraction] / n_moves:.2f} "
          f"launches per move, {' and '.join(others)} none; K2 windows "
          f"S = {S}")
-    return launches, moves_per_s
+    return launches, moves_per_s, carry
+
+
+def run_example(name, root, workdir, device="cuda"):
+    """Phase (a): one example through the port's CLI on the card, at its
+    EXAMPLE_STEPS with corrtime half of them.  Checks: exit code 0 and a
+    finite energy log; the incremental energies against each refresh
+    (rd, coulombic 1e-8; polarization 1e-5 where a polar cache carries
+    it); the dense path (blocked_energy False); K1 >= 4 launches per move
+    on the polarizable examples and no other contraction kernel, K3 >= 1
+    per move on the cavity-biased one, no SCF kernel on the LJ-only
+    ones; at least one volume move proposed in NPT.  Returns (launch
+    counts, the Simulation, steps/s)."""
+    import torch
+    from mpmcxx_tpu_torch import constants as const
+    d = os.path.join(workdir, name)
+    shutil.copytree(os.path.join(root, "examples", name), d)
+    n = EXAMPLE_STEPS[name]
+    path = os.path.join(d, "run.in")
+    with open(path) as f:
+        text = f.read()
+    text = re.sub(r"(?m)^numsteps .*$", f"numsteps {n}", text)
+    text = re.sub(r"(?m)^corrtime .*$", f"corrtime {n // 2}", text)
+    with open(path, "w") as f:
+        f.write(text)
+    sim, log, launches, wall, _ = _run_cli(
+        d, ["--quiet", "--device", str(device), "run.in"])
+    rows = np.loadtxt(os.path.join(d, sim.cfg.energy_output), ndmin=2)
+    if rows.shape[0] != 3 or not np.all(np.isfinite(rows)):
+        raise AssertionError(f"{name}: energy log {rows.shape}, or not "
+                             "finite")
+    if sim.opts.blocked_energy:
+        raise AssertionError(f"{name} took the blocked path")
+    cache = sim.carry.pcache is not None
+    _check_refreshes(name, log, (("rd_energy", 1e-8),
+                                 ("coulombic_energy", 1e-8)) +
+                     ((("polarization_energy", 1e-5),) if cache else ()), 2)
+    mt = torch.cat([o.movetype for _, _, o in log["chunks"]])
+    steps_s = n / sum(dt for _, dt, _ in log["chunks"])
+    acc = sim.carry.stats.accept.cpu().numpy()
+    rej = sim.carry.stats.reject.cpu().numpy()
+    counts = ", ".join(f"{const.MOVETYPE_NAMES[m]} {acc[m]}/{acc[m] + rej[m]}"
+                       for m in range(7) if acc[m] + rej[m])
+    _say(f"example {name}: {sim.state.n_atom_slots} atom slots, {n} steps "
+         f"in {wall:.2f} s wall with set-up, chunks {steps_s:.1f} steps/s; "
+         f"accepted {counts}; launches {launches}")
+    scf = ("contract_planes", "contract_planes_sym", "contract_planes_tri",
+           "write_plane_strips")
+    if name in POLAR_EXAMPLES:
+        if not cache or launches["contract_planes"] < 4 * n or \
+                launches["contract_planes_sym"] or \
+                launches["contract_planes_tri"]:
+            raise AssertionError(f"{name}: K1 launched "
+                                 f"{launches['contract_planes']} times for "
+                                 f"{n} moves, or another contraction ran")
+    elif any(launches[k] for k in scf):
+        raise AssertionError(f"{name}: an SCF kernel ran without "
+                             "polarization")
+    if sim.opts.cavity_bias and launches["occupancy"] < n:
+        raise AssertionError(f"{name}: K3 launched {launches['occupancy']} "
+                             f"times for {n} moves")
+    if sim.cfg.ensemble == const.ENSEMBLE_NPT:
+        n_vol = int((mt == const.MOVETYPE_VOLUME).sum())
+        _say(f"example {name}: {n_vol} volume moves proposed, "
+             f"{acc[const.MOVETYPE_VOLUME]} accepted")
+        if n_vol == 0:
+            raise AssertionError(f"{name}: no volume move was proposed")
+    return launches, sim, steps_s
+
+
+def check_k1_small(sims, device):
+    """Phase (e): K1 against its plain version at the polarizable
+    examples' own plane sizes, on their committed planes (square, and
+    their first quarter of rows: the framework's and the first sorbates',
+    where the dead slots at the end would give only zeros), and on seeded
+    planes with no symmetry at the ragged A = SMALL_A (modes 3, 4 and 5;
+    square and the middle quarter of rows): relative error <= K1_REL_TOL,
+    two launches bitwise equal.  Returns the worst absolute error."""
+    import torch
+    from mpmcxx_tpu_torch.ops import cuda_polar
+
+    def middle(planes):
+        n = planes[0].shape[1]
+        return tuple(p[3 * n // 8:3 * n // 8 + max(n // 4, 1)]
+                     for p in planes)
+
+    cases = []
+    for name, sim in sims.items():
+        pc, st = sim.carry.pcache, sim.carry.state
+        planes = (pc.dx, pc.dy, pc.dz)
+        l = sim.params.polar_damp
+        rows = tuple(p[:max(p.shape[0] // 4, 1)] for p in planes)
+        cases += [(name, 3, planes, st, l),
+                  (f"{name} first quarter of rows", 3, rows, st, l)]
+    l = next(iter(sims.values())).params.polar_damp
+    for mode in (3, 4, 5):
+        planes = _nonsym_planes(SMALL_A, mode, 60 + mode, device)
+        cases += [(f"non-symmetric A={SMALL_A}", mode, planes, None, l),
+                  (f"non-symmetric A={SMALL_A} rows", mode, middle(planes),
+                   None, l)]
+    worst = 0.0
+    for label, mode, planes, st, l in cases:
+        R, A = planes[0].shape
+        mu = _mu(A, device, st)
+        got = cuda_polar.contract_planes(planes, mu, l)
+        again = cuda_polar.contract_planes(planes, mu, l)
+        want = cuda_polar.contract_planes_plain(planes, mu, l)
+        torch.cuda.synchronize()
+        if got.shape != (R, 3) or not torch.equal(got, again):
+            raise AssertionError(f"K1 {label} mode {mode}: shape "
+                                 f"{tuple(got.shape)}, or two launches on "
+                                 "one input differ")
+        rel = _rel(got, want)
+        err = float(torch.max(torch.abs(got - want)))
+        ms = _time_ms(lambda: cuda_polar.contract_planes(planes, mu, l))
+        _say(f"K1 contract_planes {label} {R}x{A} mode {mode}: max_abs_err "
+             f"{err:.3e} rel_err {rel:.3e}, repeat bitwise equal; "
+             f"{ms:.4f} ms")
+        if not rel <= K1_REL_TOL:
+            raise AssertionError(f"K1 {label} mode {mode}: rel err "
+                                 f"{rel:.3e} > {K1_REL_TOL}")
+        worst = max(worst, err)
+    return worst
+
+
+def run_cli_nopolar(workdir, golden, device="cuda"):
+    """Phase (b): the CO2 flagship's PQR through the CLI with the polar
+    and cavity lines of RUN_IN removed: 19,712 slots on the blocked path,
+    the incremental LJ/Ewald branch, 2 corrtimes of CHUNK.  Checks: the
+    energy log's initial rd and coulombic within 2e-6 of the golden; the
+    incremental rd and coulombic within 1e-8 of each refresh; K1, K2, K4
+    and K5 never launched.  Returns (launch counts, second corrtime's
+    moves/s)."""
+    with open(os.path.join(workdir, "run.in"), "w") as f:
+        f.write(RUN_IN_NOPOLAR)
+    sim, log, launches, wall, _ = _run_cli(
+        workdir, ["--quiet", "--device", str(device), "run.in"])
+    st = sim.carry.state
+    if st.n_atom_slots != CLI_SLOTS or not sim.opts.blocked_energy or \
+            sim.opts.polar_incremental or not sim.opts.incremental:
+        raise AssertionError(f"CO2 without polarization: {st.n_atom_slots} "
+                             f"slots, options {sim.opts}")
+    rows = np.loadtxt(os.path.join(workdir, "flagship_lj.energy.dat"),
+                      ndmin=2)
+    if rows.shape[0] != 3 or not np.all(np.isfinite(rows)):
+        raise AssertionError("CO2 without polarization: energy log")
+    for comp, col in (("rd", 3), ("coulombic", 2)):
+        rel = abs(rows[0][col] - golden[comp]) / abs(golden[comp])
+        _say(f"CO2 without polarization: initial {comp} {rows[0][col]:.6f} "
+             f"vs reference binary {golden[comp]:.6f}: rel {rel:.2e} "
+             "(tol 2e-06)")
+        if not rel <= 2e-6:
+            raise AssertionError(f"initial {comp} off the golden: {rel}")
+    _check_refreshes("CO2 without polarization", log,
+                     (("rd_energy", 1e-8), ("coulombic_energy", 1e-8)), 2)
+    ran = [k for k in ("contract_planes", "contract_planes_sym",
+                       "contract_planes_tri", "write_plane_strips")
+           if launches[k]]
+    if ran:
+        raise AssertionError(f"CO2 without polarization: {ran} launched")
+    steps, dt, _ = log["chunks"][-1]
+    acc = int(sim.carry.stats.accept.sum())
+    _say(f"CO2 without polarization (CLI, {st.n_atom_slots} slots): "
+         f"{wall:.1f} s wall with set-up; second corrtime {steps} moves in "
+         f"{dt:.3f} s = {steps / dt:.2f} moves/s; {acc} of {2 * CHUNK} "
+         f"accepted, N = {int(sim.carry.obs.N)}; launches {launches}")
+    return launches, steps / dt
+
+
+def time_volume_move(carry, flags, params, opts):
+    """Wall ms of one NPT volume move (its full recompute and cache
+    rebuild included) on ``carry``, synchronised around the step."""
+    import torch
+    from mpmcxx_tpu_torch.mc import chain
+    from mpmcxx_tpu_torch.state import topology
+    step = chain.make_step_fn(flags, params, opts,
+                              topology=topology(carry.state))
+    _, draws, _ = chain.chunk_draws(carry.key, 1)
+    d = draws[0].to(carry.state.pos.device)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    carry, out = step(carry, d, None, True)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3
+    _say(f"[ar-npt] one volume move: {ms:.1f} ms wall (accepted "
+         f"{bool(out.accepted)})")
+    return ms
+
+
+def run_f64_scf(state, flags, params, opts):
+    """Phase (d): the monatomic flagship with polar_mixed off, F64_MOVES
+    uVT moves on the full-recompute branch (every proposal a blocked
+    recompute whose SCF contracts in float64 row tiles, contract_blocked).
+    Checks: finite energies and dipoles; the chain's energies against a
+    fresh ``energy_breakdown_blocked`` (1e-8); no kernel of the f32 planes
+    launched.  Returns (launch counts, ms per move)."""
+    import torch
+    from mpmcxx_tpu_torch.mc import chain
+    from mpmcxx_tpu_torch.ops.energy import energy_breakdown_blocked
+    from mpmcxx_tpu_torch.state import topology
+    zero_launches()
+    t0 = time.time()
+    carry = chain.init_carry(state, flags, params, opts, seed=0)
+    runner = chain.make_chunk_runner(flags, params, opts, F64_MOVES,
+                                     topology=topology(state))
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    t0 = time.time()
+    carry, outs = runner(carry)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3 / F64_MOVES
+    launches = launches_now()
+    eb = energy_breakdown_blocked(carry.state, flags, params)
+    for name, full in (("rd_energy", eb.rd), ("coulombic_energy",
+                                              eb.coulombic),
+                       ("polarization_energy", eb.polarization)):
+        got, ref = float(getattr(carry.obs, name)), float(full)
+        rel, ok = _close(got, ref, 1e-8)
+        _say(f"[ar-f64] {name} {got:.9f} vs full {ref:.9f}: rel {rel:.2e} "
+             "(tol 1e-08)")
+        if not (ok and np.isfinite(got)):
+            raise AssertionError(f"[ar-f64] {name}: chain vs full rel {rel}")
+    if not torch.isfinite(carry.state.mu).all():
+        raise AssertionError("[ar-f64] dipoles are not finite")
+    ran = [k for k in ("contract_planes", "contract_planes_sym",
+                       "contract_planes_tri", "write_plane_strips")
+           if launches[k]]
+    if ran:
+        raise AssertionError(f"[ar-f64] {ran} launched without f32 planes")
+    _say(f"[ar-f64] init_carry {t_init:.2f} s; {F64_MOVES} moves, "
+         f"{int(outs.accepted.sum())} accepted: {ms:.1f} ms per move")
+    return launches, ms
 
 
 def ptxas_report(log):
@@ -1190,6 +1504,7 @@ def main() -> int:
     sys.path.insert(0, root)
     sys.path.insert(0, os.path.join(root, "tools"))
     import flagship  # noqa: F401  (numpy only at import)
+    from mpmcxx_tpu_torch import constants as const
     from mpmcxx_tpu_torch.ops import kernels
     from mpmcxx_tpu_torch.ops import polar_cache as pcache
 
@@ -1230,7 +1545,7 @@ def main() -> int:
         k2 = check_k2(cache, device)
         del cache
         flush()
-        launches["co2"], rates["co2"] = run_flagship_chain(
+        launches["co2"], rates["co2"], _ = run_flagship_chain(
             "co2", state, flags, params, opts, root, card,
             "contract_planes_sym")
         del state
@@ -1264,7 +1579,7 @@ def main() -> int:
     del cache
     flush()
     with schedule(MPMCXX_TRI_KERNEL="1"):
-        launches["h2"], rates["h2"] = run_flagship_chain(
+        launches["h2"], rates["h2"], _ = run_flagship_chain(
             "h2", state, flags, params, opts, root, card,
             "contract_planes_tri")
     del state
@@ -1282,14 +1597,65 @@ def main() -> int:
     del cache
     flush()
     with schedule(MPMCXX_SYM_KERNEL="0"):
-        launches["ar"], rates["ar"] = run_flagship_chain(
+        launches["ar"], rates["ar"], _ = run_flagship_chain(
             "ar", state, flags, params, opts, root, card, "contract_planes")
+    del state
+    flush()
+
+    # --- 5. the examples through the CLI; K1 at their plane sizes --------
+    step_rates = {}
+    with schedule(), tempfile.TemporaryDirectory() as workdir:
+        sims = {}
+        for name in EXAMPLE_STEPS:
+            launches[name], sim, step_rates[name] = run_example(
+                name, root, workdir)
+            if name in POLAR_EXAMPLES:
+                sims[name] = sim
+        k1["max_abs_err"] = max(k1["max_abs_err"],
+                                check_k1_small(sims, device))
+        del sims, sim
+    flush()
+
+    # --- 6. the CO2 flagship without polarization through the CLI --------
+    with schedule(), tempfile.TemporaryDirectory() as workdir:
+        flagship.write_pqr_co2(os.path.join(workdir, "flagship_co2.pqr"))
+        launches["co2-lj"], rates["co2-lj"] = run_cli_nopolar(
+            workdir, load_golden(root, "co2"))
+    flush()
+
+    # --- 7. the monatomic flagship in NPT, with its polar cache ----------
+    state, _, flags, params, opts = build_flagship("ar", device)
+    npt_params = params.replace(pressure=NPT_PRESSURE)
+    npt_opts = dataclasses.replace(
+        opts, ensemble=const.ENSEMBLE_NPT, move_factor=SMALL_MOVE_FACTOR,
+        volume_probability=NPT_VOLUME_PROBABILITY,
+        volume_change_factor=NPT_VOLUME_CHANGE)
+    with schedule():
+        launches["ar-npt"], rates["ar-npt"], carry = run_flagship_chain(
+            "ar", state, flags, npt_params, npt_opts, root, card,
+            "contract_planes_sym", label="ar-npt")
+        volume_ms = time_volume_move(carry, flags, npt_params, npt_opts)
+    del carry, state
+    flush()
+
+    # --- 8. the monatomic flagship's float64 SCF (polar_mixed off) -------
+    state, _, flags, params, opts = build_flagship("ar", device)
+    with schedule():
+        launches["ar-f64"], f64_ms = run_f64_scf(
+            state, flags.replace(polar_mixed=False), params,
+            dataclasses.replace(opts, incremental=False,
+                                polar_incremental=False,
+                                move_factor=SMALL_MOVE_FACTOR))
     del state
     flush()
 
     _say(f"second-chunk moves/s on {card}: " + ", ".join(
         f"{m} {r:.2f}" for m, r in rates.items()) +
-        f"; whole check {time.time() - t_start:.1f} s after the card query")
+        f"; examples' chunk steps/s: " + ", ".join(
+            f"{m} {r:.1f}" for m, r in step_rates.items()) +
+        f"; NPT volume move {volume_ms:.1f} ms; f64 SCF {f64_ms:.1f} ms "
+        f"per move; whole check {time.time() - t_start:.1f} s after the "
+        "card query")
     k5_all = dict(k5_cli, max_abs_err=max(k5["max_abs_err"],
                                           k5_cli["max_abs_err"]))
     k2_all = dict(k2_cli, max_abs_err=max(k2["max_abs_err"],

@@ -1,8 +1,7 @@
 """Static force-field / solver configuration.
 
 JAX twin: mpmcxx_tpu/flags.py (a copy; only ``require_supported`` at
-the end is new, since the port so far runs the CO2 flagship's branches
-only).
+the end is new, since the port runs a subset of the twin's branches).
 
 A frozen, hashable dataclass passed as a static argument to jitted energy
 functions.  Mirrors the option flags scattered through src/System.h:505-832;
@@ -129,19 +128,25 @@ class RunParams:
 
 
 # FFlags fields the port may take at a value other than the default, and
-# the values it takes there: the CO2 flagship's force field
-# (tools/flagship.py build_state_co2) is LJ (Lorentz-Berthelot) + Ewald
-# + exponential-damped Thole SCF on float32 planes with a fixed Jacobi
-# iteration count.
+# the values it takes there: LJ (Lorentz-Berthelot) + Ewald, with or
+# without an exponential-damped Thole SCF (Ewald static field, a fixed
+# Jacobi iteration count) on float32 planes (polar_mixed) or in float64.
 _PORTED = {
-    "polarization": (True,),
-    "polar_iterative": (True,),
-    "polar_ewald": (True,),
-    "polar_mixed": (True,),
-    "damp_type": (const.DAMPING_EXPONENTIAL,),
+    "polarization": (False, True),
+    "polar_mixed": (False, True),
     "polar_sor": (False, True),
     "polar_esor": (False, True),
 }
+# with polarization on, the SCF branch these select
+_PORTED_POLAR = {
+    "polar_iterative": (True,),
+    "polar_ewald": (True,),
+    "damp_type": (const.DAMPING_EXPONENTIAL,),
+}
+# fields read only by the SCF: with polarization off no code reads them
+_POLAR_ONLY = frozenset(
+    [f.name for f in dataclasses.fields(FFlags) if f.name.startswith("polar_")]
+    + ["damp_type"])
 
 
 def require_supported(flags: FFlags, params: RunParams) -> None:
@@ -150,8 +155,12 @@ def require_supported(flags: FFlags, params: RunParams) -> None:
     default = FFlags()
     for f in dataclasses.fields(FFlags):
         v = getattr(flags, f.name)
-        if f.name in _PORTED:
+        if f.name in _POLAR_ONLY and not flags.polarization:
+            ok = True
+        elif f.name in _PORTED:
             ok = v in _PORTED[f.name]
+        elif f.name in _PORTED_POLAR:
+            ok = v in _PORTED_POLAR[f.name]
         elif f.name == "polar_max_iter":
             ok = 1 <= v <= 16          # fixed-K Jacobi (polar.py:412-426)
         elif f.name in ("ewald_kmax", "rd_lrc"):
@@ -160,6 +169,6 @@ def require_supported(flags: FFlags, params: RunParams) -> None:
             ok = v == getattr(default, f.name)
         if not ok:
             raise NotImplementedError(f"FFlags.{f.name}={v!r}")
-    if params.polar_precision != 0.0:
+    if flags.polarization and params.polar_precision != 0.0:
         raise NotImplementedError(
             f"RunParams.polar_precision={params.polar_precision!r}")

@@ -129,3 +129,15 @@ def remove(state: SystemState, mol) -> SystemState:
     return state.replace(
         mol_alive=state.mol_alive.index_fill(0, one, False),
         aalive=torch.where(state.mol_id == mol, False, state.aalive))
+
+
+def volume_change(state: SystemState, u, volume_change_factor
+                  ) -> SystemState:
+    """Log-uniform volume move from the uniform ``u``: scale the box and
+    move molecule COMs rigidly with it (src/System.MonteCarlo.cpp:
+    1235-1282; moves.py:246-257)."""
+    log_new = torch.log(state.pbc.volume) + (u - 0.5) * volume_change_factor
+    factor = (torch.exp(log_new) / state.pbc.volume) ** (1.0 / 3.0)
+    delta = state.mol_com() * (factor - 1.0)
+    return state.replace(pos=state.pos + delta.index_select(0, state.mol_id),
+                         pbc=state.pbc.scale(factor))

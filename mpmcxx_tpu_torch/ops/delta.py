@@ -31,10 +31,23 @@ def supports(flags: FFlags) -> bool:
                 flags.gwp or flags.spectre or flags.rd_anharmonic)
 
 
+def uses_recip(flags: FFlags) -> bool:
+    """Whether the energy has a k-space term the structure-factor cache
+    tracks (delta.py:47-48)."""
+    return not (flags.use_sg or flags.rd_only or flags.wolf)
+
+
 class SFCache(NamedTuple):
     """Ewald structure factors over the static hemisphere k-lattice."""
     re: torch.Tensor   # [K]
     im: torch.Tensor   # [K]
+
+
+def empty_sf(device) -> SFCache:
+    """The [0] cache a chain without the incremental path carries
+    (chain.py:802-807)."""
+    z = torch.zeros(0, dtype=torch.float64, device=device)
+    return SFCache(z, z)
 
 
 def sf_compute(state: SystemState, flags: FFlags, params: RunParams

@@ -1,7 +1,8 @@
 """Ewald electrostatics.
 
 JAX twin: mpmcxx_tpu/ops/ewald.py (``hemisphere_kvecs``, ``kvectors``,
-``coulombic_real``, ``coulombic_reciprocal``, ``coulombic_self``):
+``coulombic_real``, ``coulombic_reciprocal``, ``coulombic_self`` and the
+Ewald branch of ``coulombic``):
 real-space erfc sum with the intra-molecular screening correction
 (src/System.Energy.cpp:1466-1517), hemisphere k-space structure factors
 (:1561-1622) and the self term (:1626-1643).  Charges are in reduced
@@ -85,3 +86,12 @@ def coulombic_self(state: SystemState, params: RunParams):
     ok = state.atom_alive() & ~state.frozen
     return -torch.sum(torch.where(
         ok, alpha * state.charge ** 2 / np.sqrt(const.pi), 0.0))
+
+
+def coulombic(state: SystemState, pt: PairTensors, flags: FFlags,
+              params: RunParams):
+    """Total Ewald energy of the pairs in ``pt`` (src/System.Energy.cpp:
+    1396-1416; the Wolf branch is not ported)."""
+    return (coulombic_real(state, pt, flags, params) +
+            coulombic_reciprocal(state, flags, params) +
+            coulombic_self(state, params))

@@ -2,9 +2,10 @@
 
 JAX twin: mpmcxx_tpu/ops/pairwise.py.  Pair quantities are [R,A] tensors
 of R contiguous row atoms against all A atoms: the [S,A] slice of one
-molecule for incremental Delta-E (ops/delta.py) and [B,A] row blocks of
-the dense triangle for full energies.  ``pair_once`` marks each physical
-pair exactly once in either layout.
+molecule for incremental Delta-E (ops/delta.py), [B,A] row blocks of
+the dense triangle for full energies of large systems, and the dense
+[A,A] of all pairs for those of small ones.  ``pair_once`` marks each
+physical pair exactly once in every layout.
 
 Row windows start at a device index, so every row read is an
 ``index_select`` and every write an ``index_copy`` with a device index
@@ -39,11 +40,14 @@ class PairTensors:
     sigma: torch.Tensor        # [R,A] mixed
     epsilon: torch.Tensor      # [R,A] mixed
     attractive_only: torch.Tensor  # [R,A] bool
-    rows: Optional[torch.Tensor] = None       # [R] atom indices (-1 pads)
+    rows: Optional[torch.Tensor] = None       # [R] atom indices (-1 pads),
+                                              # None for the dense [A,A]
     row_start: Optional[torch.Tensor] = None  # window start (contiguous rows)
 
     def row(self, arr):
         """Slice a per-atom array onto the row axis."""
+        if self.rows is None:
+            return arr
         if self.row_start is not None:
             return slice_rows(arr, self.row_start, self.rows.shape[0])
         return arr[self.rows.clamp(0, arr.shape[0] - 1)]
@@ -163,14 +167,18 @@ def mix_lj(flags: FFlags, eps_i, eps_j, sig_i, sig_j):
 def _build(state: SystemState, flags: FFlags, rows,
            block_global: bool = False) -> PairTensors:
     A = state.n_atom_slots
-    S = rows.shape[0]
-    if S > A:
+    if rows is None:
+        g = lambda arr: arr
+        row_valid = torch.ones(A, dtype=torch.bool, device=state.pos.device)
+        row_start = None
+    elif rows.shape[0] > A:
         # window wider than the array: clip-gather semantics
         safe_g = rows.clamp(0, A - 1)
         g = lambda arr: arr[safe_g]
         row_valid = rows >= 0
         row_start = None
     else:
+        S = rows.shape[0]
         row_start, rows, row_valid = normalize_window(rows, A)
         g = lambda arr: slice_rows(arr, row_start, S)
     pos_r = g(state.pos)
@@ -205,17 +213,18 @@ def _build(state: SystemState, flags: FFlags, rows,
     sigma, epsilon, attractive_only = mix_lj(flags, eps_i, eps_j, sig_i,
                                              sig_j)
 
-    safe = rows.clamp(0, A - 1)
-    col = _arange(A, rows)[None, :]
-    if block_global:
+    col = _arange(A, state.pos)[None, :]
+    upper = col > (col.T if rows is None else rows.clamp(0, A - 1)[:, None])
+    if rows is None:
+        pair_once = upper & alive
+    elif block_global:
         # tile of the dense triangle: global col > row rule, so summing
         # over a block partition of all atoms counts each pair once
-        pair_once = row_valid[:, None] & alive & (col > safe[:, None])
+        pair_once = row_valid[:, None] & alive & upper
     else:
         # count each pair touching the row molecule exactly once: rows vs
         # other molecules always; intra-molecular only for col > row
-        pair_once = (row_valid[:, None] & alive &
-                     (~same_mol | (col > safe[:, None])))
+        pair_once = row_valid[:, None] & alive & (~same_mol | upper)
 
     return PairTensors(
         dimg=dimg, rimg=rimg, r=r,
@@ -223,6 +232,12 @@ def _build(state: SystemState, flags: FFlags, rows,
         rd_excluded=rd_excluded, es_excluded=es_excluded,
         sigma=sigma, epsilon=epsilon, attractive_only=attractive_only,
         rows=rows, row_start=row_start)
+
+
+def build_pairs(state: SystemState, flags: FFlags) -> PairTensors:
+    """Dense [A,A] pair tensors for the full-energy path of small systems
+    (pairwise.py:385-387)."""
+    return _build(state, flags, None)
 
 
 def build_pairs_rect(state: SystemState, flags: FFlags,

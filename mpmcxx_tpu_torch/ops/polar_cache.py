@@ -34,8 +34,7 @@ from . import polar as polar_mod
 from .ewald import kvectors
 from .pairwise import (_arange, assemble_tiles, build_pairs_rect,
                        contract_small_rows, normalize_window, phase_dot,
-                       rows_field, slice_rows, sum_small_rows, tile_starts,
-                       update_rows)
+                       rows_field, slice_rows, sum_small_rows, update_rows)
 
 
 @dataclasses.dataclass
@@ -97,14 +96,8 @@ def cache_init(state: SystemState, flags: FFlags, params: RunParams,
         raise NotImplementedError(
             f"polar cache plane mode {polar_mod.plane_mode(flags)}")
     A = state.n_atom_slots
-    dev = state.pos.device
     planes, fields = [], []
-    for s in tile_starts(A, block):
-        if A <= block:
-            rows_f = torch.arange(block, device=dev)
-            rows = torch.where(rows_f < A, rows_f, -1)
-        else:
-            rows = s + torch.arange(block, device=dev)
+    for rows in polar_mod.row_tiles(A, block, state.pos.device):
         pt = build_pairs_rect(state, flags, rows)
         co, cd = polar_mod.mixed_coeff_scalars(state, pt, flags, params)
         f = polar_mod.field_scalars(state, pt, flags, params)

@@ -61,6 +61,14 @@ class PBC:
                    volume=basis_volume(basis),
                    cutoff=shortest_half_vector(basis))
 
+    def scale(self, factor) -> "PBC":
+        """The box scaled isotropically by ``factor`` (NPT volume move,
+        pbc.py:94-105): the cutoff scales with the basis."""
+        return PBC(basis=self.basis * factor,
+                   reciprocal=self.reciprocal / factor,
+                   volume=self.volume * factor ** 3,
+                   cutoff=self.cutoff * factor)
+
 
 def _mul3(d, M):
     """``d[..., p] @ M[p, q]`` written as three multiply-adds in the JAX

@@ -5,13 +5,14 @@ JAX twin: mpmcxx_tpu/runner.py (``Simulation`` with ``apply_state_fixups``,
 plane donation have no counterpart, since the planes are written in
 place).  The front-end role of SimulationControl
 (src/SimulationControl.cpp:37-129, runSimulation :2853-2971): parse +
-validate input, build the system, run the uVT chain, and do the
-per-corrtime bookkeeping (averages, energy log, restart/trajectory,
-dipole and field files) with the reference's file contract.
+validate input, build the system, run the chain, and do the
+per-corrtime bookkeeping (averages, per-sorbate statistics, energy log,
+restart/trajectory, dipole and field files, the population histogram
+and the frozen-lattice OpenDX file) with the reference's file contract,
+for the uVT (one sorbate or a mixture), NVT, NPT and NVE ensembles.
 
 Not ported yet (NotImplementedError): path-integral and Gibbs runs,
-replicas and parallel tempering, multi-sorbate mixtures, the population
-histogram (``calc_hist``) and the frozen-lattice OpenDX file.
+replicas and parallel tempering.
 """
 
 from __future__ import annotations
@@ -25,13 +26,17 @@ import torch
 from . import constants as const
 from .config.schema import SimConfig
 from .config.validate import validate
+from .io import histogram as hist_io
 from .io import output as out_io
 from .io import pqr as pqr_io
 from .io import trajectory as traj_io
 from .mc import chain as chain_mod
 from .mc.averages import AvgObservables, nodestats_from_counters
+from .mc.sorbate import SorbateTracker
 from .ops import delta as delta_mod
+from .ops import polar as polar_mod
 from .ops import polar_cache as pcache_mod
+from .ops.pairwise import build_pairs
 from .state import build_state, grow_mol_capacity, topology
 
 
@@ -57,10 +62,6 @@ def require_runner_options(cfg: SimConfig) -> None:
         raise NotImplementedError("ensemble nvt_gibbs")
     if cfg.parallel_tempering:
         raise NotImplementedError("parallel_tempering (replicas)")
-    if cfg.calc_hist:
-        raise NotImplementedError("calc_hist (population histogram)")
-    if _live(cfg.frozen_output):
-        raise NotImplementedError("frozen_output (OpenDX lattice)")
 
 
 def apply_state_fixups(state, cfg: SimConfig):
@@ -79,10 +80,10 @@ def capacity_opts(opts, flags, state):
     """Recompute the capacity-derived MCOptions fields after a state
     rebuild: blocked_energy and the polar-cache eligibility depend on the
     atom-slot count.  The move window ``max_mol_atoms`` is the largest
-    molecule a move can touch: frozen molecules never move.  (The twin
-    takes the largest of all molecules, the flagship's 512-atom
-    framework, and then works every move on a 512-row window whose 3
-    CO2 rows are the only valid ones.)"""
+    molecule a move can touch, the largest movable species of a mixture:
+    frozen molecules never move.  (The twin takes the largest of all
+    molecules, the flagship's 512-atom framework, and then works every
+    move on a 512-row window whose 3 CO2 rows are the only valid ones.)"""
     counts = np.bincount(_np(state.mol_id), minlength=state.n_mol_slots)
     counts = counts[~_np(state.mol_frozen)]
     polar_incremental = pcache_mod.supports(flags, state.n_atom_slots,
@@ -104,7 +105,7 @@ def _movable_np(state):
 
 
 class Simulation:
-    """One uVT run on ``device`` (the twin's standard-ensemble runner)."""
+    """One standard-ensemble run (NVT / uVT / NPT / NVE) on ``device``."""
 
     def __init__(self, cfg: SimConfig, quiet: bool = False,
                  uvt_capacity_factor: float = 2.0, device="cuda"):
@@ -123,13 +124,19 @@ class Simulation:
         basis = self._resolve_basis(cfg)
         extra = 0
         if cfg.ensemble == const.ENSEMBLE_UVT:
-            species = {a.moleculetype for a in atoms
-                       if not a.frozen and not a.adiabatic and not a.target}
-            if len(species) > 1:
-                raise NotImplementedError(
-                    f"multi-sorbate mixtures ({sorted(species)})")
-            n_mov = len({a.molecule_id for a in atoms if not a.frozen})
-            extra = max(int(n_mov * (uvt_capacity_factor - 1.0)), 32)
+            mov_by_species: dict = {}
+            for a in atoms:
+                if not a.frozen and not a.adiabatic and not a.target:
+                    mov_by_species.setdefault(a.moleculetype,
+                                              set()).add(a.molecule_id)
+            if len(mov_by_species) > 1:
+                # mixture: per-species dead-slot headroom
+                extra = {mt: max(int(len(ids) * (uvt_capacity_factor - 1.0)),
+                                 32)
+                         for mt, ids in mov_by_species.items()}
+            else:
+                n_mov = len({a.molecule_id for a in atoms if not a.frozen})
+                extra = max(int(n_mov * (uvt_capacity_factor - 1.0)), 32)
 
         self.state, self.meta = build_state(
             atoms, basis, extra_mol_capacity=extra, device=self.device)
@@ -146,9 +153,23 @@ class Simulation:
         self.flags = cfg.to_flags()
         self.params = cfg.to_params()
 
+        # multi-sorbate mixtures: uniform-species insertion with
+        # per-species fugacities (fugacities[sorbateInsert],
+        # src/System.MonteCarlo.cpp:1362-1367; runner.py:149-172)
+        fug = cfg.fugacities[0] if cfg.fugacities else cfg.pressure
         mov = _np(self.state.mol_alive) & _movable_np(self.state)
         self._insert_types = tuple(sorted(
             set(_np(self.state.mol_type)[mov].tolist())))
+        sorbate_count = max(len(self._insert_types), 1)
+        insert_species, type_fugacities = (), ()
+        if sorbate_count > 1:
+            insert_species = self._insert_types
+            tf = [0.0] * len(self.meta["species"])
+            user = cfg.user_fugacities and \
+                len(cfg.fugacities) >= sorbate_count
+            for i, t in enumerate(self._insert_types):
+                tf[t] = cfg.fugacities[i] if user else fug
+            type_fugacities = tuple(tf)
         opts = chain_mod.MCOptions(
             ensemble=cfg.ensemble,
             move_factor=cfg.move_factor,
@@ -158,8 +179,10 @@ class Simulation:
             adiabatic_probability=cfg.adiabatic_probability,
             volume_probability=cfg.volume_probability,
             volume_change_factor=cfg.volume_change_factor,
-            fugacity=cfg.fugacities[0] if cfg.fugacities else cfg.pressure,
-            sorbate_count=1,
+            fugacity=fug,
+            sorbate_count=sorbate_count,
+            insert_species=insert_species,
+            type_fugacities=type_fugacities,
             quantum_rotation=cfg.quantum_rotation,
             simulated_annealing=cfg.simulated_annealing,
             simulated_annealing_linear=cfg.simulated_annealing_linear,
@@ -182,6 +205,12 @@ class Simulation:
         self.opts = capacity_opts(opts, self.flags, self.state)
 
         self.avg = AvgObservables()
+        # per-sorbate statistics when more than one movable species
+        self.sorbates = SorbateTracker(
+            self.meta["species"], _np(self.state.mol_type),
+            _np(self.state.mol_mass), _movable_np(self.state))
+        if self.sorbates.count <= 1:
+            self.sorbates = None
         self.seed = cfg.preset_seed if cfg.preset_seed_on else 0
         self.carry = chain_mod.init_carry(self.state, self.flags, self.params,
                                           self.opts, self.seed)
@@ -256,6 +285,11 @@ class Simulation:
                 f"({self.state.n_atom_slots} atom slots)\n")
         self.opts = capacity_opts(self.opts, self.flags, self.state)
         self._make_engine()
+        if self.sorbates is not None:
+            # species indices are stable across a regrowth: only the
+            # per-slot masks change; the statistics carry over
+            self.sorbates.mol_type = _np(self.state.mol_type)
+            self.sorbates.movable = _movable_np(self.state)
         fresh = chain_mod.init_carry(self.state, self.flags, self.params,
                                      self.opts, self.seed)
         self.carry = dataclasses.replace(
@@ -274,6 +308,17 @@ class Simulation:
                         fugacity=(self.cfg.fugacities[0]
                                   if self.cfg.fugacities else None),
                         pressure=self.cfg.pressure)
+        if self.sorbates is not None:
+            self.sorbates.update(
+                _np(self.carry.state.mol_alive),
+                volume=float(self.carry.state.pbc.volume),
+                frozen_mass=obs["frozen_mass"],
+                total_mass=obs["total_mass"],
+                free_volume=self.cfg.free_volume,
+                pressure_or_fugacity=(self.cfg.fugacities[0]
+                                      if self.cfg.fugacities
+                                      else self.cfg.pressure),
+                temperature=self.cfg.temperature)
         if self.fp_energy:
             out_io.write_observables(self.fp_energy, step, obs, T)
         if self.fp_energy_csv:
@@ -291,6 +336,17 @@ class Simulation:
                 cfg.energy_output_csv, csv=True)
         perf = out_io.PerformanceTimer(cfg.numsteps)
         first_frame = True
+
+        # population histogram (src/System.Histogram.cpp)
+        hist = None
+        if cfg.calc_hist:
+            hist = hist_io.PopulationHistogram(_np(self.state.pbc.basis),
+                                               cfg.hist_resolution)
+        # frozen-lattice OpenDX (write_frozen, src/System.Output.cpp:85-116)
+        if _live(cfg.frozen_output):
+            with open(cfg.frozen_output, "w") as f:
+                hist_io.write_frozen_dx(f, self.state, self.meta,
+                                        cfg.max_bondlength)
 
         # initial-state output (setup_mpi, src/System.MonteCarlo.cpp:178-206)
         self._corrtime_io(0)
@@ -342,6 +398,15 @@ class Simulation:
                                           long_output=cfg.long_output,
                                           first=first_frame)
                 first_frame = False
+            if hist is not None:
+                st = self.carry.state
+                hist.zero()
+                hist.accumulate(_np(st.mol_com()), _np(st.mol_frozen) |
+                                ~_np(st.mol_alive))
+                hist.update_root()
+                if _live(cfg.histogram_output):
+                    with open(cfg.histogram_output, "w") as f:
+                        hist.write_dx(f)
             if cfg.polarization:
                 traj_io.write_dipoles(cfg.dipole_output, self.carry.state,
                                       first=(step <= cfg.corrtime))
@@ -365,12 +430,21 @@ class Simulation:
     def _write_field(self, step: int):
         """Per-molecule static+induced field log (write_field,
         src/System.Output.cpp:1184-1229).  E_static is the refreshed
-        polar cache's static field of the current state (the twin
-        recomputes it with its dense thole_field); the induced field is
-        backed out of the dipoles (mu/alpha - E_static)."""
+        polar cache's static field of the current state where the chain
+        carries one, else the full static field, dense or in row blocks
+        (the twin recomputes it with its dense thole_field); the induced
+        field is backed out of the dipoles (mu/alpha - E_static)."""
         st = self.carry.state
-        e_static = _np(pcache_mod.static_field(st, self.flags, self.params,
-                                               self.carry.pcache))
+        if self.carry.pcache is not None:
+            e_static = pcache_mod.static_field(st, self.flags, self.params,
+                                               self.carry.pcache)
+        elif self.opts.blocked_energy:
+            e_static = polar_mod.thole_field_blocked(st, self.flags,
+                                                     self.params)
+        else:
+            e_static = polar_mod.thole_field(st, build_pairs(st, self.flags),
+                                             self.flags, self.params)
+        e_static = _np(e_static)
         alpha = _np(st.polarizability)
         safe = np.where(alpha == 0.0, 1.0, alpha)
         e_ind = np.where(alpha[:, None] != 0.0,
@@ -383,4 +457,8 @@ class Simulation:
             self.avg, temperature=float(self.carry.temperature),
             simulated_annealing=self.cfg.simulated_annealing,
             gwp=self.cfg.gwp, ensemble=self.cfg.ensemble,
-            sorbate_count=1, polar_rrms=self.cfg.polar_rrms, out=self.out)
+            sorbate_count=(self.sorbates.count if self.sorbates else 1),
+            polar_rrms=self.cfg.polar_rrms, out=self.out)
+        if self.sorbates is not None:
+            self.sorbates.display(
+                self.out, frozen_mass=float(self.carry.obs.frozen_mass))

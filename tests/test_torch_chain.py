@@ -234,7 +234,8 @@ def test_unported_flag_raises(flag):
                                   topology=topology_t(state))
 
 
-@pytest.mark.parametrize("opt", [{"ensemble": 1}, {"spectre": True},
+@pytest.mark.parametrize("opt", [{"ensemble": const.ENSEMBLE_SURF},
+                                 {"spectre": True},
                                  {"quantum_rotation": True}])
 def test_unported_option_raises(opt):
     state, _, flags, params, opts = co2.torch_system()

@@ -131,6 +131,36 @@ def test_contract_kernel_rect_matches_plain(cuda, shape, mode):
                  torch.linalg.norm(want)) <= 1e-5
 
 
+# the dense examples' plane sizes (gcmc-mof-h2 63, -mixture 148, -co2
+# 213 atom slots) and a ragged 57, square and a quarter of their rows: a
+# few 32 x 64 units, mostly ragged, most with A % 4 != 0
+SMALL_SHAPES = [(63, 63), (148, 148), (213, 213), (57, 57), (15, 63),
+                (37, 148), (53, 213), (14, 57)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SMALL_SHAPES)
+@pytest.mark.parametrize("mode", [3, 4, 5])
+def test_contract_kernel_small_ragged_matches_plain(cuda, shape, mode):
+    """K1 at the small, ragged sizes of the dense examples' XLA branch:
+    [R, 3] within rel 1e-5 of the plain version, repeats bitwise."""
+    R, A = shape
+    planes = _nonsym_planes(A, mode, R * A + mode, cuda, rows=R)
+    mu = torch.from_numpy(
+        np.random.default_rng(A + mode).normal(size=(A, 3)) * 0.1).to(cuda)
+    before = cuda_polar.contract_planes.launches
+    got = cuda_polar.contract_planes(planes, mu, L_DAMP)
+    again = cuda_polar.contract_planes(planes, mu, L_DAMP)
+    want = cuda_polar.contract_planes_plain(planes, mu, L_DAMP)
+    torch.cuda.synchronize()
+    assert cuda_polar.contract_planes.launches == before + 2
+    assert got.dtype == torch.float64 and got.shape == (R, 3)
+    assert torch.equal(got, again)
+    # f32 sums of A terms in another order
+    assert float(torch.linalg.norm(got - want) /
+                 torch.linalg.norm(want)) <= 1e-5
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", [3, 4, 5])
 def test_contract_kernel_middle_rows_of_symmetric_planes(cuda, mode):
