@@ -94,8 +94,30 @@ its hand-written kernels, and check the results.
    full recompute whose SCF contracts in float64 row tiles; energies
    against a fresh ``energy_breakdown_blocked``, no f32-plane kernel
    launched; ms per move.
-12. Prints ``{"kernels": [...]}`` (per kernel: the sum over the main paths
-   of steps 3, 5-11 of its launches, each path counted from 0, and
+12. The two other examples through the port's CLI, on the card and then
+   on the CPU with the same seed: gibbs-argon and pi-argon-dimer (``-P 8
+   -xyz frames.xyz``) at QUICK_STEPS with corrtime half of them.  Exit
+   code 0, finite energy logs (one per box for Gibbs), PI's 8 per-bead
+   restart files and frames of 16 sites; the card's accept/reject counts
+   equal to the CPU's, its energy logs and carried energies within 1e-9
+   relative of the CPU's; no K1-K5 launch.
+13. Gibbs VLE of LJ argon at tools/gibbs_vle.py's configuration and 2 x
+   256 production shape (N = (497, 15), 994 and 512 slots, the dense
+   path): 2 corrtimes of 200 steps through GibbsSimulation; each box's
+   incremental energy within 1e-9 of each refresh, N_a + N_b and V_a +
+   V_b conserved, a transfer and a volume exchange proposed, no K1-K5
+   launch; steps/s, synchronizing calls, kernel launches and device time
+   per step, and the device's idle share.
+14. PI-NVT of 512 single-site para-H2 at 25 K and 0.0233 A^-3 with P =
+   16 beads (8,192 atom-bead slots, the incremental LJ path), 2
+   corrtimes of 64 moves through PISimulation.run: the carried
+   potential within 1e-9 of each per-bead recompute, the kinetic
+   estimator below 1.5 N T P, 16 restart files, each move kind accepted
+   >= 5 %, no K1-K5 launch; moves/s, synchronizing calls, kernel
+   launches and device time per move, the device's idle share, one
+   corrtime's restart-write time.
+15. Prints ``{"kernels": [...]}`` (per kernel: the sum over the main paths
+   of steps 3, 5-14 of its launches, each path counted from 0, and
    the count of each path; the time, plain time and bound at the shapes
    of step 4 for K2, K3 and K5, step 6 for K4 and step 7 for K1; the
    worst error of the checks), the card's name and power limit, and,
@@ -168,6 +190,21 @@ F64_MOVES = 8            # moves of the float64 SCF phase (d)
 # local moves are accepted beside the volume moves and full recomputes
 SMALL_MOVE_FACTOR = 0.05
 K1_REL_TOL = 1e-5        # f32 sums of ~1e4 terms in another order
+# phases (g)-(i): the Gibbs and path-integral examples through the CLI
+# (tests/test_examples.py's QUICK_STEPS, corrtime half of them; PI with
+# -P 8), the Gibbs VLE at tools/gibbs_vle.py's 2 x 256 production shape,
+# and PI-NVT of a dense para-H2 fluid
+DISPATCHED_STEPS = {"gibbs-argon": 60, "pi-argon-dimer": 200}
+EXAMPLE_BEADS = 8
+VLE_N_BOX = 256          # atoms per box at the even split
+VLE_STEPS = 200          # a corrtime; two of them
+# steps (Gibbs) and moves (PI) after the run that torch.profiler counts
+# launches and device time over: its records of ~1.7k and ~10k launches
+# per step cost seconds to gather
+VLE_PROBE, PI_PROBE = 10, 4
+PI_H2 = dict(n=512, L=28.01, T=25.0, eps=34.2, sig=2.96, mass=2.016,
+             beads=16, moves=64, chain=4, perturb=0.5, move_factor=0.02,
+             seed=21)
 SYNTH_A = 4096
 RAGGED_A = 4001          # A % 4 != 0: no TMA tensor map (16-byte rows)
 SYM_SYNTH_A = (4096, 4032)   # K5's 64-row tiles: nr = 64 (even), 63 (odd)
@@ -502,9 +539,10 @@ def check_k1(cache, state, flags, params, device, label="flagship"):
 
 def _main_ms(fn):
     """(device ms of one launch, launches recorded) of the main kernel of
-    ``fn`` (the kernel with the most device time) over TIMING_REPS calls
-    under torch.profiler: the mean over the launches it recorded."""
-    split = device_split(fn)
+    ``fn`` (K1's contract_planes_kernel, the one with the most device
+    time) over TIMING_REPS calls under torch.profiler: the mean over the
+    launches it recorded."""
+    split = device_split(fn, want="contract_planes")
     if not split:
         raise AssertionError("the profiler saw no kernel")
     ms, n = max(split.values())
@@ -600,7 +638,8 @@ def check_k5(cache, state, flags, params, device, label, modes=(3, 4, 5),
                 rec = {"ms": ms, "plain_ms": plain_ms, "k1_ms": k1_ms,
                        "bound": bound}
                 split = device_split(
-                    lambda: cuda_polar.contract_planes_sym(planes, mu, l))
+                    lambda: cuda_polar.contract_planes_sym(planes, mu, l),
+                    want="contract_sym")
                 if not split:
                     raise AssertionError("the profiler saw no K5 kernel")
                 main_ms = max(ms / n for ms, n in split.values())
@@ -614,17 +653,18 @@ def check_k5(cache, state, flags, params, device, label, modes=(3, 4, 5),
     return rec
 
 
-def device_split(fn, reps=TIMING_REPS, tries=3):
+def device_split(fn, reps=TIMING_REPS, tries=8, want=""):
     """Device ms and kernels per call of ``fn``, by kernel name
-    (torch.profiler over ``reps`` calls after one warm-up call).  A
-    session that records no device event at all (seen once in a run of
-    this script) is run again, up to ``tries`` sessions; every call of
-    ``fn`` runs the same work, so the sessions are alike."""
+    (torch.profiler over ``reps`` calls after one warm-up call).  On this
+    card the profiler now and then records no device event of a session,
+    or none of the kernel being measured, so a session without an event
+    whose name holds ``want`` is run again, up to ``tries`` sessions;
+    every call of ``fn`` runs the same work, so the sessions are alike."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    out = {}
     for _ in range(tries):
+        out = {}
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -639,7 +679,7 @@ def device_split(fn, reps=TIMING_REPS, tries=3):
                 ms, n = out.get(key, (0.0, 0.0))
                 out[key] = (ms + e.time_range.elapsed_us() / 1e3 / reps,
                             n + 1 / reps)
-        if out:
+        if any(want in k for k in out):
             break
     return out
 
@@ -754,8 +794,9 @@ def check_k2(cache, device):
 
     def call():
         cuda_polar.write_plane_strips(planes, blend, cols, st)
-    split = {k: v for k, v in device_split(call).items()
-             if "write_plane_strips" in k}
+    split = {k: v for k, v in device_split(
+        call, want="write_plane_strips").items()
+        if "write_plane_strips" in k}
     if not split:
         raise AssertionError("the profiler saw no K2 kernel")
     rec = {"ms": sum(ms / n for ms, n in split.values()),
@@ -1463,6 +1504,433 @@ def run_f64_scf(state, flags, params, opts):
     return launches, ms
 
 
+def count_syncs(fn):
+    """(fn(), the synchronizing CUDA calls it made), counted by
+    torch.cuda.set_sync_debug_mode("warn")."""
+    import warnings
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def count_launches(fn, tries=8):
+    """(fn(), its kernel launches, its device ms, what was counted) under
+    torch.profiler with CUDA activity only (recording every op on the
+    host too costs about a second per Gibbs step): the runtime's launch
+    calls, or where the session recorded none of them the device kernels
+    it recorded, and the summed duration of the device events (one
+    stream: they do not overlap).  A session that records no device
+    event (see device_split) is run again, up to ``tries`` sessions;
+    ``fn`` must give the same result each time it is called."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        events = prof.events()
+        device = [e for e in events if e.device_type == DeviceType.CUDA]
+        device_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
+        if device_ms > 0.0:
+            break
+    calls = sum("LaunchKernel" in e.name for e in events)
+    if calls:
+        return out, calls, device_ms, "launch calls"
+    kernels = sum(not re.search("memcpy|memset", e.name, re.I)
+                  for e in device)
+    return out, kernels, device_ms, "device kernels recorded"
+
+
+def _energy_logs(sim, workdir):
+    """The energy log rows of a Gibbs (one per box) or PI run."""
+    from mpmcxx_tpu_torch import constants as const
+    from mpmcxx_tpu_torch.io.pqr import make_filename
+    cfg = sim.cfg
+    names = [make_filename(cfg.energy_output, i) for i in range(2)] \
+        if cfg.ensemble == const.ENSEMBLE_NVT_GIBBS else [cfg.energy_output]
+    return {n: np.loadtxt(os.path.join(workdir, n), ndmin=2) for n in names}
+
+
+def _carried_energies(sim):
+    c = sim.carry
+    if hasattr(c, "energy_a"):
+        return [float(c.energy_a), float(c.energy_b)]
+    return [float(c.potential_current)] + c.obs_components.tolist()
+
+
+def run_dispatched_example(name, root, workdir):
+    """Phase (g): gibbs-argon, or pi-argon-dimer with ``-P 8 -xyz
+    frames.xyz``, through the port's CLI on the card and then on the CPU
+    (``--device cpu``, the same seed), at DISPATCHED_STEPS with corrtime
+    half of them.  Checks: exit code 0 and finite energy logs (one per
+    box for Gibbs); for PI the 8 per-bead restart files and frames of 16
+    sites; the card's accept/reject counts per move type equal to the
+    CPU's, its energy logs and final carried energies within 1e-9
+    relative of the CPU's (the logs to their printed 6 decimals); no
+    K1-K5 launch.  Returns (launch counts, steps/s on the card)."""
+    import torch
+    from mpmcxx_tpu_torch import cli
+    from mpmcxx_tpu_torch.io.pqr import make_filename
+    n = DISPATCHED_STEPS[name]
+    pi = name.startswith("pi-")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        d = os.path.join(workdir, f"{name}-{dev}")
+        shutil.copytree(os.path.join(root, "examples", name), d)
+        path = os.path.join(d, "run.in")
+        with open(path) as f:
+            text = f.read()
+        text = re.sub(r"(?m)^numsteps .*$", f"numsteps {n}", text)
+        text = re.sub(r"(?m)^corrtime .*$", f"corrtime {n // 2}", text)
+        with open(path, "w") as f:
+            f.write(text)
+        args = ["--quiet", "--device", dev] + (
+            ["-P", str(EXAMPLE_BEADS), "-xyz", "frames.xyz"] if pi else []) \
+            + ["run.in"]
+        cwd = os.getcwd()
+        zero_launches()
+        t0 = time.time()
+        try:
+            os.chdir(d)
+            rc, sim = cli.run(args)
+            torch.cuda.synchronize()
+        finally:
+            os.chdir(cwd)
+        if rc != 0:
+            raise AssertionError(f"{name} on {dev} exited with {rc}")
+        runs[dev] = (sim, d, launches_now(), time.time() - t0)
+    (sim, d, launches, wall), (sim_c, d_c, _, wall_c) = runs["cuda"], \
+        runs["cpu"]
+    logs, logs_c = _energy_logs(sim, d), _energy_logs(sim_c, d_c)
+    for fn, rows in logs.items():
+        if rows.shape[0] != 3 or not np.all(np.isfinite(rows)):
+            raise AssertionError(f"{name}: energy log {fn} {rows.shape}")
+        if not np.allclose(rows, logs_c[fn], rtol=1e-9, atol=1e-6):
+            raise AssertionError(f"{name}: {fn} differs from the CPU run's")
+    got, want = _carried_energies(sim), _carried_energies(sim_c)
+    rel = max(_close(g, w, 1e-9)[0] for g, w in zip(got, want))
+    if not rel <= 1e-9:
+        raise AssertionError(f"{name}: carried energies card {got} vs CPU "
+                             f"{want}: rel {rel}")
+    acc, rej = sim.carry.accept.cpu(), sim.carry.reject.cpu()
+    if not (torch.equal(acc, sim_c.carry.accept) and
+            torch.equal(rej, sim_c.carry.reject)):
+        raise AssertionError(f"{name}: accept/reject counts card "
+                             f"{acc.tolist()}/{rej.tolist()} vs CPU "
+                             f"{sim_c.carry.accept.tolist()}/"
+                             f"{sim_c.carry.reject.tolist()}")
+    if pi:
+        for s in range(EXAMPLE_BEADS):
+            fn = os.path.join(d, make_filename(sim.cfg.pqr_restart, s))
+            if not os.path.getsize(fn):
+                raise AssertionError(f"{name}: no restart file {fn}")
+        with open(os.path.join(d, "frames.xyz")) as f:
+            frames = f.read().splitlines()
+        if frames[0] != "16" or len(frames) != 2 * 18:
+            raise AssertionError(f"{name}: frames file {frames[:2]}, "
+                                 f"{len(frames)} lines")
+    if any(launches.values()):
+        raise AssertionError(f"{name}: an SCF or cavity kernel ran: "
+                             f"{launches}")
+    counts = ", ".join(f"{const_name(m)} {int(acc[m])}/{int(acc[m] + rej[m])}"
+                       for m in range(7) if acc[m] + rej[m])
+    _say(f"example {name}: {n} steps on the card in {wall:.2f} s wall with "
+         f"set-up ({n / wall:.1f} steps/s), on the CPU {wall_c:.2f} s; "
+         f"accepted {counts}, equal on both; carried energies card vs CPU "
+         f"rel {rel:.2e}; launches {launches}")
+    return launches, n / wall
+
+
+def const_name(movetype):
+    from mpmcxx_tpu_torch import constants as const
+    return const.MOVETYPE_NAMES[movetype]
+
+
+def run_gibbs_vle(workdir, device="cuda"):
+    """Phase (h): Gibbs VLE of LJ argon at tools/gibbs_vle.py's
+    configuration and 2 x 256 production shape (T* = 0.90, lever start
+    N = (497, 15), equal boxes of L = 32.30 A, rd_lrc, transfers 0.25,
+    volume exchanges 0.02 by 0.10, move_factor 0.05; 994 and 512 slots,
+    the dense path), 2 corrtimes of VLE_STEPS through GibbsSimulation.
+    Checks: at each refresh each box's incremental energy within 1e-9 of
+    the full recompute; N_a + N_b and V_a + V_b (1e-12) conserved; a
+    transfer and a volume exchange proposed; no K1-K5 launch.  Returns
+    (launch counts, second corrtime's steps/s, syncs per step, launches
+    per step, the device's idle share)."""
+    import torch
+    import gibbs_vle as vle
+    from mpmcxx_tpu_torch import constants as const
+    from mpmcxx_tpu_torch.config.parser import read_config
+    from mpmcxx_tpu_torch.mc.gibbs import (GibbsSimulation,
+                                           make_gibbs_chunk_runner)
+
+    sig3 = vle.SIG ** 3
+    V_box = VLE_N_BOX / vle.RHO_TOTAL * sig3
+    L = V_box ** (1 / 3)
+    # the lever rule at the literature densities (gibbs_vle.main)
+    rl, rv = vle.LIT["rho_l"][0] / sig3, vle.LIT["rho_v"][0] / sig3
+    n_total, V_total = 2 * VLE_N_BOX, 2 * V_box
+    n_a = int(round(rl * (n_total - V_total * rv) / (rl - rv)))
+    n_b = n_total - n_a
+    d = os.path.join(workdir, "gibbs-vle")
+    os.makedirs(d)
+    vle.write_box(os.path.join(d, "boxA.pqr"), n_a, L, 4)
+    vle.write_box(os.path.join(d, "boxB.pqr"), n_b, L, 5)
+    with open(os.path.join(d, "run.in"), "w") as f:
+        f.write(f"""job_name vle
+ensemble nvt_gibbs
+rd_lrc on
+temperature {vle.T_K}
+transfer_probability 0.25
+volume_probability 0.02
+volume_change_factor 0.10
+numsteps {2 * VLE_STEPS}
+corrtime {VLE_STEPS}
+seed 4
+move_factor 0.05
+pqr_input {os.path.join(d, "boxA.pqr")}
+pqr_input_B {os.path.join(d, "boxB.pqr")}
+energy_output off
+pqr_restart off
+pqr_output off
+traj_output off
+basis1 {L:.6f} 0 0
+basis2 0 {L:.6f} 0
+basis3 0 0 {L:.6f}
+""")
+    sim = GibbsSimulation(read_config(os.path.join(d, "run.in")), quiet=True,
+                          device=device)
+    slots = (sim.state_a.n_atom_slots, sim.state_b.n_atom_slots)
+    _say(f"[gibbs-vle] N = ({n_a}, {n_b}), L = {L:.2f} A, {slots} atom "
+         f"slots, T = {vle.T_K:.2f} K")
+    if (n_a, n_b) != (497, 15) or slots != (994, 512) or \
+            sim.opts.blocked_energy or not sim.opts.incremental:
+        raise AssertionError(f"[gibbs-vle] shape {n_a, n_b} {slots}, "
+                             f"options {sim.opts}")
+    zero_launches()
+    carry = sim._init_carry()
+    n0 = float(carry.obs_a.N + carry.obs_b.N)
+    v0 = float(carry.state_a.pbc.volume + carry.state_b.pbc.volume)
+    moves_seen = []
+    for c in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        (carry, outs), syncs = count_syncs(lambda: sim._run_chunk(carry))
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        moves_seen.append(outs.movetype.cpu())
+        inc = (float(carry.energy_a), float(carry.energy_b))
+        carry = sim._refresh(carry)
+        for box, got, full in (("A", inc[0], float(carry.energy_a)),
+                               ("B", inc[1], float(carry.energy_b))):
+            rel, ok = _close(got, full, 1e-9)
+            _say(f"[gibbs-vle] corrtime {c + 1} box {box}: incremental "
+                 f"{got:.9f} vs full {full:.9f}: rel {rel:.2e} (tol 1e-09)")
+            if not ok:
+                raise AssertionError(f"[gibbs-vle] box {box}: rel {rel}")
+    launches = launches_now()
+    n1 = float(carry.obs_a.N + carry.obs_b.N)
+    v1 = float(carry.state_a.pbc.volume + carry.state_b.pbc.volume)
+    mt = torch.cat(moves_seen)
+    n_xfer = int((mt == const.MOVETYPE_INSERT).sum())
+    n_vol = int((mt == const.MOVETYPE_VOLUME).sum())
+    acc = carry.accept.tolist()
+    _say(f"[gibbs-vle] N = ({float(carry.obs_a.N):g}, "
+         f"{float(carry.obs_b.N):g}), V = "
+         f"({float(carry.state_a.pbc.volume):.3f}, "
+         f"{float(carry.state_b.pbc.volume):.3f}); {n_xfer} transfers "
+         f"proposed ({acc[const.MOVETYPE_INSERT]} accepted), {n_vol} volume "
+         f"exchanges ({acc[const.MOVETYPE_VOLUME]}), displacements "
+         f"accepted {acc[const.MOVETYPE_DISPLACE]}")
+    if n1 != n0 or abs(v1 - v0) > 1e-12 * v0:
+        raise AssertionError(f"[gibbs-vle] N {n0} -> {n1}, V {v0} -> {v1}")
+    if n_xfer == 0 or n_vol == 0:
+        raise AssertionError("[gibbs-vle] no transfer or no volume "
+                             "exchange proposed")
+    if any(launches.values()):
+        raise AssertionError(f"[gibbs-vle] kernels launched: {launches}")
+    n = VLE_PROBE
+    t0 = time.time()
+    (carry, _), n_launch, dev_ms, counted = count_launches(
+        lambda: make_gibbs_chunk_runner(sim.flags, sim.params, sim.opts, n,
+                                        sim.topologies)(carry))
+    probe_s = time.time() - t0
+    wall_ms = dt * 1e3 / VLE_STEPS
+    idle = 1 - dev_ms / n / wall_ms
+    _say(f"[gibbs-vle] second corrtime: {VLE_STEPS} steps in {dt:.3f} s = "
+         f"{VLE_STEPS / dt:.2f} steps/s; {syncs} synchronizing calls "
+         f"({syncs / VLE_STEPS:.3f} per step); {n_launch / n:.1f} kernel "
+         f"launches ({counted}) and {dev_ms / n:.3f} ms of device time per "
+         f"step ({n} more steps, profiled in {probe_s:.1f} s) against "
+         f"{wall_ms:.3f} ms of wall: device idle {idle:.1%}")
+    return launches, VLE_STEPS / dt, syncs / VLE_STEPS, n_launch / n, idle
+
+
+def write_h2_fluid(path):
+    """PI_H2's para-H2 fluid: single-site H2 on a jittered 8^3 lattice of
+    the box, seeded (PQR, e units)."""
+    h = PI_H2
+    rng = np.random.default_rng(h["seed"])
+    g = int(round(h["n"] ** (1 / 3)))
+    s = h["L"] / g
+    pts = (np.stack(np.meshgrid(*[np.arange(g)] * 3, indexing="ij"),
+                    -1).reshape(-1, 3) + 0.5) * s - h["L"] / 2
+    pts = pts + rng.uniform(-0.25, 0.25, pts.shape)
+    with open(path, "w") as f:
+        for m, (x, y, z) in enumerate(pts):
+            f.write(f"ATOM  {m + 1:5d} H2   H2 M {m + 1:4d}   "
+                    f"{x:8.3f}{y:8.3f}{z:8.3f} {h['mass']:.5f}  0.00000 "
+                    f"0.00000 {h['eps']:.5f} {h['sig']:.5f} 0.0 0.0\n")
+        f.write("END\n")
+
+
+def run_pi_h2(workdir, device="cuda"):
+    """Phase (i): PI-NVT of 512 single-site para-H2 (Buch's LJ) at 25 K and
+    0.0233 A^-3 (L = 28.01 A, cutoff L/2), P = 16 beads, bead
+    perturbations half the moves with trial chains of 4, through
+    PISimulation.run: 2 corrtimes of PI_H2["moves"] on the incremental LJ
+    path (8,192 atom-bead slots).  Checks: at each corrtime the carried
+    bead-averaged potential within 1e-9 of the full per-bead recompute;
+    the kinetic estimator finite and below 1.5 N T P; 16 restart files;
+    each move kind accepted >= 5 %; no K1-K5 launch.  Returns (launch
+    counts, second corrtime's moves/s, syncs per move, launches per move,
+    the device's idle share, one corrtime's restart-write seconds)."""
+    import torch
+    from mpmcxx_tpu_torch import constants as const
+    from mpmcxx_tpu_torch.config.parser import read_config
+    from mpmcxx_tpu_torch.io.pqr import make_filename
+    from mpmcxx_tpu_torch.mc import pi
+
+    h = PI_H2
+    d = os.path.join(workdir, "pi-h2")
+    os.makedirs(d)
+    write_h2_fluid(os.path.join(d, "h2.pqr"))
+    with open(os.path.join(d, "run.in"), "w") as f:
+        f.write(f"""job_name ph2
+ensemble pi_nvt
+temperature {h['T']}
+numsteps {2 * h['moves']}
+corrtime {h['moves']}
+seed 1
+move_factor {h['move_factor']}
+bead_perturb_probability {h['perturb']}
+pi_trial_chain_length {h['chain']}
+pqr_input h2.pqr
+basis1 {h['L']} 0 0
+basis2 0 {h['L']} 0
+basis3 0 0 {h['L']}
+""")
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        cfg = read_config("run.in")
+        cfg.total_trotter_number = h["beads"]      # as -P does
+        sim = pi.PISimulation(cfg, quiet=True, device=device)
+        if sim.stack.pos.shape[:2] != (h["beads"], h["n"]) or \
+                not sim.incremental:
+            raise AssertionError(f"[pi-h2] stack {tuple(sim.stack.pos.shape)}"
+                                 f", incremental {sim.incremental}")
+        log = {"chunks": [], "recompute": [], "writes": []}
+        run_chunk, recompute, write = sim._run_chunk, sim._recompute, \
+            sim._write_beads
+
+        def timed_chunk(carry):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            if log["chunks"]:
+                out, syncs = count_syncs(lambda: run_chunk(carry))
+            else:
+                out, syncs = run_chunk(carry), None
+            torch.cuda.synchronize()
+            log["chunks"].append((time.time() - t0, syncs))
+            return out
+
+        def recorded(carry):
+            out = recompute(carry)
+            log["recompute"].append((float(carry.potential_current),
+                                     float(out.potential_current)))
+            return out
+
+        def timed_write(carry, basename):
+            t0 = time.time()
+            write(carry, basename)
+            log["writes"].append(time.time() - t0)
+
+        sim._run_chunk, sim._recompute, sim._write_beads = timed_chunk, \
+            recorded, timed_write
+        zero_launches()
+        t0 = time.time()
+        sim.run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = launches_now()
+        for c, (inc, full) in enumerate(log["recompute"]):
+            rel, ok = _close(inc, full, 1e-9)
+            _say(f"[pi-h2] corrtime {c + 1}: carried bead-averaged "
+                 f"potential {inc:.9f} vs full per-bead recompute "
+                 f"{full:.9f}: rel {rel:.2e} (tol 1e-09)")
+            if not ok:
+                raise AssertionError(f"[pi-h2] corrtime {c + 1}: rel {rel}")
+        if len(log["recompute"]) != 2:
+            raise AssertionError("[pi-h2] not two recomputes")
+        carry = sim.carry
+        kin = float(pi.pi_kinetic(carry.stack, carry.temperature))
+        bound = 1.5 * h["n"] * h["T"] * h["beads"]
+        if not (np.isfinite(kin) and kin < bound):
+            raise AssertionError(f"[pi-h2] kinetic {kin} vs 1.5 N T P "
+                                 f"{bound}")
+        for s in range(h["beads"]):
+            if not os.path.getsize(make_filename(sim.cfg.pqr_restart, s)):
+                raise AssertionError(f"[pi-h2] no restart file for bead {s}")
+        acc, rej = carry.accept.tolist(), carry.reject.tolist()
+        rates = {m: acc[m] / max(acc[m] + rej[m], 1)
+                 for m in (const.MOVETYPE_DISPLACE,
+                           const.MOVETYPE_PERTURB_BEADS)}
+        if any(r < 0.05 for r in rates.values()):
+            raise AssertionError(f"[pi-h2] acceptance {rates}")
+        if any(launches.values()):
+            raise AssertionError(f"[pi-h2] kernels launched: {launches}")
+        n_probe = PI_PROBE
+        t0 = time.time()
+        (carry, _), n_launch, dev_ms, counted = count_launches(
+            lambda: sim._chunk_runner(n_probe)(carry))
+        probe_s = time.time() - t0
+    finally:
+        os.chdir(cwd)
+    dt, syncs = log["chunks"][1]
+    m = h["moves"]
+    wall_ms = dt * 1e3 / m
+    idle = 1 - dev_ms / n_probe / wall_ms
+    _say(f"[pi-h2] {h['n']} H2 x {h['beads']} beads, T = {h['T']} K: "
+         f"{2 * m} moves, {wall:.1f} s wall with set-up; accepted "
+         f"displace {acc[const.MOVETYPE_DISPLACE]}/"
+         f"{acc[const.MOVETYPE_DISPLACE] + rej[const.MOVETYPE_DISPLACE]}, "
+         f"bead perturbation {acc[const.MOVETYPE_PERTURB_BEADS]}/"
+         f"{acc[const.MOVETYPE_PERTURB_BEADS] + rej[const.MOVETYPE_PERTURB_BEADS]}"
+         f"; kinetic estimator "
+         f"{kin:.3f} K (< 1.5 N T P = {bound:g})")
+    _say(f"[pi-h2] second corrtime: {m} moves in {dt:.3f} s = "
+         f"{m / dt:.2f} moves/s; {syncs} synchronizing calls "
+         f"({syncs / m:.3f} per move); {n_launch / n_probe:.1f} kernel "
+         f"launches ({counted}) and {dev_ms / n_probe:.3f} ms of device "
+         f"time per move "
+         f"({n_probe} more moves, profiled in {probe_s:.1f} s) against "
+         f"{wall_ms:.3f} ms of "
+         f"wall: device idle {idle:.1%}; one corrtime's {h['beads']} "
+         f"restart writes {log['writes'][0]:.3f} s")
+    return launches, m / dt, syncs / m, n_launch / n_probe, idle, \
+        log["writes"][0]
+
+
 def ptxas_report(log):
     """Per kernel of nvcc's build log: its registers, barriers and shared
     memory ("Used ...") and its stack and spills, named by the kernel's
@@ -1649,13 +2117,39 @@ def main() -> int:
     del state
     flush()
 
+    # --- 12. the Gibbs and PI examples through the CLI, card vs CPU ------
+    t_gibbs_pi = time.time()
+    with tempfile.TemporaryDirectory() as workdir:
+        for name in DISPATCHED_STEPS:
+            launches[name], step_rates[name] = run_dispatched_example(
+                name, root, workdir)
+    flush()
+
+    # --- 13. Gibbs VLE at 2 x 256 atoms (tools/gibbs_vle.py) -------------
+    with tempfile.TemporaryDirectory() as workdir:
+        launches["gibbs-vle"], rates["gibbs-vle"], vle_syncs, \
+            vle_launch, vle_idle = run_gibbs_vle(workdir)
+    flush()
+
+    # --- 14. PI-NVT of 512 para-H2 x 16 beads -----------------------------
+    with tempfile.TemporaryDirectory() as workdir:
+        launches["pi-h2"], rates["pi-h2"], pi_syncs, pi_launch, \
+            pi_idle, pi_write_s = run_pi_h2(workdir)
+    flush()
+    _say(f"steps 12-14 (the Gibbs and PI phases) took "
+         f"{time.time() - t_gibbs_pi:.1f} s")
+
     _say(f"second-chunk moves/s on {card}: " + ", ".join(
         f"{m} {r:.2f}" for m, r in rates.items()) +
         f"; examples' chunk steps/s: " + ", ".join(
             f"{m} {r:.1f}" for m, r in step_rates.items()) +
         f"; NPT volume move {volume_ms:.1f} ms; f64 SCF {f64_ms:.1f} ms "
-        f"per move; whole check {time.time() - t_start:.1f} s after the "
-        "card query")
+        f"per move; Gibbs VLE {vle_syncs:.3f} syncs and {vle_launch:.1f} "
+        f"launches per step, device idle {vle_idle:.1%}; PI H2 "
+        f"{pi_syncs:.3f} syncs and {pi_launch:.1f} launches per move, "
+        f"device idle {pi_idle:.1%}, restart writes {pi_write_s:.3f} s per "
+        f"corrtime; whole check "
+        f"{time.time() - t_start:.1f} s after the card query")
     k5_all = dict(k5_cli, max_abs_err=max(k5["max_abs_err"],
                                           k5_cli["max_abs_err"]))
     k2_all = dict(k2_cli, max_abs_err=max(k2["max_abs_err"],

@@ -8,7 +8,8 @@ src/args_etc.h:306-347) and ``--device`` (default ``cuda``).  Without a
 CUDA device the default exits non-zero; ``--device cpu`` runs the plain
 PyTorch versions of the kernels on the CPU.
 
-Usage: python -m mpmcxx_tpu_torch.cli [--device cpu] input.in
+Usage: python -m mpmcxx_tpu_torch.cli [--device cpu] [-P 8]
+       [-xyz frames.xyz] input.in
 """
 
 from __future__ import annotations
@@ -33,8 +34,9 @@ def _install_signal_handlers():
 
 
 def run(argv=None):
-    """Parse ``argv``, build and run the Simulation; returns (exit code,
-    the Simulation or None)."""
+    """Parse ``argv``, build and run the ensemble's simulation (Simulation,
+    PISimulation or GibbsSimulation); returns (exit code, the simulation
+    or None)."""
     parser = argparse.ArgumentParser(
         prog="mpmcxx-torch",
         description="Massively Parallel Monte Carlo on PyTorch/CUDA")
@@ -66,16 +68,18 @@ def run(argv=None):
         print("SIM_CONTROL: Finished reading config file.")
     if args.P:
         cfg.total_trotter_number = args.P
-    if cfg.ensemble == const.ENSEMBLE_PATH_INTEGRAL_NVT or args.xyz:
-        raise NotImplementedError("path-integral runs (-P, -xyz)")
     if args.replicas > 1:
         raise NotImplementedError("--replicas")
 
-    from .runner import Simulation
-    sim = Simulation(cfg, quiet=args.quiet, device=device)
+    from .runner import make_simulation
+    sim = make_simulation(cfg, quiet=args.quiet, device=device)
+    if args.xyz and cfg.ensemble == const.ENSEMBLE_PATH_INTEGRAL_NVT:
+        sim.xyz_path = args.xyz
     if not args.quiet:
         from .io.output import display_sim_control
-        display_sim_control(sim.cfg, n_systems=1)
+        n_sys = getattr(sim, "P", None) or \
+            (2 if cfg.ensemble == const.ENSEMBLE_NVT_GIBBS else 1)
+        display_sim_control(sim.cfg, n_systems=n_sys)
     sim.run()
     print("SIM_CONTROL: Simulation complete!")
     return 0, sim

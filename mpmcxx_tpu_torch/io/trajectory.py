@@ -1,12 +1,13 @@
 """Trajectory, dipole and field writers.
 
-JAX twin: mpmcxx_tpu/io/trajectory.py (``append_traj_frame``,
-``write_dipoles``, ``write_fields``; the PI frame writer is not ported).
+JAX twin: mpmcxx_tpu/io/trajectory.py.
 
 * multi-frame PQR trajectory with CRYST1 + REMARK step headers
   (write_states, src/System.Output.cpp:661-787)
 * per-molecule dipole and field logs in Debye / field units
   (write_dipole/write_field, src/System.Output.cpp:1096-1229)
+* all-bead XYZ frames for PI runs (write_PI_frame,
+  src/SimulationControl.PathIntegral.cpp:699-729)
 """
 
 from __future__ import annotations
@@ -66,3 +67,29 @@ def write_fields(path: str, state, e_static, e_induced,
     with open(path, "w" if first else "a") as f:
         f.write(_per_molecule(state, np.asarray(e_static) +
                               np.asarray(e_induced), const.E2REDUCED))
+
+
+class PIFrameWriter:
+    """All-bead XYZ frames (write_PI_frame,
+    src/SimulationControl.PathIntegral.cpp:699-729) of a [P]-stacked
+    state; no file without a path."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self.frame = 1
+
+    def write(self, stack, meta) -> None:
+        if not self.path:
+            return
+        P = stack.pos.shape[0]
+        idx = np.nonzero(_np(stack.mol_alive[0])[_np(stack.mol_id[0])])[0]
+        pos = _np(stack.pos)
+        lines = [f"{P * len(idx)}\nFrame: {self.frame}\n"]
+        for s in range(P):
+            for a in idx:
+                lines.append(f"{meta['atomtypes'][a]}     "
+                             f"{pos[s, a, 0]:0.4f}     {pos[s, a, 1]:0.4f}"
+                             f"     {pos[s, a, 2]:0.4f}\n")
+        with open(self.path, "w" if self.frame == 1 else "a") as f:
+            f.write("".join(lines))
+        self.frame += 1

@@ -2,8 +2,9 @@
 
 JAX twin: mpmcxx_tpu/mc/chain.py.  Ported: uVT (one sorbate or a
 mixture, with or without cavity-biased insertion), NVT, NPT and NVE
-(``make_step_fn``, chain.py:351-693), each on the evaluation branch the
-runner selects: the incremental polarization cache with incremental
+(``make_step_fn``, chain.py:351-693), with or without simulated
+annealing, each on the evaluation branch the runner selects: the
+incremental polarization cache with incremental
 Delta-E (polar_mixed), incremental LJ/Ewald Delta-E (no polarization), or
 a full recompute of every proposal (the float64 SCF); full recomputes are
 dense or in row blocks (``blocked_energy``).  Also ``init_carry``,
@@ -87,7 +88,6 @@ _PORTED_OPTS = {
     "ensemble": (const.ENSEMBLE_UVT, const.ENSEMBLE_NVT, const.ENSEMBLE_NPT,
                  const.ENSEMBLE_NVE),
     "quantum_rotation": (False,),
-    "simulated_annealing": (False,),
     "spectre": (False,),
     "rd_anharmonic": (False,),
     "gwp": (False,),
@@ -246,6 +246,20 @@ def volume_steps(opts: MCOptions, draws, state: SystemState) -> list:
     return (draws[:, _R_MOVE] < thr).tolist()
 
 
+def annealed_temperature(opts, T, step):
+    """Simulated annealing's temperature after an accepted move
+    (src/System.MonteCarlo.cpp:74-85; chain.py:663-674): linear toward the
+    target over the steps left after ``step``, or geometric by the
+    schedule.  ``opts`` carries the simulated_annealing_* fields and
+    numsteps; ``T`` and ``step`` are device scalars."""
+    tgt = opts.simulated_annealing_target
+    if opts.simulated_annealing_linear:
+        remaining = torch.clamp(opts.numsteps - step - 1, min=0)
+        return torch.where(remaining == 0, tgt,
+                           T + (tgt - T) / torch.clamp(remaining, min=1))
+    return tgt + (T - tgt) * opts.simulated_annealing_schedule
+
+
 def _select_cache(cache: pcache_mod.PolarCache, accept,
                   fresh: pcache_mod.PolarCache) -> pcache_mod.PolarCache:
     """The cache of the selected state after a volume move, written into
@@ -291,12 +305,7 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
         return consts[dev]
 
     def rows_of(mol):
-        dev = mol.device
-        mol_start, mol_natoms = on(dev)[0]
-        off = torch.arange(S, dtype=torch.int64, device=dev)
-        one = mol.reshape(1)
-        rows = mol_start.index_select(0, one) + off
-        return torch.where(off < mol_natoms.index_select(0, one), rows, -1)
+        return moves.molecule_rows(*on(mol.device)[0], mol, S)
 
     def cavity_branch(carry: MCCarry, d, dart_u, is_ins, is_rem):
         """Cavity-biased insertion machinery (chain.py:373-414): the grid
@@ -511,12 +520,15 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
                 (insert_slot < 0)
         else:
             capacity_reject = torch.zeros_like(accept)
+        if opts.simulated_annealing:
+            T = sel(annealed_temperature(opts, T, carry.step), T)
         out = StepOut(boltzmann_factor=bf, accepted=accept,
                       movetype=movetype,
                       polarization_iterations=eb.polarization_iterations,
                       capacity_reject=capacity_reject, biased=biased)
         return dataclasses.replace(
-            carry, state=state_out, obs=obs_out, step=carry.step + 1,
+            carry, state=state_out, obs=obs_out, temperature=T,
+            step=carry.step + 1,
             cavity=cavity, sf=sf_out, recip_e=sel(recip_new, carry.recip_e),
             pcache=pcache), out
 

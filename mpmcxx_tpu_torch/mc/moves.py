@@ -14,6 +14,7 @@ chunk's draws can be made in one batch.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import quaternion as quat
@@ -26,6 +27,33 @@ from ..state import SystemState
 def movable_mask(state: SystemState):
     return state.mol_alive & ~(state.mol_frozen | state.mol_adiabatic |
                                state.mol_target)
+
+
+def movable_window(state: SystemState) -> int:
+    """The move window S: the atom count of the largest molecule a move
+    can touch.  Frozen molecules never move, so they are not counted (the
+    twin counts every molecule, a framework's hundreds of atoms
+    included, and then works each move on a window of mostly -1 rows)."""
+    counts = np.bincount(state.mol_id.cpu().numpy(),
+                         minlength=state.n_mol_slots)
+    counts = counts[~state.mol_frozen.cpu().numpy()]
+    return int(counts.max()) if len(counts) else 1
+
+
+def particle_mass(state: SystemState) -> float:
+    """Mass of the first movable molecule (the averages' particle mass;
+    0 without one)."""
+    idx = torch.nonzero(movable_mask(state).cpu()).flatten()
+    return float(state.mol_mass[idx[0]]) if len(idx) else 0.0
+
+
+def molecule_rows(mol_start, mol_natoms, mol, S: int):
+    """The S-row window of molecule ``mol`` (a 0-d device index) from the
+    device topology tables (state.topology): its rows, then -1."""
+    off = torch.arange(S, dtype=torch.int64, device=mol.device)
+    one = mol.reshape(1)
+    rows = mol_start.index_select(0, one) + off
+    return torch.where(off < mol_natoms.index_select(0, one), rows, -1)
 
 
 def pick_kth_true(mask, k):
@@ -131,13 +159,17 @@ def remove(state: SystemState, mol) -> SystemState:
         aalive=torch.where(state.mol_id == mol, False, state.aalive))
 
 
-def volume_change(state: SystemState, u, volume_change_factor
-                  ) -> SystemState:
-    """Log-uniform volume move from the uniform ``u``: scale the box and
-    move molecule COMs rigidly with it (src/System.MonteCarlo.cpp:
-    1235-1282; moves.py:246-257)."""
-    log_new = torch.log(state.pbc.volume) + (u - 0.5) * volume_change_factor
-    factor = (torch.exp(log_new) / state.pbc.volume) ** (1.0 / 3.0)
+def scale_box(state: SystemState, factor) -> SystemState:
+    """The box scaled isotropically by ``factor``, molecule COMs moved
+    rigidly with it (src/System.MonteCarlo.cpp:1235-1282)."""
     delta = state.mol_com() * (factor - 1.0)
     return state.replace(pos=state.pos + delta.index_select(0, state.mol_id),
                          pbc=state.pbc.scale(factor))
+
+
+def volume_change(state: SystemState, u, volume_change_factor
+                  ) -> SystemState:
+    """Log-uniform volume move from the uniform ``u`` (moves.py:246-257)."""
+    log_new = torch.log(state.pbc.volume) + (u - 0.5) * volume_change_factor
+    return scale_box(state,
+                     (torch.exp(log_new) / state.pbc.volume) ** (1.0 / 3.0))

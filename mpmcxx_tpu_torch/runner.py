@@ -11,8 +11,9 @@ restart/trajectory, dipole and field files, the population histogram
 and the frozen-lattice OpenDX file) with the reference's file contract,
 for the uVT (one sorbate or a mixture), NVT, NPT and NVE ensembles.
 
-Not ported yet (NotImplementedError): path-integral and Gibbs runs,
-replicas and parallel tempering.
+``run_input_file`` dispatches an input file to this Simulation, to
+``mc.pi.PISimulation`` (path integrals) or to ``mc.gibbs.GibbsSimulation``.
+Not ported yet (NotImplementedError): replicas and parallel tempering.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from . import constants as const
+from .config.parser import read_config
 from .config.schema import SimConfig
 from .config.validate import validate
 from .io import histogram as hist_io
@@ -31,6 +33,7 @@ from .io import output as out_io
 from .io import pqr as pqr_io
 from .io import trajectory as traj_io
 from .mc import chain as chain_mod
+from .mc import moves
 from .mc.averages import AvgObservables, nodestats_from_counters
 from .mc.sorbate import SorbateTracker
 from .ops import delta as delta_mod
@@ -56,10 +59,6 @@ def _live(path: str) -> bool:
 def require_runner_options(cfg: SimConfig) -> None:
     """Raise NotImplementedError naming the first run option the port's
     Simulation has no path for."""
-    if cfg.ensemble == const.ENSEMBLE_PATH_INTEGRAL_NVT:
-        raise NotImplementedError("ensemble pi_nvt (path integrals)")
-    if cfg.ensemble == const.ENSEMBLE_NVT_GIBBS:
-        raise NotImplementedError("ensemble nvt_gibbs")
     if cfg.parallel_tempering:
         raise NotImplementedError("parallel_tempering (replicas)")
 
@@ -79,13 +78,9 @@ def apply_state_fixups(state, cfg: SimConfig):
 def capacity_opts(opts, flags, state):
     """Recompute the capacity-derived MCOptions fields after a state
     rebuild: blocked_energy and the polar-cache eligibility depend on the
-    atom-slot count.  The move window ``max_mol_atoms`` is the largest
-    molecule a move can touch, the largest movable species of a mixture:
-    frozen molecules never move.  (The twin takes the largest of all
-    molecules, the flagship's 512-atom framework, and then works every
-    move on a 512-row window whose 3 CO2 rows are the only valid ones.)"""
-    counts = np.bincount(_np(state.mol_id), minlength=state.n_mol_slots)
-    counts = counts[~_np(state.mol_frozen)]
+    atom-slot count; the move window ``max_mol_atoms`` is the largest
+    movable species of a mixture (``moves.movable_window``; the twin's is
+    the flagship's 512-atom framework)."""
     polar_incremental = pcache_mod.supports(flags, state.n_atom_slots,
                                             state.pos.device)
     incremental = delta_mod.supports(flags) or polar_incremental
@@ -96,7 +91,7 @@ def capacity_opts(opts, flags, state):
     return dataclasses.replace(
         opts, incremental=incremental,
         polar_incremental=polar_incremental, blocked_energy=blocked,
-        max_mol_atoms=int(counts.max()) if len(counts) else 1)
+        max_mol_atoms=moves.movable_window(state))
 
 
 def _movable_np(state):
@@ -462,3 +457,22 @@ class Simulation:
         if self.sorbates is not None:
             self.sorbates.display(
                 self.out, frozen_mass=float(self.carry.obs.frozen_mass))
+
+
+def make_simulation(cfg: SimConfig, quiet: bool = False, device="cuda"):
+    """The simulation of ``cfg``'s ensemble (runner.py:556-566): PISimulation
+    for pi_nvt, GibbsSimulation for nvt_gibbs, else Simulation."""
+    if cfg.ensemble == const.ENSEMBLE_PATH_INTEGRAL_NVT:
+        from .mc.pi import PISimulation
+        return PISimulation(cfg, quiet=quiet, device=device)
+    if cfg.ensemble == const.ENSEMBLE_NVT_GIBBS:
+        from .mc.gibbs import GibbsSimulation
+        return GibbsSimulation(cfg, quiet=quiet, device=device)
+    return Simulation(cfg, quiet=quiet, device=device)
+
+
+def run_input_file(path: str, quiet: bool = False, device="cuda"):
+    """Read ``path`` and run it; returns the averages (a list of the two
+    boxes' for Gibbs)."""
+    return make_simulation(read_config(path), quiet=quiet,
+                           device=device).run()

@@ -3,7 +3,8 @@ port's command line, as far as a machine without a GPU can exercise them:
 chip_smoke imports cleanly, refuses to run without CUDA or outside a
 checkout, and builds the flagship with the port; the CLI refuses to run
 without CUDA unless given ``--device cpu``, and then runs an input to its
-end; neither imports jax or the JAX package."""
+end, the Gibbs and PI examples included; neither imports jax or the JAX
+package."""
 
 import os
 import shutil
@@ -138,6 +139,40 @@ def test_cli_runs_on_cpu_without_jax(tmp_path):
     assert [float(r[0]) for r in rows] == [0.0, 2.0, 4.0]
     for name in ("tiny.restart.pqr", "tiny.final.pqr", "tiny.dipole.dat"):
         assert (tmp_path / name).stat().st_size > 0, name
+
+
+@pytest.mark.parametrize("name,args,outputs", [
+    ("gibbs-argon", [], ["ar_gibbs.energy-0000.dat",
+                         "ar_gibbs.energy-0001.dat",
+                         "ar_gibbs.final-0000.pqr",
+                         "ar_gibbs.final-0001.pqr"]),
+    ("pi-argon-dimer", ["-P", "4", "-xyz", "frames.xyz"],
+     ["ar2k.energy.dat", "frames.xyz"] +
+     [f"ar2k.{kind}-000{s}.pqr" for kind in ("restart", "final")
+      for s in range(4)])])
+def test_dispatched_example_runs_on_cpu_without_jax(name, args, outputs,
+                                                    tmp_path):
+    """``--device cpu`` runs the Gibbs and PI examples (4 steps) through
+    the CLI's dispatch with jax and the JAX package made unimportable,
+    and writes the per-box or per-bead files."""
+    d = tmp_path / name
+    shutil.copytree(os.path.join(ROOT, "examples", name), d)
+    run_in = (d / "run.in").read_text()
+    for key, value in (("numsteps", 4), ("corrtime", 2)):
+        run_in = "\n".join(f"{key} {value}" if ln.startswith(key + " ")
+                           else ln for ln in run_in.splitlines())
+    (d / "run.in").write_text(run_in + "\n")
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mpmcxx_tpu'] = None\n"
+        "from mpmcxx_tpu_torch import cli\n"
+        f"sys.exit(cli.main(['--device', 'cpu'] + {args!r} + ['run.in']))\n")
+    r = _run(["-c", code], d)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.splitlines()[-1] == "SIM_CONTROL: Simulation complete!"
+    for out in outputs:
+        assert (d / out).stat().st_size > 0, out
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):

@@ -13,6 +13,8 @@ package and the port on the same inputs.
   recompute of every proposal).  The same move and accept sequence; N,
   volume and energies within 1e-9 relative, 1e-6 where the f32 SCF
   planes carry the polarization.
+- NVT with simulated annealing, linear and geometric: the temperature
+  after each chunk equal to the JAX chain's (1e-12).
 - The draws of the volume move and of the mixture's insertion species,
   key for key as the JAX chain's."""
 
@@ -145,7 +147,16 @@ def _case(system, chain, case):
                                  volume_probability=0.2,
                                  volume_change_factor=0.25)),
           "nvt_f64": (dict(polar_mixed=False),
-                      dict(ensemble=const.ENSEMBLE_NVT))}[case]
+                      dict(ensemble=const.ENSEMBLE_NVT)),
+          "nvt_anneal_linear": (lj, dict(
+              ensemble=const.ENSEMBLE_NVT, simulated_annealing=True,
+              simulated_annealing_linear=True,
+              simulated_annealing_target=100.0, numsteps=CHUNK * N_CHUNKS)),
+          "nvt_anneal_geometric": (lj, dict(
+              ensemble=const.ENSEMBLE_NVT, simulated_annealing=True,
+              simulated_annealing_schedule=0.98,
+              simulated_annealing_target=100.0,
+              numsteps=CHUNK * N_CHUNKS))}[case]
     flags = flags.replace(**kw[0])
     polar_cache = flags.polarization and flags.polar_mixed
     opts = dataclasses.replace(
@@ -169,14 +180,16 @@ def _run(chain, topology, system):
         carry = refresher(carry)
         per_chunk.append((inc, float(carry.obs.energy), float(carry.obs.N),
                           float(carry.obs.volume),
-                          float(carry.obs.kinetic_energy)))
+                          float(carry.obs.kinetic_energy),
+                          float(carry.temperature)))
         movetype += [int(m) for m in np.asarray(outs.movetype)]
         accepted += [bool(a) for a in np.asarray(outs.accepted)]
     return carry, per_chunk, movetype, accepted
 
 
 @pytest.mark.parametrize("case", ["nvt", "nve", "npt", "npt_cache",
-                                  "nvt_f64"])
+                                  "nvt_f64", "nvt_anneal_linear",
+                                  "nvt_anneal_geometric"])
 def test_chain_matches_jax(case):
     rj = _run(chain_j, topology_j, _case(co2.jax_system(), chain_j, case))
     rt = _run(chain_t, topology_t, _case(co2.torch_system(), chain_t, case))
@@ -198,6 +211,17 @@ def test_chain_matches_jax(case):
                                   np.asarray(cj.stats.reject))
     np.testing.assert_allclose(ct.state.pos.numpy(), np.asarray(cj.state.pos),
                                rtol=0, atol=1e-9)
+    T0 = float(_case(co2.torch_system(), chain_t, case)[2].temperature)
+    if case.startswith("nvt_anneal"):
+        # simulated annealing: the temperature falls toward the target on
+        # accepts; the linear schedule lands on it at the last step
+        assert [r[5] for r in et] == pytest.approx([r[5] for r in ej],
+                                                   rel=1e-12)
+        assert 100.0 <= et[-1][5] < et[0][5] < T0
+        if case.endswith("linear"):
+            assert et[-1][5] == 100.0
+    else:
+        assert all(r[5] == T0 for r in et)
     if case == "nve":
         # the kinetic energy is the fixed total less the potential
         assert et[-1][4] == pytest.approx(-2000.0 - et[-1][1], rel=1e-12)
@@ -252,19 +276,25 @@ def test_cavity_bias_outside_uvt_raises():
             topology=topology_t(state))
 
 
-@pytest.mark.parametrize("name,match", [("gibbs-argon", "nvt_gibbs"),
-                                        ("pi-argon-dimer", "path-integral")])
-def test_unported_examples_raise(name, match, tmp_path):
-    """The two examples outside this port's ensembles raise through the
-    CLI, naming what is missing."""
+@pytest.mark.parametrize("name,extra,args,match", [
+    ("gibbs-argon", "quantum_rotation on\n", [], "quantum_rotation"),
+    ("pi-argon-dimer", "quantum_rotation on\n", ["-P", "8"],
+     "quantum_rotation"),
+    ("nvt-argon", "", ["--replicas", "2"], "replicas")])
+def test_unported_examples_raise(name, extra, args, match, tmp_path):
+    """What the port has no path for raises through the CLI and names
+    itself: quantum rotation (spin flips) in Gibbs and PI runs, and
+    replica chains."""
     from mpmcxx_tpu_torch import cli
     from test_examples import EXAMPLES
     d = tmp_path / name
     shutil.copytree(os.path.join(EXAMPLES, name), d)
+    with open(d / "run.in", "a") as f:
+        f.write(extra)
     cwd = os.getcwd()
     os.chdir(d)
     try:
         with pytest.raises(NotImplementedError, match=match):
-            cli.run(["--device", "cpu", "--quiet", "run.in"])
+            cli.run(["--device", "cpu", "--quiet"] + args + ["run.in"])
     finally:
         os.chdir(cwd)
