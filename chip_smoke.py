@@ -116,8 +116,31 @@ its hand-written kernels, and check the results.
    >= 5 %, no K1-K5 launch; moves/s, synchronizing calls, kernel
    launches and device time per move, the device's idle share, one
    corrtime's restart-write time.
-15. Prints ``{"kernels": [...]}`` (per kernel: the sum over the main paths
-   of steps 3, 5-14 of its launches, each path counted from 0, and
+15. The H2 flagship (10,752 slots, the polar cache, the default
+   schedule: K5 and K2) at 77 K with Feynman-Hibbs order 4 (the LJ and
+   Ewald corrections), its main path as in step 3 but for the golden
+   (the reference's is without FH at 150 K); before it the initial
+   blocked rd on the card within 1e-9 relative of the port's on the CPU,
+   after it the kernel launches per move over a few moves with FH on
+   and off; moves/s and K5/K2 launches per move beside step 6's.
+16. The pairwise terms one at a time on step 9's LJ-only CLI state
+   (19,712 slots, uVT, the incremental path): Waldman-Hagler, Halgren,
+   C6 and the 9th-power and sigma repulsions (omega set), buffered 14-7,
+   DREIDING, Silvera-Goldman, the dispersion expansion (Tang-Toennies
+   damping, extrapolated C10; per-type PHAST2 parameters), Buckingham
+   repulsion, Wolf, rd_only and the cavity_autoreject checks.  Each:
+   Delta-E of a displacement, an insertion and a removal within 1e-9
+   (of the component's energy) of the difference of two blocked
+   recomputes on the card; a 32-move chunk whose carried energies are
+   within 1e-8 of a refresh; no K1-K5 launch; moves/s.
+17. 512 argon-like atoms at 0.0213 A^-3 in NVT, 16 moves each (a dense
+   recompute per move): Axilrod-Teller with the Midzuno-Kihara C9, and
+   the many-body vdW term (float64 eigenvalues) with Buckingham
+   repulsion.  The initial energy on the card within 1e-9 relative of
+   the port's on the CPU; finite energies; accepted moves; no K1-K5
+   launch; ms per move and the peak device memory.
+18. Prints ``{"kernels": [...]}`` (per kernel: the sum over the main paths
+   of steps 3, 5-17 of its launches, each path counted from 0, and
    the count of each path; the time, plain time and bound at the shapes
    of step 4 for K2, K3 and K5, step 6 for K4 and step 7 for K1; the
    worst error of the checks), the card's name and power limit, and,
@@ -205,6 +228,46 @@ VLE_PROBE, PI_PROBE = 10, 4
 PI_H2 = dict(n=512, L=28.01, T=25.0, eps=34.2, sig=2.96, mass=2.016,
              beads=16, moves=64, chain=4, perturb=0.5, move_factor=0.02,
              seed=21)
+# step 15: the H2 flagship at 77 K (the BSSP-style H2 isotherm point)
+# with Feynman-Hibbs order 4; the launch probe's moves, FH on and off
+FH_TEMPERATURE = 77.0
+FH_PROBE = 4
+# step 16: the pairwise terms one at a time on the LJ-only CLI state.
+# Per type (the flagship PQR's Fw, CC, OC): omega and C6/C8/C10 in atomic
+# units; the PHAST2 form's Born-Mayer radius (sigma, A) and exponent
+# (epsilon, 1/A); Buckingham's C (sigma, K) and rho (epsilon, A).  They
+# feed consistency gates, not physics.
+PW_SITE = {"Fw": dict(omega=1.10, c6=25.0, c8=600.0, c10=1.5e4),
+           "CC": dict(omega=0.90, c6=15.0, c8=350.0, c10=9.0e3),
+           "OC": dict(omega=0.80, c6=11.0, c8=230.0, c10=6.0e3)}
+PW_PHAST2 = {"Fw": (3.40, 3.2), "CC": (3.10, 3.6), "OC": (2.95, 3.9)}
+PW_BUCK = {"Fw": (4.0e5, 0.28), "CC": (3.0e5, 0.25), "OC": (2.5e5, 0.24)}
+PW_SETTINGS = {   # FFlags changes, per-type (sigma, epsilon) or None
+    "waldmanhagler": (dict(waldmanhagler=True), None),
+    "halgren": (dict(halgren_mixing=True), None),
+    "c6_mixing": (dict(c6_mixing=True), None),
+    "lj_9th": (dict(cdvdw_9th_repulsion=True), None),
+    "sig_repulsion": (dict(cdvdw_sig_repulsion=True), None),
+    "buffered_14_7": (dict(using_lj_buffered_14_7=True), None),
+    "dreiding": (dict(use_dreiding=True), None),
+    "sg": (dict(use_sg=True), None),
+    "disp_expansion": (dict(using_disp_expansion=True, damp_dispersion=True,
+                            extrapolate_disp_coeffs=True), PW_PHAST2),
+    "exp_repulsion": (dict(cdvdw_exp_repulsion=True), PW_BUCK),
+    "wolf": (dict(wolf=True), None),
+    "rd_only": (dict(rd_only=True), None),
+    "cavity_absolute": (dict(cavity_autoreject_absolute=True,
+                             cavity_autoreject=True), None),
+}
+PW_CAVITY_SCALE = 1.0    # A: the absolute check's largest valid scale
+PW_MOVES = 32
+# step 17: 512 argon-like atoms at 0.0213 A^-3 (liquid argon near 90 K),
+# L = 28.87 A: alpha (A^3), omega and C6 (a.u.) of argon; LJ for the
+# Axilrod-Teller run, Buckingham C (K) and rho (A) for the many-body vdW
+# one (its repulsion); 16 NVT moves of each, every one a dense recompute
+MB = dict(n=512, density=0.0213, T=90.0, mass=39.948, alpha=1.6411,
+          omega=0.70, c6=64.3, eps=119.8, sig=3.405, buck=(6.8e6, 0.16),
+          polar_damp=2.1304, moves=16, move_factor=0.02, seed=7)
 SYNTH_A = 4096
 RAGGED_A = 4001          # A % 4 != 0: no TMA tensor map (16-byte rows)
 SYM_SYNTH_A = (4096, 4032)   # K5's 64-row tiles: nr = 64 (even), 63 (odd)
@@ -1931,6 +1994,285 @@ basis3 0 0 {h['L']}
         log["writes"][0]
 
 
+def to_device(state, device):
+    """A copy of ``state`` on ``device``."""
+    from mpmcxx_tpu_torch.pbc import PBC
+    fields = {f.name: getattr(state, f.name).to(device)
+              for f in dataclasses.fields(state) if f.name != "pbc"}
+    pbc = PBC(**{f.name: getattr(state.pbc, f.name).to(device)
+                 for f in dataclasses.fields(PBC)})
+    return dataclasses.replace(state, pbc=pbc, **fields)
+
+
+def run_h2_fh4(state, flags, params, opts, root, card, fh_off):
+    """Step 15: the H2 flagship (the default schedule: K5 and K2) at
+    FH_TEMPERATURE with Feynman-Hibbs order 4, through
+    ``run_flagship_chain`` (2 chunks of CHUNK moves; the carried rd and
+    coulombic within 1e-8 and polarization within 1e-5 of a refresh, the
+    planes those of a rebuild, K5 >= 4 and K2 >= 1 per move).  Before
+    it, the initial blocked rd on the card against the port's on the CPU
+    at the same state (1e-9 relative; both with rd_only: rd reads
+    neither the SCF nor the electrostatics).  After it, kernel launches
+    per move over FH_PROBE moves with FH on and off.  ``fh_off`` is step
+    6's (launches, moves/s) of the H2 flagship without FH.  Returns
+    (launches, moves/s)."""
+    import torch
+    from mpmcxx_tpu_torch.mc import chain
+    from mpmcxx_tpu_torch.ops.energy import energy_breakdown_blocked
+    from mpmcxx_tpu_torch.state import topology
+    fh = flags.replace(feynman_hibbs=True, feynman_hibbs_order=4)
+    fh_params = params.replace(temperature=FH_TEMPERATURE)
+    # rd alone: it reads neither the SCF nor the electrostatics, which
+    # would take most of the CPU's time
+    no_scf = fh.replace(polarization=False, rd_only=True)
+    card_rd = float(energy_breakdown_blocked(state, no_scf, fh_params).rd)
+    t0 = time.time()
+    cpu_rd = float(energy_breakdown_blocked(to_device(state, "cpu"), no_scf,
+                                            fh_params).rd)
+    rel, ok = _close(card_rd, cpu_rd, 1e-9)
+    _say(f"[h2-fh4] initial blocked rd (FH4, {FH_TEMPERATURE:g} K): card "
+         f"{card_rd:.9f} vs CPU {cpu_rd:.9f}: rel {rel:.2e} (tol 1e-09; "
+         f"CPU {time.time() - t0:.1f} s)")
+    if not ok:
+        raise AssertionError(f"[h2-fh4] card vs CPU blocked rd rel {rel}")
+    launches, rate, carry = run_flagship_chain(
+        "h2", state, fh, fh_params, opts, root, card, "contract_planes_sym",
+        label="h2-fh4")
+    per_move = {}
+    for name, f in (("FH4", fh), ("no FH", flags)):
+        runner = chain.make_chunk_runner(f, fh_params, opts, FH_PROBE,
+                                         topology=topology(carry.state))
+        _, n, _, what = count_launches(lambda: runner(carry))
+        per_move[name] = n / FH_PROBE
+    n_moves = 2 * CHUNK
+    off_launches, off_rate = fh_off
+    _say(f"[h2-fh4] {rate:.2f} moves/s (second chunk) on {card}; "
+         f"K5 {launches['contract_planes_sym'] / n_moves:.2f} and K2 "
+         f"{launches['write_plane_strips'] / n_moves:.2f} launches per move; "
+         f"kernel launches per move ({what}, {FH_PROBE} moves): FH4 "
+         f"{per_move['FH4']:.1f}, without FH {per_move['no FH']:.1f}; "
+         f"step 6's H2 without FH (K4 schedule, {params.temperature:g} K): "
+         f"{off_rate:.2f} moves/s, K4 "
+         f"{off_launches['contract_planes_tri'] / n_moves:.2f} and K2 "
+         f"{off_launches['write_plane_strips'] / n_moves:.2f} per move")
+    return launches, rate
+
+
+def pairwise_state(pqr, device, se):
+    """The LJ-only CLI state (cli_flagship_state's 19,712 slots) with
+    PW_SITE's omega and C6/C8/C10 on every atom and, where ``se`` is
+    given, its per-type (sigma, epsilon)."""
+    from mpmcxx_tpu_torch.io.pqr import read_pqr
+    from mpmcxx_tpu_torch.state import build_state
+    atoms = read_pqr(pqr)
+    for a in atoms:
+        for k, v in PW_SITE[a.atomtype].items():
+            setattr(a, k, v)
+        if se is not None:
+            a.sigma, a.epsilon = se[a.atomtype]
+    n_mov = len({a.molecule_id for a in atoms if not a.frozen})
+    return build_state(atoms, np.eye(3) * 80.0,
+                       extra_mol_capacity=max(n_mov, 32), device=device)[0]
+
+
+def run_pairwise_terms(workdir, device="cuda"):
+    """Step 16: each setting of PW_SETTINGS on the LJ-only CO2 CLI state
+    (19,712 slots, uVT, the incremental path, blocked recomputes).  Per
+    setting: Delta-E of a displacement, an insertion and a removal of
+    molecule slot 1 against the difference of two blocked recomputes on
+    the card (rd and coulombic, within 1e-9 of the component's energy);
+    one PW_MOVES chunk whose carried rd and coulombic are within 1e-8 of
+    a refresh; finite energies; no K1-K5 launch.  Returns (the summed
+    launch counts, moves/s per setting)."""
+    import torch
+    import flagship
+    from mpmcxx_tpu_torch import constants as const
+    from mpmcxx_tpu_torch.flags import FFlags, RunParams
+    from mpmcxx_tpu_torch.mc import chain, moves
+    from mpmcxx_tpu_torch.mc.chain import MCOptions
+    from mpmcxx_tpu_torch.ops import delta
+    from mpmcxx_tpu_torch.ops.energy import energy_breakdown_blocked
+    from mpmcxx_tpu_torch.state import topology
+    pqr = os.path.join(workdir, "flagship_co2.pqr")
+    flagship.write_pqr_co2(pqr)
+    states = {}
+    base = FFlags()
+    params = RunParams(temperature=150.0, ewald_alpha=3.5 / 40.0,
+                       cavity_autoreject_scale=PW_CAVITY_SCALE)
+    opts = MCOptions(ensemble=const.ENSEMBLE_UVT, move_factor=0.5,
+                     insert_probability=0.2, fugacity=1.0, incremental=True,
+                     max_mol_atoms=3, blocked_energy=True)
+    total = dict.fromkeys(_wrappers(), 0)
+    rates = {}
+    t_step = time.time()
+    for name, (fkw, se) in PW_SETTINGS.items():
+        key = id(se)
+        if key not in states:
+            states[key] = pairwise_state(pqr, device, se)
+        s0 = states[key]
+        flags = base.replace(**fkw)
+        topo = topology(s0)
+        mol = torch.ones((), dtype=torch.int64, device=device)
+        rows = moves.molecule_rows(
+            *(torch.as_tensor(t, device=device) for t in topo), mol, 3)
+        g = torch.Generator().manual_seed(3)
+        u = torch.rand(10, generator=g, dtype=torch.float64).to(device)
+        s_disp = moves.displace_rows(s0, u[:6], u[6:9] - 0.5, u[9], rows,
+                                     rows >= 0, 0.05, 1.0)
+        s_dead = moves.remove(s0, mol)
+        zero_launches()
+        carry = chain.init_carry(s0, flags, params, opts, seed=0)
+        # the initial state's blocked recompute is init_carry's
+        full = {"s0": dict(rd=carry.obs.rd_energy,
+                           coulombic=carry.obs.coulombic_energy)}
+        for k, s in (("disp", s_disp), ("dead", s_dead)):
+            eb = energy_breakdown_blocked(s, flags, params)
+            full[k] = dict(rd=eb.rd, coulombic=eb.coulombic)
+        worst = 0.0
+        for move, old, new in (("displace", "s0", "disp"),
+                               ("insert", "dead", "s0"),
+                               ("remove", "s0", "dead")):
+            so = {"s0": s0, "disp": s_disp, "dead": s_dead}
+            sf = delta.sf_compute(so[old], flags, params) \
+                if delta.uses_recip(flags) else delta.empty_sf(device)
+            d = delta.delta_energy(so[old], so[new], rows, sf, flags, params)
+            for comp, got in (("rd", d.d_rd), ("coulombic", d.d_coul)):
+                want = float(full[new][comp]) - float(full[old][comp])
+                scale = abs(float(full[old][comp]))
+                err = abs(float(got) - want)
+                worst = max(worst, err / scale if scale else err)
+                if not (np.isfinite(float(got)) and err <= 1e-9 * scale):
+                    raise AssertionError(
+                        f"[pairwise {name}] {move} d_{comp} {float(got)!r} "
+                        f"vs blocked difference {want!r}")
+        runner = chain.make_chunk_runner(flags, params, opts, PW_MOVES,
+                                         topology=topo)
+        refresh = chain.make_refresher(flags, params, opts)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        carry, outs = runner(carry)
+        torch.cuda.synchronize()
+        rates[name] = PW_MOVES / (time.time() - t0)
+        inc = (float(carry.obs.rd_energy), float(carry.obs.coulombic_energy))
+        carry = refresh(carry)
+        ref = (float(carry.obs.rd_energy), float(carry.obs.coulombic_energy))
+        carried = 0.0
+        for comp, a, b in zip(("rd", "coulombic"), inc, ref):
+            rel, ok = _close(a, b, 1e-8)
+            carried = max(carried, rel)
+            if not (ok and np.isfinite(a)):
+                raise AssertionError(f"[pairwise {name}] carried {comp} "
+                                     f"{a!r} vs refresh {b!r}: rel {rel}")
+        n = launches_now()
+        if any(n.values()):
+            raise AssertionError(f"[pairwise {name}] kernels launched: {n}")
+        for k in total:
+            total[k] += n[k]
+        _say(f"[pairwise {name}] Delta-E vs blocked difference: worst "
+             f"{worst:.2e} of the component (tol 1e-09); {PW_MOVES} moves "
+             f"at {rates[name]:.2f} moves/s, "
+             f"{int(outs.accepted.sum())} accepted; carried vs refresh rel "
+             f"{carried:.2e} (tol 1e-08)")
+    _say(f"step 16 (pairwise terms, {len(PW_SETTINGS)} settings at "
+         f"{states[id(None)].n_atom_slots} slots) took "
+         f"{time.time() - t_step:.1f} s")
+    return total, rates
+
+
+def manybody_state(device, buck):
+    """MB's argon-like fluid: n atoms on a jittered cubic lattice of the
+    box (seeded), LJ or, with ``buck``, Buckingham parameters."""
+    from mpmcxx_tpu_torch.state import AtomRecord, build_state
+    n, L = MB["n"], (MB["n"] / MB["density"]) ** (1.0 / 3.0)
+    g = int(round(n ** (1 / 3)))
+    rng = np.random.default_rng(MB["seed"])
+    pts = (np.stack(np.meshgrid(*[np.arange(g)] * 3, indexing="ij"),
+                    -1).reshape(-1, 3) + 0.5) * (L / g) - L / 2
+    pts = pts + rng.uniform(-0.05, 0.05, pts.shape)
+    sig, eps = MB["buck"] if buck else (MB["sig"], MB["eps"])
+    atoms = [AtomRecord("Ar", "ARG", m + 1, x=x, y=y, z=z, mass=MB["mass"],
+                        polarizability=MB["alpha"], omega=MB["omega"],
+                        c6=MB["c6"], epsilon=eps, sigma=sig)
+             for m, (x, y, z) in enumerate(pts)]
+    return build_state(atoms, np.eye(3) * L, device=device)[0], L
+
+
+def run_many_body(device="cuda"):
+    """Step 17: MB's fluid in NVT with (i) Axilrod-Teller (Midzuno-Kihara
+    C9) and (ii) the many-body vdW term with Buckingham repulsion, each
+    MB["moves"] moves on the dense full recompute that
+    ``runner.capacity_opts`` picks for them.  Gates: the initial energy on
+    the card within 1e-9 relative of the port's on the CPU (each
+    component); finite energies; accepted moves; no K1-K5 launch.
+    Returns (the summed launch counts, ms per move of each setting)."""
+    import torch
+    from mpmcxx_tpu_torch import constants as const
+    from mpmcxx_tpu_torch import runner as runner_mod
+    from mpmcxx_tpu_torch.flags import FFlags, RunParams
+    from mpmcxx_tpu_torch.mc import chain
+    from mpmcxx_tpu_torch.mc.chain import MCOptions
+    from mpmcxx_tpu_torch.ops.energy import energy_breakdown
+    from mpmcxx_tpu_torch.state import topology
+    total = dict.fromkeys(_wrappers(), 0)
+    ms = {}
+    for name, fkw, buck in (
+            ("axilrod_teller", dict(using_axilrod_teller=True,
+                                    midzuno_kihara_approx=True), False),
+            ("polarvdw_exp", dict(polarvdw=True, cdvdw_exp_repulsion=True),
+             True)):
+        state, L = manybody_state(device, buck)
+        flags = FFlags(**fkw)
+        params = RunParams(temperature=MB["T"], ewald_alpha=3.5 / (L / 2),
+                           polar_damp=MB["polar_damp"])
+        opts = runner_mod.capacity_opts(
+            MCOptions(ensemble=const.ENSEMBLE_NVT,
+                      move_factor=MB["move_factor"]), flags, state)
+        if opts.incremental or opts.blocked_energy:
+            raise AssertionError(f"[{name}] not on the dense path: {opts}")
+        t0 = time.time()
+        cpu = energy_breakdown(to_device(state, "cpu"), flags, params)
+        t_cpu = time.time() - t0
+        card = energy_breakdown(state, flags, params)
+        worst = 0.0
+        for comp in ("total", "rd", "vdw", "three_body"):
+            rel, ok = _close(float(getattr(card, comp)),
+                             float(getattr(cpu, comp)), 1e-9)
+            worst = max(worst, rel)
+            if not ok:
+                raise AssertionError(f"[{name}] initial {comp} card vs CPU "
+                                     f"rel {rel}")
+        _say(f"[{name}] {MB['n']} atoms, L = {L:.3f} A: initial E = "
+             f"{float(card.total):.6f} K (rd {float(card.rd):.6f}, vdw "
+             f"{float(card.vdw):.6f}, 3-body {float(card.three_body):.6f}); "
+             f"card vs CPU rel {worst:.2e} (tol 1e-09; CPU {t_cpu:.1f} s)")
+        zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        carry = chain.init_carry(state, flags, params, opts, seed=0)
+        runner = chain.make_chunk_runner(flags, params, opts, MB["moves"],
+                                         topology=topology(state))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        carry, outs = runner(carry)
+        torch.cuda.synchronize()
+        ms[name] = (time.time() - t0) * 1e3 / MB["moves"]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n_acc = int(outs.accepted.sum())
+        energies = [float(getattr(carry.obs, f)) for f in (
+            "energy", "rd_energy", "vdw_energy", "three_body_energy")]
+        if not (np.all(np.isfinite(energies)) and n_acc > 0):
+            raise AssertionError(f"[{name}] energies {energies}, {n_acc} "
+                                 "accepted")
+        n = launches_now()
+        if any(n.values()):
+            raise AssertionError(f"[{name}] kernels launched: {n}")
+        for k in total:
+            total[k] += n[k]
+        _say(f"[{name}] {MB['moves']} NVT moves, {n_acc} accepted: "
+             f"{ms[name]:.1f} ms per move (dense recompute); E = "
+             f"{energies[0]:.6f} K; peak device memory {peak:.2f} GB")
+    return total, ms
+
+
 def ptxas_report(log):
     """Per kernel of nvcc's build log: its registers, barriers and shared
     memory ("Used ...") and its stack and spills, named by the kernel's
@@ -2139,6 +2481,29 @@ def main() -> int:
     _say(f"steps 12-14 (the Gibbs and PI phases) took "
          f"{time.time() - t_gibbs_pi:.1f} s")
 
+    # --- 15. the H2 flagship at 77 K with Feynman-Hibbs order 4 ----------
+    t_terms = time.time()
+    state, _, flags, params, opts = build_flagship("h2", device)
+    with schedule():
+        launches["h2-fh4"], rates["h2-fh4"] = run_h2_fh4(
+            state, flags, params, opts, root, card,
+            (launches["h2"], rates["h2"]))
+    del state
+    flush()
+    _say(f"step 15 took {time.time() - t_terms:.1f} s")
+
+    # --- 16. the pairwise terms at 19,712 slots, one at a time -----------
+    with tempfile.TemporaryDirectory() as workdir:
+        launches["pairwise"], pw_rates = run_pairwise_terms(workdir)
+    flush()
+
+    # --- 17. the dense many-body terms at 512 atoms ------------------------
+    t0 = time.time()
+    launches["many-body"], mb_ms = run_many_body()
+    flush()
+    _say(f"step 17 took {time.time() - t0:.1f} s; steps 15-17 "
+         f"{time.time() - t_terms:.1f} s")
+
     _say(f"second-chunk moves/s on {card}: " + ", ".join(
         f"{m} {r:.2f}" for m, r in rates.items()) +
         f"; examples' chunk steps/s: " + ", ".join(
@@ -2148,7 +2513,11 @@ def main() -> int:
         f"launches per step, device idle {vle_idle:.1%}; PI H2 "
         f"{pi_syncs:.3f} syncs and {pi_launch:.1f} launches per move, "
         f"device idle {pi_idle:.1%}, restart writes {pi_write_s:.3f} s per "
-        f"corrtime; whole check "
+        f"corrtime; pairwise terms (moves/s): " + ", ".join(
+            f"{m} {r:.1f}" for m, r in pw_rates.items()) +
+        f"; many-body terms (ms per move): " + ", ".join(
+            f"{m} {r:.1f}" for m, r in mb_ms.items()) +
+        f"; whole check "
         f"{time.time() - t_start:.1f} s after the card query")
     k5_all = dict(k5_cli, max_abs_err=max(k5["max_abs_err"],
                                           k5_cli["max_abs_err"]))

@@ -128,20 +128,35 @@ class RunParams:
 
 
 # FFlags fields the port may take at a value other than the default, and
-# the values it takes there: LJ (Lorentz-Berthelot) + Ewald, with or
-# without an exponential-damped Thole SCF (Ewald static field, a fixed
-# Jacobi iteration count) on float32 planes (polar_mixed) or in float64.
-_PORTED = {
-    "polarization": (False, True),
-    "polar_mixed": (False, True),
-    "polar_sor": (False, True),
-    "polar_esor": (False, True),
-}
+# the values it takes there: every repulsion-dispersion form, mixing rule,
+# many-body term and electrostatics variant of the twin's ops/energy.py
+# but the anharmonic oscillator, GWP and SPECTRE; an exponential-damped
+# Thole SCF (Ewald static field, a fixed Jacobi iteration count) on
+# float32 planes (polar_mixed) or in float64.
+_BOTH = (False, True)
+_PORTED = {name: _BOTH for name in (
+    "polarization", "polar_mixed", "polar_sor", "polar_esor",
+    "rd_only", "use_sg", "use_dreiding", "using_lj_buffered_14_7",
+    "using_disp_expansion", "cdvdw_exp_repulsion", "using_axilrod_teller",
+    "rd_crystal", "feynman_hibbs", "waldmanhagler", "halgren_mixing",
+    "cdvdw_9th_repulsion", "cdvdw_sig_repulsion", "c6_mixing",
+    "disp_expansion_mbvdw", "extrapolate_disp_coeffs", "schmidt_ff",
+    "damp_dispersion", "midzuno_kihara_approx", "wolf", "polarvdw",
+    "vdw_fh_2be", "cavity_autoreject", "cavity_autoreject_absolute")}
+# integer options read only under a ported switch, at any value
+_ANY = frozenset(["ewald_kmax", "rd_lrc", "rd_crystal_order",
+                  "feynman_hibbs_order"])
 # with polarization on, the SCF branch these select
 _PORTED_POLAR = {
     "polar_iterative": (True,),
     "polar_ewald": (True,),
     "damp_type": (const.DAMPING_EXPONENTIAL,),
+}
+# the Thole tensor's branch: read by the SCF and by the many-body vdW
+# term's A matrix (polarvdw, disp_expansion_mbvdw) with polarization off
+_PORTED_TENSOR = {
+    "damp_type": (const.DAMPING_EXPONENTIAL,),
+    "polar_wolf_full": (False,),
 }
 # fields read only by the SCF: with polarization off no code reads them
 _POLAR_ONLY = frozenset(
@@ -149,13 +164,32 @@ _POLAR_ONLY = frozenset(
     + ["damp_type"])
 
 
+def dense_only(flags: FFlags) -> bool:
+    """Whether a term of the energy is not pairwise, so that only the
+    dense full recompute computes it: the many-body vdW term (polarvdw,
+    and disp_expansion_mbvdw's coupling of it into rd), Axilrod-Teller,
+    the crystal sums, and the GWP, SPECTRE and anharmonic branches.  The
+    twin's list (delta.py:39-44) lacks disp_expansion_mbvdw, so its
+    incremental and row-tiled paths drop that coupling silently; the
+    port keeps it on the dense path."""
+    return (flags.polarvdw or flags.using_axilrod_teller or
+            flags.rd_crystal or flags.gwp or flags.spectre or
+            flags.rd_anharmonic or
+            (flags.using_disp_expansion and flags.disp_expansion_mbvdw))
+
+
 def require_supported(flags: FFlags, params: RunParams) -> None:
     """Raise NotImplementedError naming the first flag whose branch the
     port does not have yet; never run a different branch silently."""
     default = FFlags()
+    amatrix = flags.polarvdw or (flags.using_disp_expansion and
+                                 flags.disp_expansion_mbvdw)
     for f in dataclasses.fields(FFlags):
         v = getattr(flags, f.name)
-        if f.name in _POLAR_ONLY and not flags.polarization:
+        if f.name in _PORTED_TENSOR and amatrix and \
+                v not in _PORTED_TENSOR[f.name]:
+            ok = False
+        elif f.name in _POLAR_ONLY and not flags.polarization:
             ok = True
         elif f.name in _PORTED:
             ok = v in _PORTED[f.name]
@@ -163,7 +197,7 @@ def require_supported(flags: FFlags, params: RunParams) -> None:
             ok = v in _PORTED_POLAR[f.name]
         elif f.name == "polar_max_iter":
             ok = 1 <= v <= 16          # fixed-K Jacobi (polar.py:412-426)
-        elif f.name in ("ewald_kmax", "rd_lrc"):
+        elif f.name in _ANY:
             ok = True
         else:
             ok = v == getattr(default, f.name)

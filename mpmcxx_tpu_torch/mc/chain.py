@@ -5,9 +5,13 @@ mixture, with or without cavity-biased insertion), NVT, NPT and NVE
 (``make_step_fn``, chain.py:351-693), with or without simulated
 annealing, each on the evaluation branch the runner selects: the
 incremental polarization cache with incremental
-Delta-E (polar_mixed), incremental LJ/Ewald Delta-E (no polarization), or
-a full recompute of every proposal (the float64 SCF); full recomputes are
-dense or in row blocks (``blocked_energy``).  Also ``init_carry``,
+Delta-E (polar_mixed), incremental pairwise Delta-E (no polarization), or
+a full recompute of every proposal (the float64 SCF, and the many-body
+and crystal-sum terms); full recomputes are dense or in row blocks
+(``blocked_energy``).  The incremental branches add the
+cavity_autoreject_absolute penalty of the moved rows, and under
+simulated annealing the Feynman-Hibbs terms read the chain's temperature
+(``_params_at``).  Also ``init_carry``,
 ``make_refresher``, ``accumulate_stats`` and ``make_chunk_runner``.  Any
 other option raises NotImplementedError naming it.
 
@@ -35,8 +39,9 @@ from .. import random as rnd
 from ..flags import FFlags, RunParams, require_supported
 from ..ops import delta as delta_mod
 from ..ops import polar_cache as pcache_mod
-from ..ops.energy import (EnergyBreakdown, energy_breakdown,
-                          energy_breakdown_blocked)
+from ..ops.energy import (EnergyBreakdown, cavity_absolute_check,
+                          energy_breakdown, energy_breakdown_blocked)
+from ..ops.pairwise import build_pairs_rect
 from ..pbc import PBC
 from ..state import Observables, SystemState
 from . import cavity as cavity_mod
@@ -271,6 +276,16 @@ def _select_cache(cache: pcache_mod.PolarCache, accept,
     return cache
 
 
+def _params_at(flags: FFlags, base_params: RunParams, opts: MCOptions):
+    """``params_at(T)``: the energy's RunParams at the chain temperature
+    ``T`` (the twin's replace(base_params, temperature=carry.temperature),
+    chain.py:355).  Only the Feynman-Hibbs terms read the temperature, and
+    it leaves the base value only under simulated annealing."""
+    if opts.simulated_annealing and flags.feynman_hibbs:
+        return lambda T: dataclasses.replace(base_params, temperature=T)
+    return lambda T: base_params
+
+
 def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
                  topology=None):
     """Build ``step(carry, draws, dart_u=None, volume=False) -> (carry,
@@ -281,7 +296,7 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
     require_options(flags, base_params, opts)
     if topology is None:
         raise NotImplementedError("topology=None (masked, non-window moves)")
-    params = base_params
+    params_at = _params_at(flags, base_params, opts)
     S = opts.max_mol_atoms
     uvt = opts.ensemble == const.ENSEMBLE_UVT
     with_cache = opts.incremental and opts.polar_incremental
@@ -402,6 +417,7 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
         state with its dipoles, SF cache, k-space energy, the polar
         cache's commit data or, after a volume move, its rebuild)."""
         state = carry.state
+        params = params_at(carry.temperature)
         if volume or not opts.incremental:
             eb, sf, recip, fresh = _full_recompute(new_state, flags, params,
                                                    opts)
@@ -414,13 +430,17 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
         rd = carry.obs.rd_energy + dres.d_rd
         coul = carry.obs.coulombic_energy + dres.d_coul
         z = torch.zeros_like(rd)
+        # the penalty of the moved rows' pairs (chain.py:460-466, 528)
+        pen = cavity_absolute_check(
+            new_state, build_pairs_rect(new_state, flags, rows), params) \
+            if flags.cavity_autoreject_absolute else z
         if not with_cache:
             eb = EnergyBreakdown(
                 total=rd + coul, rd=rd, coulombic=coul, polarization=z,
                 vdw=z, three_body=z, kinetic=z, mu=state.mu,
                 polarization_iterations=z,
                 iterator_failed=torch.zeros_like(z, dtype=torch.bool),
-                dipole_rrms=z, cavity_penalty=z)
+                dipole_rrms=z, cavity_penalty=pen)
             return eb, new_state, dres.sf_new, dres.recip_new, None
         # matrix-free proposal: the cached planes stay read-only here; the
         # commit writes them in place after the decision
@@ -432,7 +452,7 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
             polarization=pres.energy, vdw=z, three_body=z, kinetic=z,
             mu=pres.mu, polarization_iterations=pres.iterations,
             iterator_failed=pres.iterator_failed,
-            dipole_rrms=pres.dipole_rrms, cavity_penalty=z)
+            dipole_rrms=pres.dipole_rrms, cavity_penalty=pen)
         return (eb, new_state.replace(mu=pres.mu), dres.sf_new,
                 dres.recip_new, pcommit)
 
@@ -455,8 +475,8 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
             carry, new_state, rows, volume)
 
         final_energy = eb.total + eb.cavity_penalty
-        obs_after = observables_from_breakdown(new_state, eb, flags, params,
-                                               opts.ensemble)
+        obs_after = observables_from_breakdown(new_state, eb, flags,
+                                               base_params, opts.ensemble)
         delta = final_energy - carry.obs.energy
         t1 = target.reshape(1)
         pr = metropolis.spin_partfunc_ratio(
@@ -479,11 +499,13 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
                 float(opts.sorbate_count), biased, cavity[1], cavity_prior,
                 pr)
         elif opts.ensemble == const.ENSEMBLE_NPT:
-            bf = metropolis.npt_factor(movetype, delta, T, params.pressure,
+            bf = metropolis.npt_factor(movetype, delta, T,
+                                       base_params.pressure,
                                        state.pbc.volume,
                                        new_state.pbc.volume, obs_after.N)
         elif opts.ensemble == const.ENSEMBLE_NVE:
-            bf = metropolis.nve_factor(params.total_energy, carry.obs.energy,
+            bf = metropolis.nve_factor(base_params.total_energy,
+                                       carry.obs.energy,
                                        final_energy, obs_after.N)
         else:
             bf = metropolis.nvt_factor(movetype, delta, T, pr)
@@ -623,10 +645,11 @@ def make_refresher(flags: FFlags, base_params: RunParams, opts: MCOptions):
     polarization cache: the drift control of flag_all_pairs
     (src/System.cpp:1284-1297), run every corrtime."""
     require_options(flags, base_params, opts)
-    params = base_params
+    params_at = _params_at(flags, base_params, opts)
 
     def refresh(carry: MCCarry) -> MCCarry:
         state = carry.state
+        params = params_at(carry.temperature)
         eb, sf, recip_e, pcache = _full_recompute(state, flags, params, opts)
         cavity = carry.cavity
         if opts.cavity_bias:

@@ -9,11 +9,12 @@ pick_Gibbs_move src/System.MonteCarlo.cpp:509-714).  The two boxes may
 have different capacities, so the carry holds two states.
 
 Ported: displacements, transfers and the coupled volume exchange on the
-per-box incremental LJ/Ewald branch (a volume exchange recomputes both
-boxes) or the full-recompute branch (dense, or in row blocks above 1,024
-slots), the volume factor's deliberate deviation from the reference's
-law (README Fidelity) included.  Quantum rotation (spin flips) raises
-NotImplementedError.
+per-box incremental pairwise branch (any pairwise term of ops/energy,
+with the moved rows' cavity_autoreject_absolute penalty; a volume
+exchange recomputes both boxes) or the full-recompute branch (dense,
+or in row blocks above 1,024 slots), the volume factor's deliberate
+deviation from the reference's law (README Fidelity) included.
+Quantum rotation (spin flips) raises NotImplementedError.
 
 As in ``mc/chain.py`` the chunk is a host loop that never waits on the
 device.  Every draw of a step is a function of the carried key, so the
@@ -39,12 +40,13 @@ from .. import constants as const
 from .. import random as rnd
 from ..config.schema import SimConfig
 from ..config.validate import validate
-from ..flags import FFlags, RunParams, require_supported
+from ..flags import FFlags, RunParams, dense_only, require_supported
 from ..io import output as out_io
 from ..io import pqr as pqr_io
 from ..ops import delta as delta_mod
-from ..ops.energy import (EnergyBreakdown, energy_breakdown,
-                          energy_breakdown_blocked)
+from ..ops.energy import (EnergyBreakdown, cavity_absolute_check,
+                          energy_breakdown, energy_breakdown_blocked)
+from ..ops.pairwise import build_pairs_rect
 from ..pbc import PBC
 from ..runner import _live, _obs_to_dict
 from ..state import Observables, SystemState, build_state, topology
@@ -222,14 +224,16 @@ def make_gibbs_step(flags: FFlags, base_params: RunParams,
         if full:
             eb = full_energy(new, flags, params)
             rd, coul, pen = eb.rd, eb.coulombic, eb.cavity_penalty
-            sf_new = delta_mod.sf_compute(new, flags, params)
-            recip_new = delta_mod.recip_energy(sf_new, new, flags, params)
+            sf_new, recip_new = _recip_caches(new, flags, params, sf)
         else:
             dres = delta_mod.delta_energy(old, new, rows, sf, flags, params,
                                           recip_old=recip_old)
             rd = obs_prev.rd_energy + dres.d_rd
             coul = obs_prev.coulombic_energy + dres.d_coul
-            pen = torch.zeros_like(rd)
+            # the penalty of the moved rows' pairs (gibbs.py:181-187)
+            pen = cavity_absolute_check(
+                new, build_pairs_rect(new, flags, rows), params) \
+                if flags.cavity_autoreject_absolute else torch.zeros_like(rd)
             sf_new, recip_new = dres.sf_new, dres.recip_new
         z = torch.zeros_like(rd)
         eb = EnergyBreakdown(
@@ -391,11 +395,20 @@ def _box_energy(state, flags, params, opts: GibbsOptions, sf):
     obs = chain_mod.observables_from_breakdown(
         state, eb, flags, params, const.ENSEMBLE_NVT_GIBBS)
     if opts.incremental:
-        sf = delta_mod.sf_compute(state, flags, params)
-        recip = delta_mod.recip_energy(sf, state, flags, params)
+        sf, recip = _recip_caches(state, flags, params, sf)
     else:
         recip = torch.zeros_like(eb.total)
     return eb.total + eb.cavity_penalty, obs, sf, recip
+
+
+def _recip_caches(state, flags, params, sf):
+    """(SF cache, k-space energy) of ``state`` where the energy has a
+    k-space term, else ``sf`` unchanged and 0 (gibbs.py:190-195)."""
+    if not delta_mod.uses_recip(flags):
+        return sf, torch.zeros((), dtype=torch.float64,
+                               device=state.pos.device)
+    sf = delta_mod.sf_compute(state, flags, params)
+    return sf, delta_mod.recip_energy(sf, state, flags, params)
 
 
 def init_gibbs_carry(state_a, state_b, flags: FFlags, params: RunParams,
@@ -469,10 +482,8 @@ class GibbsSimulation:
         self.flags = cfg.to_flags()
         self.params = cfg.to_params()
         blocked = max(self.state_a.n_atom_slots,
-                      self.state_b.n_atom_slots) > 1024 and not (
-            self.flags.polarvdw or self.flags.using_axilrod_teller or
-            self.flags.rd_crystal or self.flags.gwp or self.flags.spectre or
-            self.flags.rd_anharmonic)
+                      self.state_b.n_atom_slots) > 1024 and \
+            not dense_only(self.flags)
         self.opts = GibbsOptions(
             move_factor=cfg.move_factor, rot_factor=cfg.rot_factor,
             spinflip_probability=cfg.spinflip_probability,

@@ -57,7 +57,8 @@ from ..runner import _live
 from ..state import SystemState, build_state, topology
 from . import moves
 from .averages import AvgObservables, nodestats_from_counters
-from .chain import NodeStats, accumulate_stats, annealed_temperature
+from .chain import (NodeStats, _params_at, accumulate_stats,
+                    annealed_temperature)
 
 
 # ---------------------------------------------------------------------------
@@ -476,7 +477,7 @@ def make_pi_step(flags: FFlags, base_params: RunParams, opts: PIOptions,
     if opts.quantum_rotation:
         raise NotImplementedError("PIOptions.quantum_rotation=True "
                                   "(spin flips)")
-    params = base_params
+    params_at = _params_at(flags, base_params, opts)
     n = trial_chain_len
     tables = {}
     views = {}
@@ -502,6 +503,7 @@ def make_pi_step(flags: FFlags, base_params: RunParams, opts: PIOptions,
         stack = carry.stack
         P = stack.pos.shape[0]
         T = carry.temperature
+        params = params_at(T)
         dev = stack.pos.device
         target, _ = moves.pick_random_movable(bead(stack, 0), d[_U_TARGET])
         t1 = target.reshape(1)

@@ -27,7 +27,7 @@ from typing import NamedTuple
 import torch
 
 from .. import constants as const
-from ..flags import FFlags, RunParams
+from ..flags import FFlags, RunParams, dense_only
 from ..state import SystemState
 from . import cuda_polar
 from . import polar as polar_mod
@@ -79,11 +79,12 @@ def supports(flags: FFlags, n_atom_slots: int = 0, device=None) -> bool:
     """True when polarization can ride the incremental cache with
     ``n_atom_slots`` slots on ``device`` (three f32 [A,A] planes; see
     max_slots)."""
+    # under use_sg or rd_only the full energy has no polarization
+    # (energy.py:62), which the twin's cache would still carry
     ok = (flags.polarization and flags.polar_mixed and
           not flags.polar_ewald_full and
-          not (flags.polarvdw or flags.using_axilrod_teller or
-               flags.rd_crystal or flags.gwp or flags.spectre or
-               flags.rd_anharmonic))
+          not (flags.use_sg or flags.rd_only) and
+          not dense_only(flags))
     if n_atom_slots and n_atom_slots > max_slots(device):
         return False
     return ok

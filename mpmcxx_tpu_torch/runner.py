@@ -28,6 +28,7 @@ from . import constants as const
 from .config.parser import read_config
 from .config.schema import SimConfig
 from .config.validate import validate
+from .flags import dense_only
 from .io import histogram as hist_io
 from .io import output as out_io
 from .io import pqr as pqr_io
@@ -84,10 +85,7 @@ def capacity_opts(opts, flags, state):
     polar_incremental = pcache_mod.supports(flags, state.n_atom_slots,
                                             state.pos.device)
     incremental = delta_mod.supports(flags) or polar_incremental
-    blocked = state.n_atom_slots > 1024 and not (
-        flags.polarvdw or flags.using_axilrod_teller or
-        flags.rd_crystal or flags.gwp or flags.spectre or
-        flags.rd_anharmonic)
+    blocked = state.n_atom_slots > 1024 and not dense_only(flags)
     return dataclasses.replace(
         opts, incremental=incremental,
         polar_incremental=polar_incremental, blocked_energy=blocked,

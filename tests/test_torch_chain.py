@@ -224,7 +224,7 @@ def test_state_from_jax_round_trips():
                                       fields[f.name], err_msg=f.name)
 
 
-@pytest.mark.parametrize("flag", [{"wolf": True}, {"polar_gs": True},
+@pytest.mark.parametrize("flag", [{"rd_anharmonic": True}, {"polar_gs": True},
                                   {"polar_max_iter": 0},
                                   {"damp_type": 1}])
 def test_unported_flag_raises(flag):

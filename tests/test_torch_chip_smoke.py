@@ -183,3 +183,42 @@ def test_kernel_build_needs_nvcc(monkeypatch):
     monkeypatch.delenv("CUDA_PATH", raising=False)
     with pytest.raises(RuntimeError, match="nvcc"):
         kernels.build()
+
+
+ENERGY_TERM_STEPS = {
+    # chip_smoke step -> the code that runs it on the CPU at a small size
+    "pairwise": (
+        "import flagship, torch_co2_system as co2\n"
+        "flagship.write_pqr_co2 = lambda p: co2.write_pqr(\n"
+        "    p, co2.records(5, 18.0, 12, 3))\n"
+        "chip_smoke.PW_MOVES = 4\n"
+        "total, rates = chip_smoke.run_pairwise_terms(w, device='cpu')\n"
+        "assert set(rates) == set(chip_smoke.PW_SETTINGS)\n"),
+    "many_body": (
+        "chip_smoke.MB.update(n=27, moves=4)\n"
+        "total, ms = chip_smoke.run_many_body(device='cpu')\n"
+        "assert set(ms) == {'axilrod_teller', 'polarvdw_exp'}\n"),
+}
+
+
+@pytest.mark.parametrize("step", list(ENERGY_TERM_STEPS))
+def test_energy_term_steps_run_on_cpu(step, tmp_path):
+    """Steps 16 and 17 (the pairwise terms' Delta-E and chain gates, the
+    dense many-body terms) at a small size on the CPU, with jax and the
+    JAX package made unimportable and the card's calls stubbed: their
+    gates pass and no kernel launches."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mpmcxx_tpu'] = None\n"
+        f"sys.path.insert(0, {os.path.join(ROOT, 'tests')!r})\n"
+        "import torch\n"
+        "for f in ('synchronize', 'reset_peak_memory_stats',\n"
+        "          'max_memory_allocated'):\n"
+        "    setattr(torch.cuda, f, lambda *a, **k: 0)\n"
+        "import chip_smoke\n"
+        f"w = {str(tmp_path)!r}\n"
+        + ENERGY_TERM_STEPS[step] +
+        "assert not any(total.values()), total\n")
+    r = _run(["-c", code], ROOT)
+    assert r.returncode == 0, r.stderr[-3000:]

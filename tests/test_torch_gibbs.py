@@ -8,8 +8,9 @@ them, carried across with ``state_from_jax``) and the same key.
   relative; equal final volumes (1e-12).  Cases: argon 8 @ 20 A + 8 @
   24 A on the full-recompute branch; charged two-site boxes with Ewald on
   the incremental branch (SF caches; its energies also against a full
-  recompute at 1e-9); a tiny polarizable pair on the full-recompute
-  branch with the dense float64 SCF.
+  recompute at 1e-9), also under Feynman-Hibbs order 4; a tiny
+  polarizable pair on the full-recompute branch with the dense float64
+  SCF.
 - Twins of TestGibbs' conservation tests on the port: total N under
   transfers, total V under volume exchanges, finite per-box energies
   under displacements; and, marked slow, the ideal-gas uniform-V_a gate.
@@ -72,6 +73,13 @@ CASES = {
     "charged_incremental": (
         (lambda: charged_box(8, 18.0, 1), lambda: charged_box(6, 20.0, 2)),
         {}, dict(temperature=140.0, ewald_alpha=3.5 / 9.0),
+        dict(move_factor=0.2, transfer_probability=0.3,
+             volume_probability=0.1, incremental=True, max_mol_atoms=2),
+        60, 7),
+    "fh4_incremental": (
+        (lambda: charged_box(8, 18.0, 1), lambda: charged_box(6, 20.0, 2)),
+        dict(feynman_hibbs=True, feynman_hibbs_order=4),
+        dict(temperature=140.0, ewald_alpha=3.5 / 9.0),
         dict(move_factor=0.2, transfer_probability=0.3,
              volume_probability=0.1, incremental=True, max_mol_atoms=2),
         60, 7),

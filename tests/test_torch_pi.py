@@ -10,7 +10,8 @@ bead stacks built from seeded numpy inputs (no file outside the repo).
 - Step for step, the JAX ``make_pi_step`` under ``lax.scan`` and the
   port's chunk runner: equal move and accept sequences, counts, Coker
   anchors; positions and energies within 1e-9.  Chains: an argon stack
-  at P = 4 (incremental LJ/Ewald branch), a two-site species with
+  at P = 4 (incremental LJ/Ewald branch; again under the buffered 14-7
+  potential), a two-site species with
   orientation data (the bisection staging), a tiny polarizable stack
   (per-bead full recompute with the dense float64 SCF), and simulated
   annealing, linear and geometric (the temperature after every step
@@ -220,6 +221,10 @@ CHAINS = {
                        dict(temperature=20.0),
                        dict(move_factor=0.05, rot_factor=30.0,
                             bead_perturb_probability=0.6), 3, 48, 2),
+    "buffered_14_7": ("ar", dict(P=4), dict(using_lj_buffered_14_7=True),
+                      dict(temperature=60.0),
+                      dict(move_factor=0.05, bead_perturb_probability=0.5),
+                      2, 64, 6),
     "polar": ("polar", dict(P=4, n_mol=3, L=10.0, seed=5, jitter=0.03),
               POLAR, dict(temperature=120.0, ewald_alpha=0.7,
                           polar_ewald_alpha=0.7, polar_damp=2.1304),
