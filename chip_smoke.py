@@ -139,8 +139,35 @@ its hand-written kernels, and check the results.
    repulsion.  The initial energy on the card within 1e-9 relative of
    the port's on the CPU; finite energies; accepted moves; no K1-K5
    launch; ms per move and the peak device memory.
-18. Prints ``{"kernels": [...]}`` (per kernel: the sum over the main paths
-   of steps 3, 5-17 of its launches, each path counted from 0, and
+18. The CO2 flagship on its polar cache (the default schedule: K5 and
+   K2) with (i) a precision-terminated SCF (1e-5 Debye) and Palmo's
+   correction, 2 chunks of 32 moves as in step 3 (every committed plane,
+   the carried energies against a blocked recompute), no SCF in the
+   divergence fallback, then at polar.LOOP_GROUP 1 and 8: 16 moves timed,
+   16 moves' synchronizing calls, and 16 moves whose K5 launches (the
+   wrapper's count and torch.profiler's kernel events) equal the
+   iterations rounded up to whole groups plus one for Palmo; (ii) the
+   exact solve (CG over the planes), 2 chunks of 4 moves as in step 3
+   and 4 moves whose K5 launches equal the CG steps rounded up to whole
+   groups plus one; iterations and CG steps per move, syncs per move,
+   moves/s.
+19. The same flagship's chain, 2 chunks of 32 moves each as in step 3,
+   under linear damping (plane mode 4, the Ewald field), polar_wolf with
+   polar_wolf_full (mode 5, no k-space) and the no-PBC field (mode 3, no
+   k-space): every plane committed by one K2 launch within 1e-6 of a
+   rebuild, K5 >= 4 launches per move; K2 bitwise against its plain
+   version on the 4 and 5 planes with their mixed symmetric and
+   antisymmetric signs; moves/s and K5's call ms per mode.
+20. The gcmc-mof-co2 example's initial state with polar_mixed off (the
+   dense float64 A matrix): the exact solve, Gauss-Seidel and ranked
+   Gauss-Seidel at precision 1e-10, ZODID, Palmo and the full-Ewald SCF,
+   each energy on the card within 1e-9 relative of the CPU's with equal
+   iteration counts; 8 NVT moves with ranked Gauss-Seidel (no K1-K5
+   launch; ms per move; launches of one sweep); the polar_tensor
+   golden's atoms through the CLI with ``polarizability_tensor on``:
+   exit 0 and the reference's tensor within its print quantum.
+21. Prints ``{"kernels": [...]}`` (per kernel: the sum over the main paths
+   of steps 3, 5-20 of its launches, each path counted from 0, and
    the count of each path; the time, plain time and bound at the shapes
    of step 4 for K2, K3 and K5, step 6 for K4 and step 7 for K1; the
    worst error of the checks), the card's name and power limit, and,
@@ -151,6 +178,7 @@ Imports torch, numpy and the port only (never jax).
 """
 
 import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -268,6 +296,40 @@ PW_MOVES = 32
 MB = dict(n=512, density=0.0213, T=90.0, mass=39.948, alpha=1.6411,
           omega=0.70, c6=64.3, eps=119.8, sig=3.405, buck=(6.8e6, 0.16),
           polar_damp=2.1304, moves=16, move_factor=0.02, seed=7)
+# steps 18-20: the polar solvers.  Steps 18 and 19 run 2 chunks of
+# SCF_CHUNK moves per setting; step 18's SCF ends at SCF_PRECISION Debye,
+# which the f32 planes resolve (the goldens' 1e-8 is below their
+# rounding: every move would end in the divergence fallback), and
+# measures the grouped loop at each of GROUP_SIZES (polar.LOOP_GROUP)
+# over GROUP_PROBE moves; its CG runs CG_MOVES moves.  Step 19's Wolf
+# field takes SCF_WOLF_ALPHA.  Step 20 solves DENSE_EXAMPLE's initial
+# state under each of DENSE_SETTINGS on the card and the CPU (within
+# DENSE_REL) and runs DENSE_MOVES NVT moves with ranked Gauss-Seidel.
+SCF_CHUNK = 32
+SCF_PRECISION = 1e-5
+GROUP_SIZES = (1, 8)
+GROUP_PROBE = 8
+CG_MOVES = 8
+SCF_WOLF_ALPHA = 0.2
+CACHE_SETTINGS = {   # step 19: FFlags changes, RunParams changes
+    "linear": (dict(damp_type=1), {}),
+    "wolf_full": (dict(polar_ewald=False, polar_wolf=True,
+                       polar_wolf_full=True),
+                  dict(polar_wolf_alpha=SCF_WOLF_ALPHA)),
+    "nopbc": (dict(polar_ewald=False), {}),
+}
+DENSE_EXAMPLE = "gcmc-mof-co2"
+DENSE_SETTINGS = {   # step 20: FFlags changes, RunParams changes
+    "exact": (dict(polar_iterative=False), {}),
+    "gs": (dict(polar_gs=True), dict(polar_precision=1e-10)),
+    "gs_ranked": (dict(polar_gs_ranked=True), dict(polar_precision=1e-10)),
+    "zodid": (dict(polar_zodid=True), {}),
+    "palmo": (dict(polar_palmo=True), {}),
+    "ewald_full": (dict(polar_ewald_full=True, polar_ewald=False),
+                   dict(polar_precision=1e-10)),
+}
+DENSE_MOVES = 8
+DENSE_REL = 1e-9
 SYNTH_A = 4096
 RAGGED_A = 4001          # A % 4 != 0: no TMA tensor map (16-byte rows)
 SYM_SYNTH_A = (4096, 4032)   # K5's 64-row tiles: nr = 64 (even), 63 (odd)
@@ -1198,15 +1260,16 @@ def _close(got, want, tol):
 
 
 def run_flagship_chain(model, state, flags, params, opts, root, card,
-                       contraction, label=None):
+                       contraction, label=None, chunk=CHUNK, outs_log=None):
     """One flagship's main path under the schedule switch in force:
-    ``init_carry(seed=0)`` and two CHUNK-move chunks of
-    ``make_chunk_runner``, every launch count 0 just before.  Checks the
+    ``init_carry(seed=0)`` and two ``chunk``-move chunks of
+    ``make_chunk_runner``, every launch count 0 just before (each chunk's
+    StepOut appended to ``outs_log`` when given).  Checks the
     initial rd / coulombic / polarization against the model's golden
     (where one exists, rel 2e-6); finite energies; incremental rd /
     coulombic within 1e-8 and polarization within 1e-5 of a fresh
     ``energy_breakdown_blocked`` (at the final box, after NPT volume
-    moves); the committed planes within 1e-6 of a fresh ``cache_init``;
+    moves); every committed plane within 1e-6 of a fresh ``cache_init``;
     ``contraction`` (the kernel the switch picks) launched >= 4 times per
     move and the other contraction kernels never, the recompute included;
     K2 >= 1 per move that is not a volume move (a volume move rebuilds
@@ -1237,7 +1300,7 @@ def run_flagship_chain(model, state, flags, params, opts, root, card,
     try:
         t0 = time.time()
         carry = chain.init_carry(state, flags, params, opts, seed=0)
-        runner = chain.make_chunk_runner(flags, params, opts, CHUNK,
+        runner = chain.make_chunk_runner(flags, params, opts, chunk,
                                          topology=topology(state))
         _say(f"[{model}] init_carry: E = {float(carry.obs.energy):.6f} K, "
              f"N = {int(carry.obs.N)} ({time.time() - t0:.2f} s)")
@@ -1261,9 +1324,11 @@ def run_flagship_chain(model, state, flags, params, opts, root, card,
             carry, outs = runner(carry)
             torch.cuda.synchronize()
             dt = time.time() - t0
-            moves_per_s = CHUNK / dt
+            moves_per_s = chunk / dt
             movetypes.append(outs.movetype)
-            _say(f"[{model}] chunk {c}: {CHUNK} moves in {dt:.3f} s = "
+            if outs_log is not None:
+                outs_log.append(outs)
+            _say(f"[{model}] chunk {c}: {chunk} moves in {dt:.3f} s = "
                  f"{moves_per_s:.2f} moves/s; E = "
                  f"{float(carry.obs.energy):.6f} K, N = {int(carry.obs.N)}")
     finally:
@@ -1280,7 +1345,7 @@ def run_flagship_chain(model, state, flags, params, opts, root, card,
          f"{peak_gb:.2f} GB; launches {launches}")
 
     # --- is the result right? --------------------------------------------
-    n_moves = 2 * CHUNK
+    n_moves = 2 * chunk
     obs = carry.obs
     for name in ("energy", "rd_energy", "coulombic_energy",
                  "polarization_energy"):
@@ -1299,17 +1364,19 @@ def run_flagship_chain(model, state, flags, params, opts, root, card,
         if not ok:
             raise AssertionError(
                 f"[{model}] {name}: incremental vs full rel {rel}")
-    # 128 in-place commits (K2) left the planes those of a full rebuild
+    # the in-place commits (K2) left the planes those of a full rebuild
     fresh = pcache.cache_init(carry.state, flags, params)
-    for name in ("dx", "dy", "dz"):
-        diff = float(torch.max(torch.abs(getattr(carry.pcache, name) -
-                                         getattr(fresh, name))))
+    names = ("co", "cd", "dx", "dy", "dz")
+    planes = pcache.planes_of(carry.pcache)
+    for name, got, want in zip(names[5 - len(planes):], planes,
+                               pcache.planes_of(fresh)):
+        diff = float(torch.max(torch.abs(got - want)))
         _say(f"[{model}] committed plane {name} vs rebuild: max |diff| "
              f"{diff:.3e}")
         if not diff <= 1e-6:
             raise AssertionError(f"[{model}] plane {name} drifted from a "
                                  "rebuild")
-    del fresh
+    del fresh, planes
     if launches[contraction] < 4 * n_moves:
         raise AssertionError(f"[{model}] {contraction} launched "
                              f"{launches[contraction]} times for {n_moves} "
@@ -2273,6 +2340,451 @@ def run_many_body(device="cuda"):
     return total, ms
 
 
+def _k5_due(counts, cap, group, extra=1):
+    """K5 launches a move's solve makes: the grouped loop runs whole
+    groups of ``group`` iterations up to ``cap`` (polar._grouped_while),
+    then ``extra`` more contractions (Palmo's, or CG's initial A(x0))."""
+    return sum(min(cap, group * -(-int(c) // group)) + extra for c in counts)
+
+
+def check_scf_fallback(proposals, outs, flags, params, cap):
+    """The moves of a chain whose f32 SCF ended in the divergence
+    fallback (MAX_ITERATION_COUNT sweeps without meeting the precision):
+    none accepted, and the first of them solved again in float64 on the
+    blocked path (polar_mixed off, contract_blocked in 1,024-row tiles)
+    falls back too, so the fallback is the Jacobi iteration's own and
+    not the f32 planes'.  Where no move fell back, the first move is
+    solved in float64 and must converge as its f32 SCF did.
+    ``proposals`` holds (proposed state, PolarResult) per move."""
+    import torch
+    from mpmcxx_tpu_torch.ops import polar as polar_mod
+    accepted = torch.cat([o.accepted for o in outs]).cpu().tolist()
+    failed = [bool(r.iterator_failed) for _, r in proposals]
+    if len(failed) != len(accepted):
+        raise AssertionError(f"{len(failed)} proposals for "
+                             f"{len(accepted)} moves")
+    if any(a and f for a, f in zip(accepted, failed)):
+        raise AssertionError("[co2-precision] a move whose SCF fell back "
+                             "was accepted")
+    i = failed.index(True) if True in failed else 0
+    state, res = proposals[i]
+    t0 = time.time()
+    ref = polar_mod.polar_blocked(state, flags.replace(polar_mixed=False),
+                                  params, block=1024)
+    _say(f"[co2-precision] move {i}: f32 SCF {float(res.iterations):.0f} "
+         f"iterations ({'failed' if failed[i] else 'converged'}), float64 "
+         f"blocked SCF {float(ref.iterations):.0f} iterations "
+         f"({'failed' if bool(ref.iterator_failed) else 'converged'}) in "
+         f"{time.time() - t0:.1f} s")
+    if bool(ref.iterator_failed) != failed[i] or \
+            (failed[i] and float(ref.iterations) != cap):
+        raise AssertionError(f"[co2-precision] move {i}: the float64 SCF "
+                             "does not end as the f32 one")
+
+
+def scf_launch_gate(label, carry, runner, due, tries=4):
+    """One chunk of ``runner`` under torch.profiler (CUDA activity) with
+    every launch count 0 just before: K5's wrapper count equal to
+    ``due(outs)``, the count the step's own iterations imply, and the
+    profiler's ``contract_sym_kernel`` events equal to it too.  The
+    profiler on this card now and then drops records of a session: a
+    session in which it saw fewer K5 kernels than the wrapper launched is
+    followed by one more chunk, up to ``tries``; more than the wrapper
+    launched fails at once.  Returns (carry, outs)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        zero_launches()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            carry, outs = runner(carry)
+            torch.cuda.synchronize()
+        want = due(outs)
+        got = launches_now()["contract_planes_sym"]
+        if got != want:
+            raise AssertionError(f"[{label}] K5 launched {got} times, the "
+                                 f"step's counts imply {want}")
+        seen = sum(e.device_type == DeviceType.CUDA and
+                   "contract_sym_kernel" in e.name for e in prof.events())
+        _say(f"[{label}] K5: {got} launches (wrapper), {seen} "
+             f"contract_sym_kernel events (profiler), {want} implied by the "
+             f"step's counts, over {len(outs.accepted)} moves")
+        if seen > want:
+            raise AssertionError(f"[{label}] the profiler saw {seen} K5 "
+                                 f"kernels, the step's counts imply {want}")
+        if seen == want:
+            return carry, outs
+    raise AssertionError(f"[{label}] the profiler recorded every K5 kernel "
+                         f"in none of {tries} sessions")
+
+
+@contextlib.contextmanager
+def record_cg_steps(steps):
+    """Append each ``polar.cg_solve``'s step count (a 0-d device tensor)
+    to ``steps`` while the block runs."""
+    from mpmcxx_tpu_torch.ops import polar as polar_mod
+    solve = polar_mod.cg_solve
+
+    def recording(*args, **kw):
+        x, k = solve(*args, **kw)
+        steps.append(k)
+        return x, k
+
+    polar_mod.cg_solve = recording
+    try:
+        yield
+    finally:
+        polar_mod.cg_solve = solve
+
+
+def run_scf_solvers(state, flags, params, opts, root, card):
+    """Step 18: the CO2 flagship on its polar cache (the default
+    schedule: K5 and K2).  (i) A precision-terminated SCF
+    (SCF_PRECISION) with Palmo's correction through
+    ``run_flagship_chain`` (2 x SCF_CHUNK moves), whose moves that end
+    in the divergence fallback are checked by check_scf_fallback; then,
+    at each group size of
+    GROUP_SIZES, GROUP_PROBE moves timed, GROUP_PROBE moves under
+    count_syncs and a launch gate (scf_launch_gate: K5 launches per move
+    = the iterations rounded up to whole groups, + 1 for Palmo).  (ii)
+    The exact solve (polar_iterative off: CG over the planes) through
+    ``run_flagship_chain`` (2 x CG_MOVES / 2 moves) and a launch gate of
+    CG_MOVES / 2 moves (K5 = the CG steps rounded up to whole groups, +
+    1 for the initial A(x0)).  Returns (launches by path, a dict of the
+    numbers to print)."""
+    import torch
+    from mpmcxx_tpu_torch import constants as const
+    from mpmcxx_tpu_torch.mc import chain
+    from mpmcxx_tpu_torch.ops import polar as polar_mod
+    from mpmcxx_tpu_torch.ops import polar_cache as pcache
+    from mpmcxx_tpu_torch.state import topology
+    out, launches = {}, {}
+    cap = int(const.MAX_ITERATION_COUNT)
+    f_i = flags.replace(polar_palmo=True)
+    p_i = params.replace(polar_precision=SCF_PRECISION)
+    outs, proposals = [], []
+    propose = pcache.polar_proposal
+
+    def recording(cache, old, new, rows, *args, **kw):
+        res = propose(cache, old, new, rows, *args, **kw)
+        proposals.append((new, (res[0] if kw.get("with_commit") else res)))
+        return res
+
+    pcache.polar_proposal = recording
+    try:
+        launches["co2-precision"], out["precision_rate"], carry = \
+            run_flagship_chain("co2", state, f_i, p_i, opts, root, card,
+                               "contract_planes_sym", label="co2-precision",
+                               chunk=SCF_CHUNK, outs_log=outs)
+    finally:
+        pcache.polar_proposal = propose
+    check_scf_fallback(proposals, outs, f_i, p_i, cap)
+    its = torch.cat([o.polarization_iterations for o in outs]).cpu()
+    out["iterations"] = (float(its.mean()), float(its.max()),
+                         int((its >= cap).sum()), len(its))
+    _say(f"[co2-precision] SCF iterations per move: mean "
+         f"{out['iterations'][0]:.2f}, max {out['iterations'][1]:.0f}; "
+         f"{out['iterations'][2]} of {len(its)} moves in the divergence "
+         f"fallback (precision {SCF_PRECISION:g} D, Palmo on)")
+    group = polar_mod.LOOP_GROUP
+    out["groups"] = {g: ([], None) for g in GROUP_SIZES}
+    runner = chain.make_chunk_runner(f_i, p_i, opts, GROUP_PROBE,
+                                     topology=topology(state))
+    try:
+        # the same GROUP_PROBE moves from one carry at each group size, in
+        # turns (1, 8, 8, 1): the result is bitwise the same at any size
+        for g in GROUP_SIZES + GROUP_SIZES[::-1]:
+            polar_mod.LOOP_GROUP = g
+            c = copy.deepcopy(carry)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            runner(c)
+            torch.cuda.synchronize()
+            out["groups"][g][0].append(GROUP_PROBE / (time.time() - t0))
+            del c
+        for g in GROUP_SIZES:
+            polar_mod.LOOP_GROUP = g
+            c = copy.deepcopy(carry)
+            (c, probe), syncs = count_syncs(lambda: runner(c))
+            c, probe2 = scf_launch_gate(
+                f"co2-precision LOOP_GROUP={g}", c, runner,
+                lambda o, g=g: _k5_due(o.polarization_iterations.tolist(),
+                                       cap, g))
+            for o in (probe, probe2):
+                if bool(torch.any(o.accepted &
+                                  (o.polarization_iterations >= cap))):
+                    raise AssertionError("[co2-precision] a move whose SCF "
+                                         "fell back was accepted")
+            rates = out["groups"][g][0]
+            out["groups"][g] = (rates, syncs / GROUP_PROBE)
+            _say(f"[co2-precision] LOOP_GROUP={g}: " + ", ".join(
+                f"{r:.2f}" for r in rates) + f" moves/s (the same "
+                f"{GROUP_PROBE} moves), {syncs / GROUP_PROBE:.2f} syncs per "
+                f"move on {card}")
+            del c
+    finally:
+        polar_mod.LOOP_GROUP = group
+    del carry
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    f_ii = flags.replace(polar_iterative=False)
+    launches["co2-cg"], out["cg_rate"], carry = run_flagship_chain(
+        "co2", state, f_ii, params, opts, root, card, "contract_planes_sym",
+        label="co2-cg", chunk=CG_MOVES // 2)
+    steps = []
+    runner = chain.make_chunk_runner(f_ii, params, opts, CG_MOVES // 2,
+                                     topology=topology(state))
+    with record_cg_steps(steps):
+        carry, _ = scf_launch_gate(
+            "co2-cg", carry, runner,
+            lambda o: _k5_due([int(k) for k in steps[-len(o.accepted):]],
+                              polar_mod.CG_MAXITER, polar_mod.LOOP_GROUP))
+    k = np.array([int(x) for x in steps])
+    out["cg_steps"] = (float(k.mean()), int(k.max()))
+    _say(f"[co2-cg] CG steps per solve: mean {k.mean():.1f}, max "
+         f"{k.max()} of {polar_mod.CG_MAXITER} (tol {polar_mod.CG_TOL:g} "
+         "relative)")
+    del carry
+    return launches, out
+
+
+def check_k2_signs(planes, device):
+    """K2 against its plain version, bitwise, on copies of the P = 4 or 5
+    flagship planes of one plane mode with their mixed signs
+    (polar_cache.plane_signs: co and cd +1, the displacement planes -1),
+    at window starts 0, mid-plane and A - 3, all-valid and partly valid;
+    after the commit each valid row's column is the row times the plane's
+    sign away from the S x S window (inside it the columns win)."""
+    import torch
+    from mpmcxx_tpu_torch.ops import cuda_polar
+    from mpmcxx_tpu_torch.ops.polar_cache import commit_strips, plane_signs
+    P, A, S = len(planes), planes[0].shape[0], 3
+    signs = plane_signs(P)
+    rng = np.random.default_rng(P)
+    for valid in ((True, True, True), (True, False, True)):
+        for start in (0, A // 2 + 1, A - S):
+            rows = tuple(torch.from_numpy(rng.normal(size=(S, A)).astype(
+                np.float32)).to(device) for _ in range(P))
+            st = torch.full((), start, dtype=torch.int64, device=device)
+            vt = torch.tensor(valid, device=device)
+            blend, cols = commit_strips(planes, rows, st, vt, signs)
+            k = tuple(p.clone() for p in planes)
+            cuda_polar.write_plane_strips(k, blend, cols, st)
+            p_ = tuple(p.clone() for p in planes)
+            cuda_polar.write_plane_strips_plain(p_, blend, cols, st)
+            torch.cuda.synchronize()
+            away = torch.ones(A, dtype=torch.bool, device=device)
+            away[start:start + S] = False
+            for i, (a, b, sg) in enumerate(zip(k, p_, signs)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K2 P={P} plane {i} start {start} "
+                                         f"valid {valid}: kernel differs "
+                                         "from plain")
+                for r in (start + j for j, v in enumerate(valid) if v):
+                    if not torch.equal(a[r][away], sg * a[:, r][away]):
+                        raise AssertionError(
+                            f"K2 P={P} plane {i}: column {r} is not "
+                            f"{sg:+g} x row {r} away from the window")
+            del k, p_
+    _say(f"K2 write_plane_strips P={P} planes A={A} S={S} signs {signs}: "
+         "bitwise equal to plain at 6 windows")
+
+
+def run_cache_modes(state, flags, params, opts, root, card):
+    """Step 19: the CO2 flagship's chain on its polar cache under each of
+    CACHE_SETTINGS (linear damping: plane mode 4 with the Ewald field;
+    polar_wolf + polar_wolf_full: mode 5, no k-space; the no-PBC field:
+    mode 3, no k-space) through ``run_flagship_chain`` (2 x SCF_CHUNK
+    moves; K5 >= 4 and K2 >= 1 per move with S = 3).  Per setting, K5's
+    call on the committed planes (event-timed); in modes 4 and 5 K2
+    against its plain version on those planes (check_k2_signs).  Returns
+    (launches by path, {setting: (moves/s, plane mode, K5 call ms)})."""
+    import torch
+    from mpmcxx_tpu_torch.ops import cuda_polar
+    from mpmcxx_tpu_torch.ops import polar as polar_mod
+    from mpmcxx_tpu_torch.ops import polar_cache as pcache
+    launches, out = {}, {}
+    for name, (fkw, pkw) in CACHE_SETTINGS.items():
+        f, p = flags.replace(**fkw), params.replace(**pkw)
+        label = f"co2-{name}"
+        launches[label], rate, carry = run_flagship_chain(
+            "co2", state, f, p, opts, root, card, "contract_planes_sym",
+            label=label, chunk=SCF_CHUNK)
+        mode = polar_mod.plane_mode(f)
+        planes = pcache.planes_of(carry.pcache)
+        k_empty = carry.pcache.cosp.shape[1] == 0
+        if len(planes) != mode or k_empty == bool(f.polar_ewald):
+            raise AssertionError(f"[{label}] {len(planes)} planes, k-space "
+                                 f"{'empty' if k_empty else 'held'}; want "
+                                 f"mode {mode}")
+        mu = _mu(planes[0].shape[0], planes[0].device, carry.state)
+        ms = _time_ms(lambda: cuda_polar.contract_planes_sym(
+            planes, mu, p.polar_damp))
+        out[name] = (rate, mode, ms)
+        _say(f"[{label}] plane mode {mode}: {rate:.2f} moves/s; K5 call "
+             f"{ms:.4f} ms on the committed planes on {card}")
+        if mode in (4, 5):
+            check_k2_signs(planes, planes[0].device)
+        del carry, planes
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return launches, out
+
+
+def _golden_records(fix):
+    """(atoms as PQR records) of a golden fixture (tests/golden/*.json)."""
+    return [dict(atomtype=at, moleculetype=mt, molecule_id=mid, x=x, y=y,
+                 z=z, mass=mass, charge_e=q, polarizability=al, epsilon=eps,
+                 sigma=sig)
+            for (at, mt, mid, x, y, z, mass, q, al, eps, sig, *_)
+            in fix["atoms"]]
+
+
+def _write_pqr(path, recs):
+    """``recs`` (charges in e) as a PQR the port's reader takes."""
+    with open(path, "w") as f:
+        for i, r in enumerate(recs, 1):
+            f.write(f"ATOM  {i:5d} {r['atomtype']:<4s} "
+                    f"{r['moleculetype']:<3s} M {r['molecule_id']:4d}   "
+                    f"{r['x']:.6f} {r['y']:.6f} {r['z']:.6f} "
+                    f"{r['mass']:.6f} {r['charge_e']:.8f} "
+                    f"{r['polarizability']:.6f} {r['epsilon']:.6f} "
+                    f"{r['sigma']:.6f} 0.0 0.0\n")
+        f.write("END\n")
+
+
+def run_tensor_cli(root, workdir, device="cuda"):
+    """The polar_tensor golden's atoms through the port's CLI on the card
+    with its config (``polarizability_tensor on``, ``polar_iterative
+    off``): exit 0 and the printed tensor and isotropic value within the
+    reference's print quantum (2e-4)."""
+    with open(os.path.join(root, "tests", "golden", "polar_tensor.json")) \
+            as f:
+        fix = json.load(f)
+    d = os.path.join(workdir, "polar_tensor")
+    os.makedirs(d)
+    _write_pqr(os.path.join(d, "in.pqr"), _golden_records(fix))
+    b = fix["basis"]
+    with open(os.path.join(d, "run.in"), "w") as f:
+        f.write(f"job_name tensor\nensemble nvt\ntemperature "
+                f"{fix['temperature']}\nnumsteps 10\ncorrtime 5\n"
+                f"basis1 {b} 0 0\nbasis2 0 {b} 0\nbasis3 0 0 {b}\n"
+                "pqr_input in.pqr\n" + fix["config_extra"])
+    _, _, _, wall, text = _run_cli(
+        d, ["--quiet", "--device", str(device), "run.in"])
+    lines = text.splitlines()
+    i = lines.index("POLARIZATION: polarizability tensor (A^3):")
+    got = np.array([[float(v) for v in lines[i + 2 + r].split()]
+                    for r in range(3)])
+    want = np.array(fix["expected"]["tensor"])
+    iso = float(lines[i + 6].split("=")[1])
+    err = max(float(np.abs(got - want).max()),
+              abs(iso - fix["expected"]["isotropic"]))
+    _say(f"[polar_tensor] the CLI printed the tensor in {wall:.2f} s: max "
+         f"|diff| vs the reference's print {err:.1e} (tol 2e-4); "
+         f"isotropic {iso:.4f}")
+    if not err < 2e-4:
+        raise AssertionError("[polar_tensor] the tensor is off the golden")
+
+
+def run_dense_solvers(root, workdir, card, device="cuda"):
+    """Step 20: DENSE_EXAMPLE's initial state with polar_mixed off (the
+    dense float64 A matrix): each of DENSE_SETTINGS' energies on the card
+    and on the CPU within DENSE_REL; then DENSE_MOVES NVT moves with
+    ranked Gauss-Seidel (a dense recompute per move; no K1-K5 launch),
+    the carried energy against a recompute; the launches of one GS sweep
+    (torch.profiler); the polar_tensor golden through the CLI
+    (run_tensor_cli).  Returns (launches, ms per move, launches per
+    sweep)."""
+    import torch
+    from mpmcxx_tpu_torch import constants as const
+    from mpmcxx_tpu_torch.config.parser import read_config
+    from mpmcxx_tpu_torch.mc import chain
+    from mpmcxx_tpu_torch.ops import polar as polar_mod
+    from mpmcxx_tpu_torch.ops.energy import energy_breakdown
+    from mpmcxx_tpu_torch.ops.pairwise import build_pairs
+    from mpmcxx_tpu_torch.runner import Simulation
+    from mpmcxx_tpu_torch.state import topology
+    d = os.path.join(workdir, DENSE_EXAMPLE)
+    shutil.copytree(os.path.join(root, "examples", DENSE_EXAMPLE), d)
+    cwd = os.getcwd()
+    try:
+        os.chdir(d)
+        cfg = read_config("run.in")
+        cfg.polar_mixed = False
+        sim = Simulation(cfg, quiet=True, device=device)
+    finally:
+        os.chdir(cwd)
+    state, A = sim.state, sim.state.n_atom_slots
+    if sim.opts.blocked_energy or sim.carry.pcache is not None:
+        raise AssertionError(f"[{DENSE_EXAMPLE}] not on the dense path")
+    cpu = to_device(state, "cpu")
+    for name, (fkw, pkw) in DENSE_SETTINGS.items():
+        f, p = sim.flags.replace(**fkw), sim.params.replace(**pkw)
+        t0 = time.time()
+        card_eb = energy_breakdown(state, f, p)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+        cpu_eb = energy_breakdown(cpu, f, p)
+        for comp in ("polarization", "total"):
+            got, want = float(getattr(card_eb, comp)), float(
+                getattr(cpu_eb, comp))
+            rel, ok = _close(got, want, DENSE_REL)
+            if not (ok and np.isfinite(got)):
+                raise AssertionError(f"[{DENSE_EXAMPLE} {name}] {comp} card "
+                                     f"{got} vs CPU {want}: rel {rel}")
+        if float(card_eb.polarization_iterations) != float(
+                cpu_eb.polarization_iterations) or bool(
+                card_eb.iterator_failed):
+            raise AssertionError(f"[{DENSE_EXAMPLE} {name}] iterations or "
+                                 "failure differ from the CPU's")
+        _say(f"[{DENSE_EXAMPLE} {name}] {A} slots: polarization "
+             f"{float(card_eb.polarization):.9f} K on the card, rel "
+             f"{rel:.1e} vs the CPU (tol {DENSE_REL:g}); "
+             f"{float(card_eb.polarization_iterations):.0f} iterations; "
+             f"{ms:.1f} ms")
+
+    f, p = sim.flags.replace(polar_gs_ranked=True), sim.params.replace(
+        polar_precision=1e-10)
+    opts = dataclasses.replace(sim.opts, ensemble=const.ENSEMBLE_NVT,
+                               incremental=False, polar_incremental=False,
+                               blocked_energy=False)
+    zero_launches()
+    carry = chain.init_carry(state, f, p, opts, seed=0)
+    runner = chain.make_chunk_runner(f, p, opts, DENSE_MOVES,
+                                     topology=topology(state))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    carry, outs = runner(carry)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3 / DENSE_MOVES
+    launches = launches_now()
+    eb = energy_breakdown(carry.state, f, p)
+    rel, ok = _close(float(carry.obs.energy), float(eb.total), DENSE_REL)
+    if not (ok and np.isfinite(float(eb.total))):
+        raise AssertionError(f"[{DENSE_EXAMPLE} gs_ranked NVT] carried vs "
+                             f"recompute rel {rel}")
+    if any(launches.values()):
+        raise AssertionError(f"[{DENSE_EXAMPLE} gs_ranked NVT] K1-K5 "
+                             f"launched: {launches}")
+    its = outs.polarization_iterations.cpu().numpy()
+    pt = build_pairs(state, f)
+    M = polar_mod.contract_matrix(polar_mod.thole_amatrix(state, pt, f, p))
+    E = polar_mod.thole_field(state, pt, f, p)
+    alpha = state.polarizability
+    ok_i = state.atom_alive() & (alpha != 0.0)
+    _, sweep, _, _ = count_launches(lambda: polar_mod._gs_sweep(
+        M, E, alpha, ok_i, alpha[:, None] * E, list(range(A))))
+    _say(f"[{DENSE_EXAMPLE} gs_ranked NVT] {DENSE_MOVES} moves, "
+         f"{int(outs.accepted.sum())} accepted, {its.mean():.1f} sweeps per "
+         f"move: {ms:.1f} ms per move on {card}; one sweep {sweep} "
+         f"launches ({sweep / A:.1f} per atom, {A} slots)")
+    run_tensor_cli(root, workdir, device)
+    return launches, ms, sweep
+
+
 def ptxas_report(log):
     """Per kernel of nvcc's build log: its registers, barriers and shared
     memory ("Used ...") and its stack and spills, named by the kernel's
@@ -2504,6 +3016,34 @@ def main() -> int:
     _say(f"step 17 took {time.time() - t0:.1f} s; steps 15-17 "
          f"{time.time() - t_terms:.1f} s")
 
+    # --- 18. precision-terminated SCF, Palmo and CG on the polar cache ---
+    t_scf = time.time()
+    state, _, flags, params, opts = build_flagship("co2", device)
+    with schedule():
+        scf_launches, scf = run_scf_solvers(state, flags, params, opts, root,
+                                            card)
+        launches.update(scf_launches)
+        flush()
+        _say(f"step 18 took {time.time() - t_scf:.1f} s")
+
+        # --- 19. plane modes 4 and 5, the no-PBC and Wolf fields ----------
+        t0 = time.time()
+        mode_launches, modes = run_cache_modes(state, flags, params, opts,
+                                               root, card)
+        launches.update(mode_launches)
+    del state
+    flush()
+    _say(f"step 19 took {time.time() - t0:.1f} s")
+
+    # --- 20. the small-system solvers on the dense path ------------------
+    t0 = time.time()
+    with schedule(), tempfile.TemporaryDirectory() as workdir:
+        launches["dense-gs"], dense_ms, gs_sweep = run_dense_solvers(
+            root, workdir, card)
+    flush()
+    _say(f"step 20 took {time.time() - t0:.1f} s; steps 18-20 "
+         f"{time.time() - t_scf:.1f} s")
+
     _say(f"second-chunk moves/s on {card}: " + ", ".join(
         f"{m} {r:.2f}" for m, r in rates.items()) +
         f"; examples' chunk steps/s: " + ", ".join(
@@ -2517,7 +3057,17 @@ def main() -> int:
             f"{m} {r:.1f}" for m, r in pw_rates.items()) +
         f"; many-body terms (ms per move): " + ", ".join(
             f"{m} {r:.1f}" for m, r in mb_ms.items()) +
-        f"; whole check "
+        f"; CO2 precision+Palmo SCF {scf['iterations'][0]:.2f} iterations "
+        f"per move (max {scf['iterations'][1]:.0f}), " + ", ".join(
+            f"LOOP_GROUP={g} " + "/".join(f"{x:.2f}" for x in r) +
+            f" moves/s {n:.2f} syncs/move"
+            for g, (r, n) in scf["groups"].items()) +
+        f"; CO2 CG {scf['cg_steps'][0]:.1f} steps per solve (max "
+        f"{scf['cg_steps'][1]}), {scf['cg_rate']:.2f} moves/s; plane modes: "
+        + ", ".join(f"{m} (mode {md}) {r:.2f} moves/s, K5 {k:.4f} ms"
+                    for m, (r, md, k) in modes.items()) +
+        f"; dense ranked GS {dense_ms:.1f} ms per move, {gs_sweep} "
+        f"launches per sweep; whole check "
         f"{time.time() - t_start:.1f} s after the card query")
     k5_all = dict(k5_cli, max_abs_err=max(k5["max_abs_err"],
                                           k5_cli["max_abs_err"]))

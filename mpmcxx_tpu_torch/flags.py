@@ -1,7 +1,8 @@
 """Static force-field / solver configuration.
 
-JAX twin: mpmcxx_tpu/flags.py (a copy; only ``require_supported`` at
-the end is new, since the port runs a subset of the twin's branches).
+JAX twin: mpmcxx_tpu/flags.py (a copy; ``dense_only`` and
+``require_supported`` at the end are new: the port keeps some terms on
+the dense path and does not run the special moves' branches).
 
 A frozen, hashable dataclass passed as a static argument to jitted energy
 functions.  Mirrors the option flags scattered through src/System.h:505-832;
@@ -130,79 +131,68 @@ class RunParams:
 # FFlags fields the port may take at a value other than the default, and
 # the values it takes there: every repulsion-dispersion form, mixing rule,
 # many-body term and electrostatics variant of the twin's ops/energy.py
-# but the anharmonic oscillator, GWP and SPECTRE; an exponential-damped
-# Thole SCF (Ewald static field, a fixed Jacobi iteration count) on
-# float32 planes (polar_mixed) or in float64.
+# but the anharmonic oscillator, GWP and SPECTRE; every Thole SCF (the
+# no-PBC, Wolf or Ewald static field, the full-Ewald SCF, each damping,
+# Jacobi/SOR/ESOR, Gauss-Seidel and ranked Gauss-Seidel, fixed-count or
+# precision-terminated, ZODID, Palmo, the warm start and the exact
+# solve) on float32 planes (polar_mixed) or in float64.  The fields left
+# at their default are the special moves' (anharmonic, Feynman-Kleinert,
+# GWP, SPECTRE, quantum rotation).
 _BOTH = (False, True)
 _PORTED = {name: _BOTH for name in (
     "polarization", "polar_mixed", "polar_sor", "polar_esor",
+    "polar_iterative", "polar_ewald", "polar_ewald_full", "polar_zodid",
+    "polar_palmo", "polar_rrms", "polar_gs", "polar_gs_ranked",
+    "polar_wolf", "polar_wolf_full", "polar_warm_start",
     "rd_only", "use_sg", "use_dreiding", "using_lj_buffered_14_7",
     "using_disp_expansion", "cdvdw_exp_repulsion", "using_axilrod_teller",
     "rd_crystal", "feynman_hibbs", "waldmanhagler", "halgren_mixing",
     "cdvdw_9th_repulsion", "cdvdw_sig_repulsion", "c6_mixing",
     "disp_expansion_mbvdw", "extrapolate_disp_coeffs", "schmidt_ff",
     "damp_dispersion", "midzuno_kihara_approx", "wolf", "polarvdw",
-    "vdw_fh_2be", "cavity_autoreject", "cavity_autoreject_absolute")}
+    "vdw_fh_2be", "cavity_autoreject", "cavity_autoreject_absolute",
+    "independent_particle")}
+_PORTED["damp_type"] = (const.DAMPING_OFF, const.DAMPING_LINEAR,
+                        const.DAMPING_EXPONENTIAL)
 # integer options read only under a ported switch, at any value
+# (polar.plane_mode takes any polar_plane_mode but 4 as automatic)
 _ANY = frozenset(["ewald_kmax", "rd_lrc", "rd_crystal_order",
-                  "feynman_hibbs_order"])
-# with polarization on, the SCF branch these select
-_PORTED_POLAR = {
-    "polar_iterative": (True,),
-    "polar_ewald": (True,),
-    "damp_type": (const.DAMPING_EXPONENTIAL,),
-}
-# the Thole tensor's branch: read by the SCF and by the many-body vdW
-# term's A matrix (polarvdw, disp_expansion_mbvdw) with polarization off
-_PORTED_TENSOR = {
-    "damp_type": (const.DAMPING_EXPONENTIAL,),
-    "polar_wolf_full": (False,),
-}
-# fields read only by the SCF: with polarization off no code reads them
-_POLAR_ONLY = frozenset(
-    [f.name for f in dataclasses.fields(FFlags) if f.name.startswith("polar_")]
-    + ["damp_type"])
+                  "feynman_hibbs_order", "polar_max_iter",
+                  "polar_plane_mode"])
 
 
 def dense_only(flags: FFlags) -> bool:
-    """Whether a term of the energy is not pairwise, so that only the
-    dense full recompute computes it: the many-body vdW term (polarvdw,
-    and disp_expansion_mbvdw's coupling of it into rd), Axilrod-Teller,
-    the crystal sums, and the GWP, SPECTRE and anharmonic branches.  The
-    twin's list (delta.py:39-44) lacks disp_expansion_mbvdw, so its
-    incremental and row-tiled paths drop that coupling silently; the
-    port keeps it on the dense path."""
+    """Whether a term of the energy has no row-tiled or incremental form,
+    so that only the dense full recompute computes it: the many-body vdW
+    term (polarvdw, and disp_expansion_mbvdw's coupling of it into rd),
+    Axilrod-Teller, the crystal sums, the GWP, SPECTRE and anharmonic
+    branches, and the full-Ewald SCF (polar_ewald_full), whose induced
+    field couples the dipoles through k-space.  This routes such a run
+    dense in runner.capacity_opts, the Gibbs and PI set-ups and
+    energy_breakdown_blocked, and keeps it off the polar cache.  The
+    twin's lists (delta.py:39-44, runner.py:61-64) lack
+    disp_expansion_mbvdw and polar_ewald_full: its row-tiled and
+    incremental paths drop the mbvdw coupling silently, and its blocked
+    SCF (polar.polar_blocked, above 1,024 slots) never reads
+    polar_ewald_full and solves on the no-PBC field instead."""
     return (flags.polarvdw or flags.using_axilrod_teller or
             flags.rd_crystal or flags.gwp or flags.spectre or
             flags.rd_anharmonic or
-            (flags.using_disp_expansion and flags.disp_expansion_mbvdw))
+            (flags.using_disp_expansion and flags.disp_expansion_mbvdw) or
+            (flags.polarization and flags.polar_ewald_full))
 
 
 def require_supported(flags: FFlags, params: RunParams) -> None:
     """Raise NotImplementedError naming the first flag whose branch the
     port does not have yet; never run a different branch silently."""
     default = FFlags()
-    amatrix = flags.polarvdw or (flags.using_disp_expansion and
-                                 flags.disp_expansion_mbvdw)
     for f in dataclasses.fields(FFlags):
         v = getattr(flags, f.name)
-        if f.name in _PORTED_TENSOR and amatrix and \
-                v not in _PORTED_TENSOR[f.name]:
-            ok = False
-        elif f.name in _POLAR_ONLY and not flags.polarization:
-            ok = True
-        elif f.name in _PORTED:
+        if f.name in _PORTED:
             ok = v in _PORTED[f.name]
-        elif f.name in _PORTED_POLAR:
-            ok = v in _PORTED_POLAR[f.name]
-        elif f.name == "polar_max_iter":
-            ok = 1 <= v <= 16          # fixed-K Jacobi (polar.py:412-426)
         elif f.name in _ANY:
             ok = True
         else:
             ok = v == getattr(default, f.name)
         if not ok:
             raise NotImplementedError(f"FFlags.{f.name}={v!r}")
-    if flags.polarization and params.polar_precision != 0.0:
-        raise NotImplementedError(
-            f"RunParams.polar_precision={params.polar_precision!r}")

@@ -269,10 +269,13 @@ def _select_cache(cache: pcache_mod.PolarCache, accept,
                   fresh: pcache_mod.PolarCache) -> pcache_mod.PolarCache:
     """The cache of the selected state after a volume move, written into
     ``cache``'s tensors in place (the twin's cache_init of the selected
-    state, chain.py:648-654): one plane-sized temporary at a time."""
+    state, chain.py:648-654): one plane-sized temporary at a time; the
+    empty placeholders (the planes a mode does not hold, k-space without
+    polar_ewald) stay as they are."""
     for f in dataclasses.fields(cache):
         t = getattr(cache, f.name)
-        t.copy_(torch.where(accept, getattr(fresh, f.name), t))
+        if t.numel():
+            t.copy_(torch.where(accept, getattr(fresh, f.name), t))
     return cache
 
 

@@ -61,40 +61,15 @@ def _on_cpu(t) -> bool:
 # K1: SCF contraction
 # --------------------------------------------------------------------------
 
-def _unfold(planes, l: float):
-    """(co or None, cd, dx, dy, dz) of a 3-, 4- or 5-plane tuple; mode 3
-    recomputes (co, cd) from the masked displacements, mode 4 has no co
-    (s = -(s . mu))."""
-    from .polar import coeffs_from_d
-    if len(planes) == 3:
-        dx, dy, dz = planes
-        co, cd = coeffs_from_d(dx, dy, dz, l)
-        return co, cd, dx, dy, dz
-    co = planes[0] if len(planes) == 5 else None
-    return (co,) + tuple(planes[-4:])
-
-
-def _t_mu(terms, m, dim: int):
-    """Sum over axis ``dim`` of T_ij m, f32: m [n,3] is the mu of the
-    columns (dim 1, row sums) or of the rows (dim 0, column sums)."""
-    co, cd, dx, dy, dz = terms
-    shape = (1, -1) if dim == 1 else (-1, 1)
-    mx, my, mz = (m[:, k].reshape(shape) for k in range(3))
-    dot = dx * mx + dy * my + dz * mz
-    s = -dot if co is None else co * dot
-    return torch.stack([torch.sum(s * dx + cd * mx, dim=dim),
-                        torch.sum(s * dy + cd * my, dim=dim),
-                        torch.sum(s * dz + cd * mz, dim=dim)], dim=1)
-
-
 def contract_planes_plain(planes, mu, l: float = 0.0):
     """Eager form of polar.contract_mixed (polar.py:884-897): ``-T mu`` in
     f32 over the 3-, 4- or 5-plane tuple of [R,A] planes (square, or a
     slice of rows) with mu [A,3], returned as [R,3] f64.  It is the
     reference of K1, K4 and K5 on the card, and what K5's wrapper runs on
     CPU tensors."""
-    return -_t_mu(_unfold(planes, l), mu.to(torch.float32), 1).to(
-        torch.float64)
+    from .polar import expand_planes, plane_sums
+    return -plane_sums(expand_planes(planes, l), mu.to(torch.float32),
+                       1).to(torch.float64)
 
 
 def contract_planes(planes, mu, l: float = 0.0):
@@ -152,6 +127,7 @@ def contract_planes_tri_plain(planes, mu, l: float = 0.0):
     columns of J; the nr slots of each atom are then added.  The last tile
     is ragged when TRI_TILE does not divide A."""
     A = planes[0].shape[0]
+    from .polar import expand_planes, plane_sums
     b = TRI_TILE
     nr = -(-A // b)
     m = mu.to(torch.float32)
@@ -160,10 +136,10 @@ def contract_planes_tri_plain(planes, mu, l: float = 0.0):
         ri = slice(I * b, min(A, (I + 1) * b))
         for J in range(I, nr):
             cj = slice(J * b, min(A, (J + 1) * b))
-            terms = _unfold(tuple(p[ri, cj] for p in planes), l)
-            part[J, ri] = _t_mu(terms, m[cj], 1)
+            terms = expand_planes(tuple(p[ri, cj] for p in planes), l)
+            part[J, ri] = plane_sums(terms, m[cj], 1)
             if J != I:
-                part[I, cj] = _t_mu(terms, m[ri], 0)
+                part[I, cj] = plane_sums(terms, m[ri], 0)
     return -part.sum(dim=0).to(torch.float64)
 
 
@@ -215,6 +191,7 @@ def contract_planes_sym_plain(planes, mu, l: float = 0.0):
     is read once.  Tile (I, c) adds its row sums (T_ij mu_j) to the rows
     of I and, for c > 0, its column sums (T_ji mu_i = T_ij mu_i) to slot c
     of the columns of J; the slots are then added."""
+    from .polar import expand_planes, plane_sums
     A = planes[0].shape[0]
     b = SYM_TILE
     if A % b:
@@ -230,10 +207,10 @@ def contract_planes_sym_plain(planes, mu, l: float = 0.0):
         for c in range(half if nr % 2 == 0 and I >= half else half + 1):
             J = (I + c) % nr
             cj = slice(J * b, (J + 1) * b)
-            terms = _unfold(tuple(p[ri, cj] for p in planes), l)
-            part[0, ri] += _t_mu(terms, m[cj], 1)
+            terms = expand_planes(tuple(p[ri, cj] for p in planes), l)
+            part[0, ri] += plane_sums(terms, m[cj], 1)
             if c:
-                part[c, cj] = _t_mu(terms, m[ri], 0)
+                part[c, cj] = plane_sums(terms, m[ri], 0)
     return -part.sum(dim=0).to(torch.float64)
 
 

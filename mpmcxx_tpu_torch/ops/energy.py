@@ -8,9 +8,9 @@ branches): the equivalent of System::energy()
 (src/System.Energy.cpp:19-171) on the dense [A,A] pairs, or by
 O(B*A)-memory row-block tiling of the dense pair triangle.  The dense
 path dispatches every repulsion-dispersion form, Ewald or Wolf
-electrostatics, Thole polarization, the many-body vdW term and the
-Axilrod-Teller 3-body term; the blocked one the pairwise terms and
-polarization.
+electrostatics, every Thole SCF (ops/polar.polar), the many-body vdW
+term and the Axilrod-Teller 3-body term; the blocked one the pairwise
+terms and the matrix-free SCFs (ops/polar.polar_blocked).
 """
 
 from __future__ import annotations
@@ -110,9 +110,13 @@ def energy_breakdown_blocked(state: SystemState, flags: FFlags,
                              params: RunParams,
                              block: int = 256) -> EnergyBreakdown:
     """Full energy via [block, A] row tiles (energy.py:120-218): the
-    pairwise terms and Thole polarization; the many-body and crystal-sum
-    terms are dense-only and raise."""
+    pairwise terms and Thole polarization.  The full-Ewald SCF is routed
+    to the dense ``energy_breakdown`` (the twin's blocked SCF would
+    solve on the no-PBC field instead; flags.dense_only); the many-body
+    and crystal-sum terms are dense-only and raise."""
     require_supported(flags, params)
+    if flags.polarization and flags.polar_ewald_full:
+        return energy_breakdown(state, flags, params)
     if dense_only(flags):
         raise ValueError("blocked energy requires pairwise + k-space terms "
                          "(+ optional Thole polarization); polarvdw/mbvdw/"

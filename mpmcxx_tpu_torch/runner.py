@@ -9,7 +9,9 @@ validate input, build the system, run the chain, and do the
 per-corrtime bookkeeping (averages, per-sorbate statistics, energy log,
 restart/trajectory, dipole and field files, the population histogram
 and the frozen-lattice OpenDX file) with the reference's file contract,
-for the uVT (one sorbate or a mixture), NVT, NPT and NVE ensembles.
+for the uVT (one sorbate or a mixture), NVT, NPT and NVE ensembles; and
+the polarizability-tensor analysis mode, which prints the tensor and
+ends the run.
 
 ``run_input_file`` dispatches an input file to this Simulation, to
 ``mc.pi.PISimulation`` (path integrals) or to ``mc.gibbs.GibbsSimulation``.
@@ -320,6 +322,14 @@ class Simulation:
 
     def run(self) -> AvgObservables:
         cfg = self.cfg
+        # analysis mode: print the molecular polarizability tensor and end
+        # the run, as the reference does from its first energy() call
+        # (src/System.Energy.cpp:2601-2605; runner.py:392-400)
+        if cfg.polarizability_tensor and cfg.polarization and \
+                not cfg.polar_iterative:
+            polar_mod.print_polarizability_tensor(
+                self.state, self.flags, self.params, self.out)
+            return self.avg
         self.fp_energy = None
         self.fp_energy_csv = None
         if _live(cfg.energy_output):

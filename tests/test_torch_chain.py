@@ -224,9 +224,9 @@ def test_state_from_jax_round_trips():
                                       fields[f.name], err_msg=f.name)
 
 
-@pytest.mark.parametrize("flag", [{"rd_anharmonic": True}, {"polar_gs": True},
-                                  {"polar_max_iter": 0},
-                                  {"damp_type": 1}])
+@pytest.mark.parametrize("flag", [{"rd_anharmonic": True}, {"gwp": True},
+                                  {"spectre": True},
+                                  {"feynman_kleinert": True}])
 def test_unported_flag_raises(flag):
     state, _, flags, params, opts = co2.torch_system()
     with pytest.raises(NotImplementedError, match=next(iter(flag))):

@@ -21,7 +21,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _run(args, cwd, timeout=300):
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+    # one intra-op thread per child: the suite runs several workers at
+    # once, and children that each take every core oversubscribe them
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join([ROOT, os.path.join(ROOT, "tools")]))
     return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=timeout)
@@ -220,5 +222,87 @@ def test_energy_term_steps_run_on_cpu(step, tmp_path):
         f"w = {str(tmp_path)!r}\n"
         + ENERGY_TERM_STEPS[step] +
         "assert not any(total.values()), total\n")
+    r = _run(["-c", code], ROOT)
+    assert r.returncode == 0, r.stderr[-3000:]
+
+
+POLAR_SOLVER_STUBS = (
+    # K5 and K2 count their plain versions' calls, the switch picks K5 for
+    # every square plane, and a stand-in profiler reports one
+    # contract_sym_kernel per K5 call
+    "from torch.autograd import DeviceType\n"
+    "from mpmcxx_tpu_torch.ops import cuda_polar, polar\n"
+    "def counting(orig):\n"
+    "    def f(*a, **k):\n"
+    "        f.launches += 1\n"
+    "        return orig(*a, **k)\n"
+    "    f.launches = 0\n"
+    "    return f\n"
+    "for name in ('contract_planes_sym', 'write_plane_strips'):\n"
+    "    setattr(cuda_polar, name, counting(getattr(cuda_polar, name)))\n"
+    "polar.use_sym = lambda shape: shape[0] == shape[1]\n"
+    "class Event:\n"
+    "    def __init__(self, name):\n"
+    "        self.name, self.device_type = name, DeviceType.CUDA\n"
+    "        self.time_range = type('T', (), {'elapsed_us':\n"
+    "                                         lambda s: 1.0})()\n"
+    "class Profile:\n"
+    "    def __enter__(self):\n"
+    "        self.n = cuda_polar.contract_planes_sym.launches\n"
+    "        return self\n"
+    "    def __exit__(self, *a):\n"
+    "        self.n = cuda_polar.contract_planes_sym.launches - self.n\n"
+    "    def events(self):\n"
+    "        return [Event('contract_sym_kernel<3>')] * self.n\n"
+    "import torch.profiler\n"
+    "torch.profiler.profile = lambda **k: Profile()\n"
+    "chip_smoke._time_ms = lambda fn, reps=1: (fn(), 0.0)[1]\n"
+    "import dataclasses, torch_co2_system as co2\n"
+    "state, _, flags, params, opts = co2.torch_system()\n"
+    "opts = dataclasses.replace(opts, blocked_energy=False)\n"
+    "chip_smoke.SCF_CHUNK = chip_smoke.GROUP_PROBE = 4\n"
+    "chip_smoke.CG_MOVES = 4\n")
+POLAR_SOLVER_STEPS = {
+    "scf_cache": (
+        "total, out = chip_smoke.run_scf_solvers(state, flags, params, opts,\n"
+        "                                        ROOT, 'cpu')\n"
+        "assert out['iterations'][2] == 0 and out['cg_steps'][1] < 400\n"),
+    "cache_modes": (
+        "total, out = chip_smoke.run_cache_modes(state, flags, params, opts,\n"
+        "                                        ROOT, 'cpu')\n"
+        "assert [m for _, m, _ in out.values()] == [4, 5, 3]\n"),
+    "dense": (
+        "chip_smoke.DENSE_MOVES = 2\n"
+        "launches, ms, sweep = chip_smoke.run_dense_solvers(\n"
+        "    ROOT, w, 'cpu', device='cpu')\n"
+        "total = {'dense': launches}\n"),
+}
+
+
+@pytest.mark.parametrize("step", list(POLAR_SOLVER_STEPS))
+def test_polar_solver_steps_run_on_cpu(step, tmp_path):
+    """Steps 18-20 (precision-terminated SCF, Palmo and CG on the polar
+    cache; plane modes 4 and 5 and the no-PBC and Wolf fields; the dense
+    solvers and the tensor through the CLI) on the small CO2 system or
+    the gcmc-mof-co2 example on the CPU, with jax and the JAX package
+    made unimportable and the card's calls stubbed: their gates pass
+    (the launch gates against the counted plain calls)."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mpmcxx_tpu'] = None\n"
+        f"sys.path.insert(0, {os.path.join(ROOT, 'tests')!r})\n"
+        f"ROOT = {ROOT!r}\n"
+        "import torch\n"
+        "for f in ('synchronize', 'reset_peak_memory_stats',\n"
+        "          'max_memory_allocated', 'empty_cache',\n"
+        "          'set_sync_debug_mode'):\n"
+        "    setattr(torch.cuda, f, lambda *a, **k: 0)\n"
+        "import chip_smoke\n"
+        f"w = {str(tmp_path)!r}\n"
+        + POLAR_SOLVER_STUBS + POLAR_SOLVER_STEPS[step] +
+        "assert all(n[k] for n in total.values()\n"
+        "           for k in ('contract_planes_sym', 'write_plane_strips'))"
+        " if 'dense' not in total else not any(total['dense'].values())\n")
     r = _run(["-c", code], ROOT)
     assert r.returncode == 0, r.stderr[-3000:]

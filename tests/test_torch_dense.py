@@ -5,10 +5,11 @@ SCF, through the JAX package and the port on the same inputs.
   (fixed K = 4 and 6 Jacobi iterations, polar_precision 0) on the atoms of
   the 7-atom ``polar_ewald`` golden fixture: within 1e-10 relative (the
   same float64 formulas, summed in another order).
-- ``energy_breakdown`` on 22 goldens of every mixing rule, repulsion-
-  dispersion form, Feynman-Hibbs order, Wolf and the 3-body term, the
-  system built with the port's own parser: within the goldens' 2e-6
-  absolute (tests/test_golden.py).
+- ``energy_breakdown`` on 36 goldens of every mixing rule, repulsion-
+  dispersion form, Feynman-Hibbs order, Wolf, the 3-body term and every
+  polar solver, static field and damping, the system built with the
+  port's own parser: within the goldens' 2e-6 absolute
+  (tests/test_golden.py).
 - ``energy_breakdown_blocked`` at 1,034 atom slots with polarization off
   and with polar_mixed off (the float64 matrix-free SCF): within 1e-10
   relative of the JAX package's."""
@@ -138,25 +139,24 @@ GOLDENS = ["lj_lb", "lj_nolrc", "lb_attractive_only", "triatomic_ewald",
            "disp_nodamp", "disp_tt_damped", "dreiding", "exp_repulsion",
            "lj_9th_repulsion", "lj_buffered_14_7", "lj_c6_mixing", "lj_fh2",
            "lj_fh4", "lj_halgren", "lj_rd_crystal", "lj_wh",
-           "wh_attractive_only", "sg", "wolf"]
-# "polarvdw on" also turns polarization on (the reference's parser side
-# effect), and exp_repulsion's input then asks for a precision-terminated
-# SCF on the no-PBC field, which the port has not yet; its golden
-# compares rd alone, which does not read the SCF, so the port's case
-# turns polarization back off
-SCF_OFF = {"exp_repulsion": "polarization off\n"}
+           "wh_attractive_only", "sg", "wolf",
+           # the polar solvers (exp_repulsion above also runs its own
+           # config: "polarvdw on" turns on a precision-terminated SCF on
+           # the no-PBC field)
+           "polar_damp_off", "polar_esor", "polar_ewald", "polar_ewald_full",
+           "polar_exact", "polar_gs", "polar_gs_ranked", "polar_linear_damp",
+           "polar_nopbc", "polar_palmo", "polar_sor", "polar_wolf",
+           "polar_wolf_full", "polar_zodid"]
 
 
 @pytest.mark.parametrize("name", GOLDENS)
 def test_energy_breakdown_matches_golden(name):
+    """The reference binary's breakdown through the port's
+    energy_breakdown, with each fixture's known_delta applied as
+    tests/test_golden.py does (polar_ewald_full's records the
+    reference's scalar k weight, which both packages correct)."""
     fix = _fixture(name)
-    extra = None
-    if name in SCF_OFF:
-        st, ft, pt = _build(fix, AtomRecord_t, build_state_t, const_t)
-        with pytest.raises(NotImplementedError, match="polar_ewald"):
-            energy_t.energy_breakdown(st, ft, pt)
-        extra = fix["config_extra"] + SCF_OFF[name]
-    st, ft, pt = _build(fix, AtomRecord_t, build_state_t, const_t, extra)
+    st, ft, pt = _build(fix, AtomRecord_t, build_state_t, const_t)
     eb = energy_t.energy_breakdown(st, ft, pt)
     exp = fix["expected"]
     deltas = fix.get("known_delta", {})

@@ -239,33 +239,63 @@ def test_chain_matches_jax(case):
     {"polar_ewald_full": True}, {"polar_palmo": True},
     {"polar_zodid": True}, {"polar_wolf": True}, {"polar_gs_ranked": True}])
 def test_unported_scf_raises(flag):
-    """The SCF branches outside the fixed-K Ewald Jacobi solve raise and
-    name themselves, on the dense path and on the f64 blocked one."""
-    state, flags, params, opts = _case(co2.torch_system(), chain_t,
-                                       "nvt_f64")
+    """The SCF branches beyond the fixed-K Ewald Jacobi solve, which
+    raised until they were ported, now run through init_carry on the
+    dense path and on the f64 blocked one, and match the JAX package's
+    energy_breakdown and energy_breakdown_blocked (1e-10 relative).
+    polar_ewald_full is routed dense on the blocked path (the JAX
+    package's blocked SCF solves on the no-PBC field there), so its
+    blocked energy is held to the JAX package's dense one."""
+    from mpmcxx_tpu.ops import energy as energy_j
+    from mpmcxx_tpu_torch.ops import energy as energy_t
+    (sj, _, fj, pj, opts_j), sys_t = co2.jax_system(), co2.torch_system()
+    state, flags, params, opts = _case(sys_t, chain_t, "nvt_f64")
+    flags = flags.replace(**flag)
+    fj = fj.replace(polar_mixed=False, **flag)
     for blocked in (False, True):
-        with pytest.raises(NotImplementedError, match=next(iter(flag))):
-            chain_t.init_carry(state, flags.replace(**flag), params,
-                               dataclasses.replace(opts,
-                                                   blocked_energy=blocked),
-                               seed=0)
+        carry = chain_t.init_carry(
+            state, flags, params,
+            dataclasses.replace(opts, blocked_energy=blocked), seed=0)
+        full_t = (energy_t.energy_breakdown_blocked if blocked
+                  else energy_t.energy_breakdown)(state, flags, params)
+        full_j = (energy_j.energy_breakdown_blocked
+                  if blocked and not flag.get("polar_ewald_full")
+                  else energy_j.energy_breakdown)(sj, fj, pj)
+        for name, got in (("total", carry.obs.energy),
+                          ("polarization", carry.obs.polarization_energy),
+                          ("dipole_rrms", carry.obs.dipole_rrms),
+                          ("polarization", full_t.polarization),
+                          ("polarization_iterations",
+                           full_t.polarization_iterations)):
+            want = float(getattr(full_j, name))
+            assert float(got) == pytest.approx(
+                want, rel=1e-10, abs=0.0 if want else 1e-300), (blocked,
+                                                                name)
+        assert bool(full_t.iterator_failed) == bool(full_j.iterator_failed)
+        np.testing.assert_allclose(full_t.mu.numpy(), np.asarray(full_j.mu),
+                                   rtol=0.0, atol=1e-10 * float(
+                                       np.abs(np.asarray(full_j.mu)).max()))
 
 
 def test_polar_flags_are_free_without_polarization():
     """With polarization off no code reads the SCF's flags (the LJ-only
-    examples parse to damp_type off); precision termination still raises
-    with polarization on."""
+    examples parse to damp_type off); with polarization on a
+    precision-terminated SCF runs and its carried energy is the full
+    recompute's."""
     state, flags, params, opts = _case(co2.torch_system(), chain_t, "nvt")
     carry = chain_t.init_carry(
         state, flags.replace(damp_type=const.DAMPING_OFF, polar_max_iter=0),
         dataclasses.replace(params, polar_precision=1e-6), opts, seed=0)
     assert float(carry.obs.polarization_energy) == 0.0
+    from mpmcxx_tpu_torch.ops import energy as energy_t
     state, flags, params, opts = _case(co2.torch_system(), chain_t,
                                        "nvt_f64")
-    with pytest.raises(NotImplementedError, match="polar_precision"):
-        chain_t.init_carry(state, flags,
-                           dataclasses.replace(params, polar_precision=1e-6),
-                           opts, seed=0)
+    params = dataclasses.replace(params, polar_precision=1e-6)
+    carry = chain_t.init_carry(state, flags, params, opts, seed=0)
+    eb = energy_t.energy_breakdown(state, flags, params)
+    assert float(carry.obs.polarization_energy) == float(eb.polarization)
+    assert float(eb.polarization) < 0.0 and not bool(eb.iterator_failed)
+    assert 1.0 < float(eb.polarization_iterations) < 128.0
 
 
 def test_cavity_bias_outside_uvt_raises():

@@ -33,8 +33,7 @@ JAX package and the port on the same inputs.
   cache, uVT with DREIDING on the incremental LJ/Ewald branch (134
   slots), and NVT with the many-body vdW term on the dense full
   recompute (44 slots).
-- The flags of the polar solvers and special moves still raise and name
-  themselves.
+- The flags of the special moves still raise and name themselves.
 """
 
 import dataclasses
@@ -483,17 +482,20 @@ def test_chain_matches_jax(name):
 @pytest.mark.parametrize("flag", [
     {"rd_anharmonic": True}, {"gwp": True}, {"spectre": True},
     {"feynman_kleinert": True}, {"quantum_rotation": True},
-    {"polar_palmo": True}, {"polar_zodid": True}, {"polar_wolf": True},
-    {"polar_gs": True}, {"polar_ewald_full": True},
-    {"damp_type": const.DAMPING_LINEAR}])
+    {"rd_anharmonic_k": 2.0}, {"rd_anharmonic_g": 0.5},
+    {"spectre": True, "polar_palmo": True},
+    {"gwp": True, "polar_wolf": True},
+    {"feynman_kleinert": True, "polar_gs": True},
+    {"quantum_rotation": True, "damp_type": const.DAMPING_LINEAR}])
 def test_unported_terms_raise(flag):
-    """The special moves' terms and the polar solvers raise and name
-    themselves, with polarization on (the SCF branches) and under the
-    many-body vdW term (the Thole tensor's damping)."""
+    """The special moves' terms raise and name themselves, with
+    polarization on and off under the many-body vdW term, whatever SCF
+    and Thole damping they come with (every polar solver and damping is
+    ported)."""
     _, (st, ft, pt) = _system("polarvdw")
-    with pytest.raises(NotImplementedError, match=next(iter(flag))):
+    name = next(iter(flag))
+    with pytest.raises(NotImplementedError, match=name):
         energy_t.energy_breakdown(st, ft.replace(**flag), pt)
-    if "damp_type" in flag:
-        with pytest.raises(NotImplementedError, match="damp_type"):
-            energy_t.energy_breakdown(
-                st, ft.replace(polarization=False, **flag), pt)
+    with pytest.raises(NotImplementedError, match=name):
+        energy_t.energy_breakdown(
+            st, ft.replace(polarization=False, **flag), pt)
