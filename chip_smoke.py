@@ -166,8 +166,33 @@ its hand-written kernels, and check the results.
    launch; ms per move; launches of one sweep); the polar_tensor
    golden's atoms through the CLI with ``polarizability_tensor on``:
    exit 0 and the reference's tensor within its print quantum.
-21. Prints ``{"kernels": [...]}`` (per kernel: the sum over the main paths
-   of steps 3, 5-20 of its launches, each path counted from 0, and
+21. The special moves on the dense path: the goldens anharmonic,
+   gwp_coulomb_kinetic (with its kinetic term) and spectre_nvt through
+   ``energy_breakdown`` on the card within 2e-6 of the reference binary
+   and 1e-12 relative of the CPU's; then 64 NVT moves on the card and on
+   the CPU (seed 0) of SPECTRE on the spectre_nvt state (1 target + 12
+   SPECTRE charges; the reader skips its 8 BOX atoms), GWP on the gwp
+   golden's atoms, the anharmonic oscillator
+   with Feynman-Hibbs order 4, and nvt-argon with no topology (atom-mask
+   moves): the same accept sequence, energies within 1e-9 relative,
+   SPECTRE charges within 1e-12 and neutral, GWP widths positive; no
+   K1-K5 launch; ms per move.
+22. The H2 flagship (10,752 slots, S = 5) with its first 16 molecules
+   adiabatic through ``runner.Simulation`` in uVT with quantum rotation
+   (spinflip_probability 0.1, adiabatic_probability 0.1) on the polar
+   cache under the default schedule, 2 corrtimes of 32 moves: a spin
+   flip and an adiabatic move proposed, every adiabatic move on a
+   flagged molecule, every flip rejected and the spins unchanged (the
+   rotational partition functions stay 0, as in the JAX package), the
+   carried energies against each refresh as in step 5, every committed
+   plane within 1e-6 of a rebuild, K5 >= 4 and K2 >= 1 launches per
+   move; moves/s and launches per move.
+23. Steps 13's Gibbs VLE and 14's PI-NVT with quantum rotation and
+   spinflip_probability 0.2, one corrtime each: the spin flips counted
+   as a host replay of the move draws counts them, every one rejected,
+   and the rest of each step's gates; steps/s and moves/s.
+24. Prints ``{"kernels": [...]}`` (per kernel: the sum over the main paths
+   of steps 3, 5-23 of its launches, each path counted from 0, and
    the count of each path; the time, plain time and bound at the shapes
    of step 4 for K2, K3 and K5, step 6 for K4 and step 7 for K1; the
    worst error of the checks), the card's name and power limit, and,
@@ -330,6 +355,32 @@ DENSE_SETTINGS = {   # step 20: FFlags changes, RunParams changes
 }
 DENSE_MOVES = 8
 DENSE_REL = 1e-9
+# steps 21-23: the special moves.  Step 21 runs SPECIAL_MOVES NVT moves of
+# each chain (golden or example, FFlags changes, MCOptions) on the card
+# and the CPU; step 22 flags the H2 flagship's first H2_ADIABATIC
+# molecules adiabatic and runs 2 corrtimes of SPIN_CHUNK moves; steps 22
+# and 23 turn quantum rotation on with QROT_LINES (the validator's
+# keywords, read by nothing), step 23 at spinflip_probability SPIN_P
+SPECIAL_GOLDENS = ("anharmonic", "gwp_coulomb_kinetic", "spectre_nvt")
+SPECIAL_MOVES = 64
+SPECIAL_CHAINS = {
+    "spectre": ("spectre_nvt", {}, dict(
+        move_factor=0.3, spectre=True, spectre_max_charge=50.0,
+        spectre_max_target=5.0)),
+    "gwp": ("gwp_coulomb_kinetic", {}, dict(
+        move_factor=0.2, gwp=True, gwp_probability=0.3)),
+    "anharmonic_fh4": ("anharmonic", dict(
+        feynman_hibbs=True, feynman_hibbs_order=4), dict(
+        move_factor=0.4, rd_anharmonic=True)),
+    "argon_no_topology": ("nvt-argon", {}, dict(move_factor=0.2)),
+}
+H2_ADIABATIC = 16
+H2_SPIN_SLOTS = 10752
+SPIN_CHUNK = 32
+QROT_LINES = ("quantum_rotation on\nquantum_rotation_B 85.3\n"
+              "quantum_rotation_level_max 36\nquantum_rotation_l_max 5\n"
+              "quantum_rotation_sum 10\n")
+SPIN_P = 0.2
 SYNTH_A = 4096
 RAGGED_A = 4001          # A % 4 != 0: no TMA tensor map (16-byte rows)
 SYM_SYNTH_A = (4096, 4032)   # K5's 64-row tiles: nr = 64 (even), 63 (odd)
@@ -1797,55 +1848,9 @@ def run_gibbs_vle(workdir, device="cuda"):
     (launch counts, second corrtime's steps/s, syncs per step, launches
     per step, the device's idle share)."""
     import torch
-    import gibbs_vle as vle
-    from mpmcxx_tpu_torch import constants as const
-    from mpmcxx_tpu_torch.config.parser import read_config
-    from mpmcxx_tpu_torch.mc.gibbs import (GibbsSimulation,
-                                           make_gibbs_chunk_runner)
+    from mpmcxx_tpu_torch.mc.gibbs import make_gibbs_chunk_runner
 
-    sig3 = vle.SIG ** 3
-    V_box = VLE_N_BOX / vle.RHO_TOTAL * sig3
-    L = V_box ** (1 / 3)
-    # the lever rule at the literature densities (gibbs_vle.main)
-    rl, rv = vle.LIT["rho_l"][0] / sig3, vle.LIT["rho_v"][0] / sig3
-    n_total, V_total = 2 * VLE_N_BOX, 2 * V_box
-    n_a = int(round(rl * (n_total - V_total * rv) / (rl - rv)))
-    n_b = n_total - n_a
-    d = os.path.join(workdir, "gibbs-vle")
-    os.makedirs(d)
-    vle.write_box(os.path.join(d, "boxA.pqr"), n_a, L, 4)
-    vle.write_box(os.path.join(d, "boxB.pqr"), n_b, L, 5)
-    with open(os.path.join(d, "run.in"), "w") as f:
-        f.write(f"""job_name vle
-ensemble nvt_gibbs
-rd_lrc on
-temperature {vle.T_K}
-transfer_probability 0.25
-volume_probability 0.02
-volume_change_factor 0.10
-numsteps {2 * VLE_STEPS}
-corrtime {VLE_STEPS}
-seed 4
-move_factor 0.05
-pqr_input {os.path.join(d, "boxA.pqr")}
-pqr_input_B {os.path.join(d, "boxB.pqr")}
-energy_output off
-pqr_restart off
-pqr_output off
-traj_output off
-basis1 {L:.6f} 0 0
-basis2 0 {L:.6f} 0
-basis3 0 0 {L:.6f}
-""")
-    sim = GibbsSimulation(read_config(os.path.join(d, "run.in")), quiet=True,
-                          device=device)
-    slots = (sim.state_a.n_atom_slots, sim.state_b.n_atom_slots)
-    _say(f"[gibbs-vle] N = ({n_a}, {n_b}), L = {L:.2f} A, {slots} atom "
-         f"slots, T = {vle.T_K:.2f} K")
-    if (n_a, n_b) != (497, 15) or slots != (994, 512) or \
-            sim.opts.blocked_energy or not sim.opts.incremental:
-        raise AssertionError(f"[gibbs-vle] shape {n_a, n_b} {slots}, "
-                             f"options {sim.opts}")
+    sim = vle_simulation(workdir, device)
     zero_launches()
     carry = sim._init_carry()
     n0 = float(carry.obs_a.N + carry.obs_b.N)
@@ -1858,36 +1863,9 @@ basis3 0 0 {L:.6f}
         torch.cuda.synchronize()
         dt = time.time() - t0
         moves_seen.append(outs.movetype.cpu())
-        inc = (float(carry.energy_a), float(carry.energy_b))
-        carry = sim._refresh(carry)
-        for box, got, full in (("A", inc[0], float(carry.energy_a)),
-                               ("B", inc[1], float(carry.energy_b))):
-            rel, ok = _close(got, full, 1e-9)
-            _say(f"[gibbs-vle] corrtime {c + 1} box {box}: incremental "
-                 f"{got:.9f} vs full {full:.9f}: rel {rel:.2e} (tol 1e-09)")
-            if not ok:
-                raise AssertionError(f"[gibbs-vle] box {box}: rel {rel}")
+        carry = _vle_refresh(sim, carry, f"corrtime {c + 1}")
     launches = launches_now()
-    n1 = float(carry.obs_a.N + carry.obs_b.N)
-    v1 = float(carry.state_a.pbc.volume + carry.state_b.pbc.volume)
-    mt = torch.cat(moves_seen)
-    n_xfer = int((mt == const.MOVETYPE_INSERT).sum())
-    n_vol = int((mt == const.MOVETYPE_VOLUME).sum())
-    acc = carry.accept.tolist()
-    _say(f"[gibbs-vle] N = ({float(carry.obs_a.N):g}, "
-         f"{float(carry.obs_b.N):g}), V = "
-         f"({float(carry.state_a.pbc.volume):.3f}, "
-         f"{float(carry.state_b.pbc.volume):.3f}); {n_xfer} transfers "
-         f"proposed ({acc[const.MOVETYPE_INSERT]} accepted), {n_vol} volume "
-         f"exchanges ({acc[const.MOVETYPE_VOLUME]}), displacements "
-         f"accepted {acc[const.MOVETYPE_DISPLACE]}")
-    if n1 != n0 or abs(v1 - v0) > 1e-12 * v0:
-        raise AssertionError(f"[gibbs-vle] N {n0} -> {n1}, V {v0} -> {v1}")
-    if n_xfer == 0 or n_vol == 0:
-        raise AssertionError("[gibbs-vle] no transfer or no volume "
-                             "exchange proposed")
-    if any(launches.values()):
-        raise AssertionError(f"[gibbs-vle] kernels launched: {launches}")
+    _vle_gates(carry, n0, v0, torch.cat(moves_seen), launches)
     n = VLE_PROBE
     t0 = time.time()
     (carry, _), n_launch, dev_ms, counted = count_launches(
@@ -1903,6 +1881,104 @@ basis3 0 0 {L:.6f}
          f"step ({n} more steps, profiled in {probe_s:.1f} s) against "
          f"{wall_ms:.3f} ms of wall: device idle {idle:.1%}")
     return launches, VLE_STEPS / dt, syncs / VLE_STEPS, n_launch / n, idle
+
+
+def vle_simulation(workdir, device="cuda", extra="", corrtimes=2,
+                   label="gibbs-vle"):
+    """Step 13's GibbsSimulation in ``workdir``/``label`` (input lines
+    ``extra`` added, ``corrtimes`` corrtimes of VLE_STEPS), its shape
+    checked: N = (497, 15) on 994 and 512 slots, the dense incremental
+    path."""
+    import gibbs_vle as vle
+    from mpmcxx_tpu_torch.config.parser import read_config
+    from mpmcxx_tpu_torch.mc.gibbs import GibbsSimulation
+
+    sig3 = vle.SIG ** 3
+    V_box = VLE_N_BOX / vle.RHO_TOTAL * sig3
+    L = V_box ** (1 / 3)
+    # the lever rule at the literature densities (gibbs_vle.main)
+    rl, rv = vle.LIT["rho_l"][0] / sig3, vle.LIT["rho_v"][0] / sig3
+    n_total, V_total = 2 * VLE_N_BOX, 2 * V_box
+    n_a = int(round(rl * (n_total - V_total * rv) / (rl - rv)))
+    n_b = n_total - n_a
+    d = os.path.join(workdir, label)
+    os.makedirs(d)
+    vle.write_box(os.path.join(d, "boxA.pqr"), n_a, L, 4)
+    vle.write_box(os.path.join(d, "boxB.pqr"), n_b, L, 5)
+    with open(os.path.join(d, "run.in"), "w") as f:
+        f.write(f"""job_name vle
+ensemble nvt_gibbs
+rd_lrc on
+temperature {vle.T_K}
+transfer_probability 0.25
+volume_probability 0.02
+volume_change_factor 0.10
+numsteps {corrtimes * VLE_STEPS}
+corrtime {VLE_STEPS}
+seed 4
+move_factor 0.05
+pqr_input {os.path.join(d, "boxA.pqr")}
+pqr_input_B {os.path.join(d, "boxB.pqr")}
+energy_output off
+pqr_restart off
+pqr_output off
+traj_output off
+basis1 {L:.6f} 0 0
+basis2 0 {L:.6f} 0
+basis3 0 0 {L:.6f}
+{extra}""")
+    sim = GibbsSimulation(read_config(os.path.join(d, "run.in")), quiet=True,
+                          device=device)
+    slots = (sim.state_a.n_atom_slots, sim.state_b.n_atom_slots)
+    _say(f"[{label}] N = ({n_a}, {n_b}), L = {L:.2f} A, {slots} atom "
+         f"slots, T = {vle.T_K:.2f} K")
+    if (n_a, n_b) != (497, 15) or slots != (994, 512) or \
+            sim.opts.blocked_energy or not sim.opts.incremental:
+        raise AssertionError(f"[{label}] shape {n_a, n_b} {slots}, "
+                             f"options {sim.opts}")
+    return sim
+
+
+def _vle_refresh(sim, carry, what, label="gibbs-vle"):
+    """The refresh after a VLE corrtime: each box's incremental energy
+    within 1e-9 of its full recompute."""
+    inc = (float(carry.energy_a), float(carry.energy_b))
+    carry = sim._refresh(carry)
+    for box, got, full in (("A", inc[0], float(carry.energy_a)),
+                           ("B", inc[1], float(carry.energy_b))):
+        rel, ok = _close(got, full, 1e-9)
+        _say(f"[{label}] {what} box {box}: incremental {got:.9f} vs full "
+             f"{full:.9f}: rel {rel:.2e} (tol 1e-09)")
+        if not ok:
+            raise AssertionError(f"[{label}] box {box}: rel {rel}")
+    return carry
+
+
+def _vle_gates(carry, n0, v0, mt, launches, label="gibbs-vle"):
+    """N_a + N_b and V_a + V_b (1e-12) conserved, a transfer and a volume
+    exchange among the move types ``mt``, no K1-K5 launch; returns the
+    counts of transfers and volume exchanges."""
+    from mpmcxx_tpu_torch import constants as const
+    n1 = float(carry.obs_a.N + carry.obs_b.N)
+    v1 = float(carry.state_a.pbc.volume + carry.state_b.pbc.volume)
+    n_xfer = int((mt == const.MOVETYPE_INSERT).sum())
+    n_vol = int((mt == const.MOVETYPE_VOLUME).sum())
+    acc = carry.accept.tolist()
+    _say(f"[{label}] N = ({float(carry.obs_a.N):g}, "
+         f"{float(carry.obs_b.N):g}), V = "
+         f"({float(carry.state_a.pbc.volume):.3f}, "
+         f"{float(carry.state_b.pbc.volume):.3f}); {n_xfer} transfers "
+         f"proposed ({acc[const.MOVETYPE_INSERT]} accepted), {n_vol} volume "
+         f"exchanges ({acc[const.MOVETYPE_VOLUME]}), displacements "
+         f"accepted {acc[const.MOVETYPE_DISPLACE]}")
+    if n1 != n0 or abs(v1 - v0) > 1e-12 * v0:
+        raise AssertionError(f"[{label}] N {n0} -> {n1}, V {v0} -> {v1}")
+    if n_xfer == 0 or n_vol == 0:
+        raise AssertionError(f"[{label}] no transfer or no volume "
+                             "exchange proposed")
+    if any(launches.values()):
+        raise AssertionError(f"[{label}] kernels launched: {launches}")
+    return n_xfer, n_vol
 
 
 def write_h2_fluid(path):
@@ -1923,6 +1999,48 @@ def write_h2_fluid(path):
         f.write("END\n")
 
 
+def write_pi_h2(workdir, extra="", corrtimes=2, label="pi-h2"):
+    """Step 14's input in ``workdir``/``label``: the fluid's PQR and a
+    run.in of ``corrtimes`` corrtimes of PI_H2["moves"] with the input
+    lines ``extra``; returns the directory."""
+    h = PI_H2
+    d = os.path.join(workdir, label)
+    os.makedirs(d)
+    write_h2_fluid(os.path.join(d, "h2.pqr"))
+    with open(os.path.join(d, "run.in"), "w") as f:
+        f.write(f"""job_name ph2
+ensemble pi_nvt
+temperature {h['T']}
+numsteps {corrtimes * h['moves']}
+corrtime {h['moves']}
+seed 1
+move_factor {h['move_factor']}
+bead_perturb_probability {h['perturb']}
+pi_trial_chain_length {h['chain']}
+pqr_input h2.pqr
+basis1 {h['L']} 0 0
+basis2 0 {h['L']} 0
+basis3 0 0 {h['L']}
+{extra}""")
+    return d
+
+
+def pi_h2_simulation(device="cuda", label="pi-h2"):
+    """The PISimulation of the run.in in the working directory (see
+    write_pi_h2) at PI_H2's beads, its stack and path checked."""
+    from mpmcxx_tpu_torch.config.parser import read_config
+    from mpmcxx_tpu_torch.mc import pi
+    h = PI_H2
+    cfg = read_config("run.in")
+    cfg.total_trotter_number = h["beads"]      # as -P does
+    sim = pi.PISimulation(cfg, quiet=True, device=device)
+    if sim.stack.pos.shape[:2] != (h["beads"], h["n"]) or \
+            not sim.incremental:
+        raise AssertionError(f"[{label}] stack {tuple(sim.stack.pos.shape)}"
+                             f", incremental {sim.incremental}")
+    return sim
+
+
 def run_pi_h2(workdir, device="cuda"):
     """Phase (i): PI-NVT of 512 single-site para-H2 (Buch's LJ) at 25 K and
     0.0233 A^-3 (L = 28.01 A, cutoff L/2), P = 16 beads, bead
@@ -1936,39 +2054,15 @@ def run_pi_h2(workdir, device="cuda"):
     the device's idle share, one corrtime's restart-write seconds)."""
     import torch
     from mpmcxx_tpu_torch import constants as const
-    from mpmcxx_tpu_torch.config.parser import read_config
     from mpmcxx_tpu_torch.io.pqr import make_filename
     from mpmcxx_tpu_torch.mc import pi
 
     h = PI_H2
-    d = os.path.join(workdir, "pi-h2")
-    os.makedirs(d)
-    write_h2_fluid(os.path.join(d, "h2.pqr"))
-    with open(os.path.join(d, "run.in"), "w") as f:
-        f.write(f"""job_name ph2
-ensemble pi_nvt
-temperature {h['T']}
-numsteps {2 * h['moves']}
-corrtime {h['moves']}
-seed 1
-move_factor {h['move_factor']}
-bead_perturb_probability {h['perturb']}
-pi_trial_chain_length {h['chain']}
-pqr_input h2.pqr
-basis1 {h['L']} 0 0
-basis2 0 {h['L']} 0
-basis3 0 0 {h['L']}
-""")
+    d = write_pi_h2(workdir)
     cwd = os.getcwd()
     os.chdir(d)
     try:
-        cfg = read_config("run.in")
-        cfg.total_trotter_number = h["beads"]      # as -P does
-        sim = pi.PISimulation(cfg, quiet=True, device=device)
-        if sim.stack.pos.shape[:2] != (h["beads"], h["n"]) or \
-                not sim.incremental:
-            raise AssertionError(f"[pi-h2] stack {tuple(sim.stack.pos.shape)}"
-                                 f", incremental {sim.incremental}")
+        sim = pi_h2_simulation(device)
         log = {"chunks": [], "recompute": [], "writes": []}
         run_chunk, recompute, write = sim._run_chunk, sim._recompute, \
             sim._write_beads
@@ -2785,6 +2879,433 @@ def run_dense_solvers(root, workdir, card, device="cuda"):
     return launches, ms, sweep
 
 
+SPECIAL_FIELD = {"rd": "rd", "coulombic": "coulombic", "kinetic": "kinetic"}
+
+
+def special_system(root, source, device, flag_changes=None):
+    """(state, flags, params) on ``device`` of a special-move golden's
+    atoms and config (tests/golden, read as tests/test_golden.py reads
+    them) or, for "nvt-argon", of that example's PQR and run.in."""
+    from mpmcxx_tpu_torch import constants as const
+    from mpmcxx_tpu_torch.config.parser import parse_config
+    from mpmcxx_tpu_torch.flags import FFlags, RunParams
+    from mpmcxx_tpu_torch.io.pqr import read_pqr
+    from mpmcxx_tpu_torch.state import AtomRecord, build_state
+    if source == "nvt-argon":
+        atoms = read_pqr(os.path.join(root, "examples", source,
+                                      "argon.pqr"))
+        L, T, cfg_flags = 22.0, 120.0, FFlags()
+        alpha = 3.5 / (L / 2.0)
+        params = RunParams(temperature=T, ewald_alpha=alpha,
+                           polar_ewald_alpha=alpha)
+    else:
+        with open(os.path.join(root, "tests", "golden",
+                               source + ".json")) as f:
+            fix = json.load(f)
+        if "pqr_text" in fix:
+            atoms = read_pqr(fix["pqr_text"], is_text=True)
+        else:
+            atoms = [AtomRecord(
+                atomtype=at, moleculetype=mt, molecule_id=mid, x=x, y=y,
+                z=z, mass=mass, charge=q * const.E2REDUCED,
+                polarizability=al, epsilon=eps, sigma=sig, omega=om,
+                gwp_alpha=gw)
+                for (at, mt, mid, x, y, z, mass, q, al, eps, sig, om, gw,
+                     *_) in fix["atoms"]]
+        L = fix["basis"]
+        cfg = parse_config(fix["config_extra"])
+        cfg.temperature = fix["temperature"]
+        cfg_flags, params = cfg.to_flags(), cfg.to_params()
+        if not cfg.ewald_alpha_set:
+            params = params.replace(ewald_alpha=3.5 / (L / 2.0))
+        if not cfg.polar_ewald_alpha_set:
+            params = params.replace(polar_ewald_alpha=3.5 / (L / 2.0))
+    state, _ = build_state(atoms, np.eye(3) * L, device=device)
+    return state, cfg_flags.replace(**(flag_changes or {})), params
+
+
+def run_special_moves(root, device="cuda"):
+    """Step 21: the special moves' energies and chains on the dense path.
+    The goldens anharmonic, gwp_coulomb_kinetic (with kinetic) and
+    spectre_nvt through ``energy_breakdown`` on the card within 2e-6 of
+    the reference binary and 1e-12 relative of the CPU's; then
+    SPECIAL_MOVES NVT moves of each of SPECIAL_CHAINS on the card and on
+    the CPU (seed 0): the same accept sequence, energies within 1e-9
+    relative, SPECTRE charges within 1e-12 and their live sum 0 (the
+    renormalization's), GWP widths positive, some moves accepted; no
+    K1-K5 launch.  Returns (launch counts, card ms per move by chain)."""
+    import torch
+    from mpmcxx_tpu_torch import constants as const
+    from mpmcxx_tpu_torch.mc import chain
+    from mpmcxx_tpu_torch.ops.energy import energy_breakdown
+    from mpmcxx_tpu_torch.runner import capacity_opts
+    from mpmcxx_tpu_torch.state import topology
+
+    zero_launches()
+    for name in SPECIAL_GOLDENS:
+        with open(os.path.join(root, "tests", "golden",
+                               name + ".json")) as f:
+            fix = json.load(f)
+        ebs = [energy_breakdown(*special_system(root, name, dev))
+               for dev in (device, "cpu")]
+        for comp in fix["compare"]:
+            want = fix["expected"][comp] + \
+                fix.get("known_delta", {}).get(comp, 0.0)
+            card, cpu = (float(getattr(eb, SPECIAL_FIELD[comp]))
+                         for eb in ebs)
+            rel, ok = _close(card, cpu, 1e-12)
+            _say(f"[special] {name} {comp}: card {card:.9f}, reference "
+                 f"binary {want:.9f} (|diff| {abs(card - want):.1e}, tol "
+                 f"2e-06), CPU rel {rel:.1e} (tol 1e-12)")
+            if not (abs(card - want) <= 2e-6 and ok):
+                raise AssertionError(f"[special] {name} {comp}")
+    ms = {}
+    for name, (source, fkw, okw) in SPECIAL_CHAINS.items():
+        runs = {}
+        for dev in (device, "cpu"):
+            state, flags, params = special_system(root, source, dev, fkw)
+            opts = capacity_opts(chain.MCOptions(
+                ensemble=const.ENSEMBLE_NVT, numsteps=SPECIAL_MOVES, **okw),
+                flags, state)
+            carry = chain.init_carry(state, flags, params, opts, seed=0)
+            runner = chain.make_chunk_runner(
+                flags, params, opts, SPECIAL_MOVES,
+                topology=None if name.endswith("no_topology")
+                else topology(state))
+            torch.cuda.synchronize()
+            t0 = time.time()
+            carry, outs = runner(carry)
+            torch.cuda.synchronize()
+            runs[dev] = (state, carry, outs, time.time() - t0)
+        (st, card, outs, dt), (_, cpu, outs_cpu, dt_cpu) = \
+            runs[device], runs["cpu"]
+        acc = outs.accepted.tolist()
+        if acc != outs_cpu.accepted.tolist() or not any(acc):
+            raise AssertionError(f"[special] {name}: accept sequences "
+                                 f"differ or nothing accepted")
+        rel, ok = _close(float(card.obs.energy), float(cpu.obs.energy), 1e-9)
+        if not ok:
+            raise AssertionError(f"[special] {name}: energy rel {rel}")
+        extra = ""
+        if name == "spectre":
+            q, q_cpu = card.state.charge.cpu(), cpu.state.charge
+            live = (st.spectre & st.aalive).cpu()
+            dq = float(torch.max(torch.abs(q - q_cpu)))
+            total = float(q[live].sum())
+            extra = f"; charges card vs CPU {dq:.1e}, live sum {total:.1e}"
+            if not (dq <= 1e-12 and abs(total) <= 1e-9):
+                raise AssertionError(f"[special] spectre charges{extra}")
+        if name == "gwp":
+            ga = card.state.gwp_alpha[st.gwp_spin]
+            extra = f"; widths {ga.tolist()}"
+            if not bool(torch.all(ga > 0)):
+                raise AssertionError(f"[special] gwp widths{extra}")
+        ms[name] = dt * 1e3 / SPECIAL_MOVES
+        _say(f"[special] {name}: {sum(acc)}/{SPECIAL_MOVES} accepted on "
+             f"both; E card {float(card.obs.energy):.9f} vs CPU rel "
+             f"{rel:.1e}{extra}; {ms[name]:.2f} ms per move on the card, "
+             f"{dt_cpu * 1e3 / SPECIAL_MOVES:.2f} on the CPU")
+    launches = launches_now()
+    if any(launches.values()):
+        raise AssertionError(f"[special] kernels launched: {launches}")
+    return launches, ms
+
+
+def write_h2_spin_input(workdir):
+    """Step 22's input in ``workdir``: tools/flagship.py's H2 flagship
+    PQR with its first H2_ADIABATIC molecules flagged adiabatic (A), and
+    a uVT run.in with the flagship's settings, spin flips and adiabatic
+    moves, 2 corrtimes of SPIN_CHUNK."""
+    import flagship
+    pqr = os.path.join(workdir, "flagship_h2.pqr")
+    flagship.write_pqr_h2(pqr)
+    with open(pqr) as f:
+        lines = f.read().splitlines()
+    flagged = set()
+    for i, ln in enumerate(lines):
+        tok = ln.split()
+        if tok and tok[0] == "ATOM" and tok[3] == "H2" and (
+                tok[5] in flagged or len(flagged) < H2_ADIABATIC):
+            flagged.add(tok[5])
+            lines[i] = ln.replace(" H2  M ", " H2  A ", 1)
+    with open(pqr, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    L = flagship.L
+    with open(os.path.join(workdir, "run.in"), "w") as f:
+        f.write(f"""job_name h2_spin
+ensemble uvt
+temperature {flagship.TEMPERATURE}
+pressure {flagship.FUGACITY}
+insert_probability {flagship.INSERT_PROB}
+move_factor {flagship.MOVE_FACTOR}
+spinflip_probability 0.1
+adiabatic_probability 0.1
+numsteps {2 * SPIN_CHUNK}
+corrtime {SPIN_CHUNK}
+seed 0
+polarization on
+polar_iterative on
+polar_ewald on
+polar_mixed on
+polar_max_iter {flagship.POLAR_MAX_ITER}
+polar_damp_type exponential
+polar_damp {flagship.POLAR_DAMP}
+{QROT_LINES}pqr_input flagship_h2.pqr
+basis1 {L} 0 0
+basis2 0 {L} 0
+basis3 0 0 {L}
+""")
+
+
+def run_h2_spin(workdir, card, device="cuda"):
+    """Step 22: the H2 flagship (tools/flagship.py; its first
+    H2_ADIABATIC molecules adiabatic) through ``runner.Simulation`` in uVT
+    with quantum rotation, spin flips and adiabatic moves on the polar
+    cache under the default schedule (K5 and K2), at 10,752 slots (S = 5),
+    2 corrtimes of SPIN_CHUNK moves.  Checks: a spin flip and an
+    adiabatic move proposed, every adiabatic move on a flagged molecule;
+    every flip rejected and the spins unchanged (the rotational partition
+    functions stay 0: NaN factor); before each refresh the carried rd and
+    coulombic within 1e-8 and polarization within 1e-5 of its full
+    recompute, and every committed plane within 1e-6 of a rebuild; K5 >=
+    4 and K2 >= 1 launches per move, K1, K3 and K4 none.  Then the
+    kernel launches per move over FH_PROBE more moves.  Returns (launch
+    counts, second corrtime's moves/s)."""
+    import flagship
+    import torch
+    from mpmcxx_tpu_torch import constants as const
+    from mpmcxx_tpu_torch.config.parser import read_config
+    from mpmcxx_tpu_torch.mc import chain, moves
+    from mpmcxx_tpu_torch.ops import polar_cache as pcache
+    from mpmcxx_tpu_torch.runner import Simulation
+
+    write_h2_spin_input(workdir)
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    displace = moves.displace
+    try:
+        sim = Simulation(read_config("run.in"), quiet=True,
+                         uvt_capacity_factor=1.0 + (
+                             flagship.H2_EXTRA_SLOTS + 0.5) / flagship.N_H2,
+                         device=device)
+        st0 = sim.carry.state
+        if st0.n_atom_slots != H2_SPIN_SLOTS or \
+                sim.opts.max_mol_atoms != 5 or \
+                not sim.opts.polar_incremental:
+            raise AssertionError(f"[h2-spin] {st0.n_atom_slots} slots, "
+                                 f"options {sim.opts}")
+        spins0 = st0.nuclear_spin.clone()
+        log = {"chunks": [], "refresh": [], "planes": []}
+        targets = []
+        fields = ("rd_energy", "coulombic_energy", "polarization_energy")
+        run_chunk, refresh = sim.run_chunk, sim.refresh
+
+        def timed(carry):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            carry, outs = run_chunk(carry)
+            torch.cuda.synchronize()
+            log["chunks"].append((time.time() - t0, outs))
+            return carry, outs
+
+        def checked(carry):
+            fresh = pcache.cache_init(carry.state, sim.flags, sim.params)
+            log["planes"].append(max(
+                float(torch.max(torch.abs(got - want))) for got, want in
+                zip(pcache.planes_of(carry.pcache),
+                    pcache.planes_of(fresh))))
+            del fresh
+            inc = {f: float(getattr(carry.obs, f)) for f in fields}
+            out = refresh(carry)
+            log["refresh"].append(
+                (inc, {f: float(getattr(out.obs, f)) for f in fields}))
+            return out
+
+        def recorded(state, dice, axis, u_angle, mol, *a):
+            # the adiabatic branch's displacement, built every uVT step
+            targets.append(mol.clone())
+            return displace(state, dice, axis, u_angle, mol, *a)
+
+        sim.run_chunk, sim.refresh = timed, checked
+        moves.displace = recorded
+        zero_launches()
+        sim.run()
+        torch.cuda.synchronize()
+        launches = launches_now()
+    finally:
+        moves.displace = displace
+        os.chdir(cwd)
+    n_moves = 2 * SPIN_CHUNK
+    _check_refreshes("[h2-spin]", log, (("rd_energy", 1e-8),
+                                        ("coulombic_energy", 1e-8),
+                                        ("polarization_energy", 1e-5)), 2)
+    _say(f"[h2-spin] committed planes vs rebuild before each refresh: max "
+         f"|diff| {max(log['planes']):.3e} (tol 1e-06)")
+    if not max(log["planes"]) <= 1e-6:
+        raise AssertionError("[h2-spin] a plane drifted from a rebuild")
+    outs = [o for _, o in log["chunks"]]
+    mt = torch.cat([o.movetype for o in outs])
+    acc = torch.cat([o.accepted for o in outs])
+    spin = mt == const.MOVETYPE_SPINFLIP
+    adia = mt == const.MOVETYPE_ADIABATIC
+    if len(targets) != n_moves:
+        raise AssertionError(f"[h2-spin] {len(targets)} adiabatic "
+                             f"proposals for {n_moves} moves")
+    hit = st0.mol_adiabatic[torch.stack(targets)[adia]]
+    carry = sim.carry
+    _say(f"[h2-spin] {int(spin.sum())} spin flips ({int((spin & acc).sum())}"
+         f" accepted), {int(adia.sum())} adiabatic moves "
+         f"({int((adia & acc).sum())} accepted, every one on a flagged "
+         f"molecule: {bool(torch.all(hit))}), {int(acc.sum())} of {n_moves} "
+         f"moves accepted; N = {int(carry.obs.N)}")
+    if not spin.any() or not adia.any() or not bool(torch.all(hit)):
+        raise AssertionError("[h2-spin] no spin flip, no adiabatic move or "
+                             "one off the flagged molecules")
+    if bool((spin & acc).any()) or not torch.equal(
+            carry.state.nuclear_spin[:len(spins0)], spins0):
+        raise AssertionError("[h2-spin] a spin flip was accepted")
+    per_move = {k: launches[k] / n_moves for k in
+                ("contract_planes_sym", "write_plane_strips")}
+    if per_move["contract_planes_sym"] < 4 or \
+            per_move["write_plane_strips"] < 1 or \
+            launches["contract_planes"] or launches["contract_planes_tri"] \
+            or launches["occupancy"]:
+        raise AssertionError(f"[h2-spin] launches {launches}")
+    probe = chain.make_chunk_runner(sim.flags, sim.params, sim.opts,
+                                    FH_PROBE, topology=sim.topology)
+    _, n_launch, _, what = count_launches(lambda: probe(carry))
+    dt = log["chunks"][-1][0]
+    _say(f"[h2-spin] second corrtime: {SPIN_CHUNK} moves in {dt:.3f} s = "
+         f"{SPIN_CHUNK / dt:.2f} moves/s on {card}; K5 "
+         f"{per_move['contract_planes_sym']:.2f} and K2 "
+         f"{per_move['write_plane_strips']:.2f} launches per move (the "
+         f"refreshes' solves included); kernel launches per move ({what}, "
+         f"{FH_PROBE} moves): {n_launch / FH_PROBE:.1f}; launches "
+         f"{launches}")
+    return launches, SPIN_CHUNK / dt
+
+
+def _flips_rejected(label, outs, replayed):
+    """The spin flips among ``outs``: their count equal to ``replayed``
+    (the host's replay of the move draws) and none accepted."""
+    from mpmcxx_tpu_torch import constants as const
+    spin = outs.movetype.cpu() == const.MOVETYPE_SPINFLIP
+    n, n_acc = int(spin.sum()), int((spin & outs.accepted.cpu()).sum())
+    _say(f"[{label}] {n} spin flips (the host's replay of the draws: "
+         f"{replayed}), {n_acc} accepted")
+    if n != replayed or not n or n_acc:
+        raise AssertionError(f"[{label}] spin flips {n} vs {replayed}, "
+                             f"{n_acc} accepted")
+
+
+def run_spin_ensembles(workdir, device="cuda"):
+    """Step 23: step 13's Gibbs VLE and step 14's PI-NVT with quantum
+    rotation and spinflip_probability SPIN_P, one corrtime each.  Checks:
+    the spin-flip count equal to a host replay of the move draws, every
+    flip rejected and the spins unchanged, and step 13's (incremental
+    energies at the refresh, N and V conserved, a transfer and a volume
+    exchange, no K1-K5 launch) and step 14's gates (the carried potential
+    at the recompute, the kinetic bound, the restart files, displacements
+    and bead moves accepted >= 5 %, no K1-K5 launch).  Returns (launch
+    counts of each, Gibbs steps/s, PI moves/s)."""
+    import torch
+    from mpmcxx_tpu_torch import constants as const
+    from mpmcxx_tpu_torch.io.pqr import make_filename
+    from mpmcxx_tpu_torch.mc import gibbs, pi
+
+    extra = QROT_LINES + f"spinflip_probability {SPIN_P}\n"
+    label = "gibbs-spin"
+    sim = vle_simulation(workdir, device, extra=extra, corrtimes=1,
+                         label=label)
+    zero_launches()
+    carry = sim._init_carry()
+    spins = (carry.state_a.nuclear_spin.clone(),
+             carry.state_b.nuclear_spin.clone())
+    n0 = float(carry.obs_a.N + carry.obs_b.N)
+    v0 = float(carry.state_a.pbc.volume + carry.state_b.pbc.volume)
+    replay = gibbs.move_picks(sim.opts, gibbs.gibbs_draws(carry.key,
+                                                          VLE_STEPS)[1])
+    torch.cuda.synchronize()
+    t0 = time.time()
+    carry, outs = sim._run_chunk(carry)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    carry = _vle_refresh(sim, carry, "corrtime 1", label)
+    _vle_gates(carry, n0, v0, outs.movetype.cpu(), launches_now(), label)
+    _flips_rejected(label, outs, sum(m == gibbs.SPIN for m, _ in replay))
+    if not (torch.equal(carry.state_a.nuclear_spin, spins[0]) and
+            torch.equal(carry.state_b.nuclear_spin, spins[1])):
+        raise AssertionError(f"[{label}] the spins changed")
+    gibbs_launches = launches_now()
+    gibbs_rate = VLE_STEPS / dt
+    _say(f"[{label}] {VLE_STEPS} steps in {dt:.3f} s = {gibbs_rate:.2f} "
+         f"steps/s")
+
+    label = "pi-spin"
+    h = PI_H2
+    d = write_pi_h2(workdir, extra=extra, corrtimes=1, label=label)
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        sim = pi_h2_simulation(device, label)
+        spins = sim.stack.nuclear_spin.clone()
+        log = {"chunks": [], "recompute": []}
+        run_chunk, recompute = sim._run_chunk, sim._recompute
+
+        def timed(carry):
+            picks = pi.move_picks(sim.opts, pi.pi_draws(
+                carry.key, h["moves"], sim.cfg.PI_trial_chain_length,
+                h["beads"], sim.any_orientation)[1])
+            torch.cuda.synchronize()
+            t0 = time.time()
+            carry, outs = run_chunk(carry)
+            torch.cuda.synchronize()
+            log["chunks"].append((time.time() - t0, outs, picks))
+            return carry, outs
+
+        def recorded(carry):
+            out = recompute(carry)
+            log["recompute"].append((float(carry.potential_current),
+                                     float(out.potential_current)))
+            return out
+
+        sim._run_chunk, sim._recompute = timed, recorded
+        zero_launches()
+        sim.run()
+        torch.cuda.synchronize()
+        pi_launches = launches_now()
+        carry = sim.carry
+        for s in range(h["beads"]):
+            if not os.path.getsize(make_filename(sim.cfg.pqr_restart, s)):
+                raise AssertionError(f"[{label}] no restart file for bead "
+                                     f"{s}")
+    finally:
+        os.chdir(cwd)
+    (inc, full), = log["recompute"]
+    rel, ok = _close(inc, full, 1e-9)
+    kin = float(pi.pi_kinetic(carry.stack, carry.temperature))
+    bound = 1.5 * h["n"] * h["T"] * h["beads"]
+    acc, rej = carry.accept.tolist(), carry.reject.tolist()
+    rates = {const.MOVETYPE_NAMES[m]: acc[m] / max(acc[m] + rej[m], 1)
+             for m in (const.MOVETYPE_DISPLACE, const.MOVETYPE_PERTURB_BEADS)}
+    _say(f"[{label}] carried potential {inc:.9f} vs per-bead recompute "
+         f"{full:.9f}: rel {rel:.2e} (tol 1e-09); kinetic estimator "
+         f"{kin:.3f} K (< {bound:g}); acceptance {rates}")
+    if not ok or not (np.isfinite(kin) and kin < bound) or \
+            any(r < 0.05 for r in rates.values()) or \
+            any(pi_launches.values()):
+        raise AssertionError(f"[{label}] rel {rel}, kinetic {kin}, "
+                             f"acceptance {rates}, launches {pi_launches}")
+    dt, outs, picks = log["chunks"][0]
+    _flips_rejected(label, outs, picks.count(const.MOVETYPE_SPINFLIP))
+    if not torch.equal(carry.stack.nuclear_spin, spins):
+        raise AssertionError(f"[{label}] the spins changed")
+    pi_rate = h["moves"] / dt
+    _say(f"[{label}] {h['moves']} moves in {dt:.3f} s = {pi_rate:.2f} "
+         f"moves/s")
+    return gibbs_launches, pi_launches, gibbs_rate, pi_rate
+
+
 def ptxas_report(log):
     """Per kernel of nvcc's build log: its registers, barriers and shared
     memory ("Used ...") and its stack and spills, named by the kernel's
@@ -3044,6 +3565,28 @@ def main() -> int:
     _say(f"step 20 took {time.time() - t0:.1f} s; steps 18-20 "
          f"{time.time() - t_scf:.1f} s")
 
+    # --- 21. the special moves' energies and chains, dense ---------------
+    t_special = time.time()
+    launches["special"], special_ms = run_special_moves(root)
+    flush()
+    _say(f"step 21 took {time.time() - t_special:.1f} s")
+
+    # --- 22. the H2 flagship with spin flips and adiabatic molecules -----
+    t0 = time.time()
+    with schedule(), tempfile.TemporaryDirectory() as workdir:
+        launches["h2-spin"], rates["h2-spin"] = run_h2_spin(workdir, card)
+    flush()
+    _say(f"step 22 took {time.time() - t0:.1f} s")
+
+    # --- 23. spin flips in Gibbs and PI ----------------------------------
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as workdir:
+        launches["gibbs-spin"], launches["pi-spin"], spin_gibbs, spin_pi = \
+            run_spin_ensembles(workdir)
+    flush()
+    _say(f"step 23 took {time.time() - t0:.1f} s; steps 21-23 "
+         f"{time.time() - t_special:.1f} s")
+
     _say(f"second-chunk moves/s on {card}: " + ", ".join(
         f"{m} {r:.2f}" for m, r in rates.items()) +
         f"; examples' chunk steps/s: " + ", ".join(
@@ -3067,7 +3610,10 @@ def main() -> int:
         + ", ".join(f"{m} (mode {md}) {r:.2f} moves/s, K5 {k:.4f} ms"
                     for m, (r, md, k) in modes.items()) +
         f"; dense ranked GS {dense_ms:.1f} ms per move, {gs_sweep} "
-        f"launches per sweep; whole check "
+        f"launches per sweep; special moves (ms per move): " + ", ".join(
+            f"{m} {r:.2f}" for m, r in special_ms.items()) +
+        f"; Gibbs VLE with spin flips {spin_gibbs:.2f} steps/s, PI H2 with "
+        f"spin flips {spin_pi:.2f} moves/s; whole check "
         f"{time.time() - t_start:.1f} s after the card query")
     k5_all = dict(k5_cli, max_abs_err=max(k5["max_abs_err"],
                                           k5_cli["max_abs_err"]))

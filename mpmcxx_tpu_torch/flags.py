@@ -2,7 +2,7 @@
 
 JAX twin: mpmcxx_tpu/flags.py (a copy; ``dense_only`` and
 ``require_supported`` at the end are new: the port keeps some terms on
-the dense path and does not run the special moves' branches).
+the dense path and refuses a value outside a field's range).
 
 A frozen, hashable dataclass passed as a static argument to jitted energy
 functions.  Mirrors the option flags scattered through src/System.h:505-832;
@@ -129,36 +129,34 @@ class RunParams:
 
 
 # FFlags fields the port may take at a value other than the default, and
-# the values it takes there: every repulsion-dispersion form, mixing rule,
-# many-body term and electrostatics variant of the twin's ops/energy.py
-# but the anharmonic oscillator, GWP and SPECTRE; every Thole SCF (the
-# no-PBC, Wolf or Ewald static field, the full-Ewald SCF, each damping,
-# Jacobi/SOR/ESOR, Gauss-Seidel and ranked Gauss-Seidel, fixed-count or
-# precision-terminated, ZODID, Palmo, the warm start and the exact
-# solve) on float32 planes (polar_mixed) or in float64.  The fields left
-# at their default are the special moves' (anharmonic, Feynman-Kleinert,
-# GWP, SPECTRE, quantum rotation).
+# the values it takes there: every switch of the twin's ops/energy.py
+# (each repulsion-dispersion form, mixing rule, many-body term,
+# electrostatics variant and special move's term: the anharmonic
+# oscillator with Feynman-Hibbs or Feynman-Kleinert, GWP, SPECTRE) and
+# every Thole SCF, on float32 planes (polar_mixed) or in float64;
+# damp_type takes the three damping forms.
 _BOTH = (False, True)
 _PORTED = {name: _BOTH for name in (
     "polarization", "polar_mixed", "polar_sor", "polar_esor",
     "polar_iterative", "polar_ewald", "polar_ewald_full", "polar_zodid",
     "polar_palmo", "polar_rrms", "polar_gs", "polar_gs_ranked",
     "polar_wolf", "polar_wolf_full", "polar_warm_start",
-    "rd_only", "use_sg", "use_dreiding", "using_lj_buffered_14_7",
-    "using_disp_expansion", "cdvdw_exp_repulsion", "using_axilrod_teller",
-    "rd_crystal", "feynman_hibbs", "waldmanhagler", "halgren_mixing",
+    "rd_only", "rd_anharmonic", "use_sg", "use_dreiding",
+    "using_lj_buffered_14_7", "using_disp_expansion", "cdvdw_exp_repulsion",
+    "using_axilrod_teller", "gwp", "spectre", "rd_crystal", "feynman_hibbs",
+    "feynman_kleinert", "waldmanhagler", "halgren_mixing",
     "cdvdw_9th_repulsion", "cdvdw_sig_repulsion", "c6_mixing",
     "disp_expansion_mbvdw", "extrapolate_disp_coeffs", "schmidt_ff",
     "damp_dispersion", "midzuno_kihara_approx", "wolf", "polarvdw",
     "vdw_fh_2be", "cavity_autoreject", "cavity_autoreject_absolute",
-    "independent_particle")}
+    "independent_particle", "quantum_rotation")}
 _PORTED["damp_type"] = (const.DAMPING_OFF, const.DAMPING_LINEAR,
                         const.DAMPING_EXPONENTIAL)
-# integer options read only under a ported switch, at any value
+# numeric options read only under a ported switch, at any value
 # (polar.plane_mode takes any polar_plane_mode but 4 as automatic)
 _ANY = frozenset(["ewald_kmax", "rd_lrc", "rd_crystal_order",
                   "feynman_hibbs_order", "polar_max_iter",
-                  "polar_plane_mode"])
+                  "polar_plane_mode", "rd_anharmonic_k", "rd_anharmonic_g"])
 
 
 def dense_only(flags: FFlags) -> bool:
@@ -183,8 +181,9 @@ def dense_only(flags: FFlags) -> bool:
 
 
 def require_supported(flags: FFlags, params: RunParams) -> None:
-    """Raise NotImplementedError naming the first flag whose branch the
-    port does not have yet; never run a different branch silently."""
+    """Raise NotImplementedError naming the first flag at a value outside
+    its range (an unknown damp_type); never run a different branch
+    silently."""
     default = FFlags()
     for f in dataclasses.fields(FFlags):
         v = getattr(flags, f.name)

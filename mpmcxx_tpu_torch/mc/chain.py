@@ -1,19 +1,24 @@
 """The Metropolis Markov chain of the standard ensembles.
 
 JAX twin: mpmcxx_tpu/mc/chain.py.  Ported: uVT (one sorbate or a
-mixture, with or without cavity-biased insertion), NVT, NPT and NVE
-(``make_step_fn``, chain.py:351-693), with or without simulated
-annealing, each on the evaluation branch the runner selects: the
-incremental polarization cache with incremental
-Delta-E (polar_mixed), incremental pairwise Delta-E (no polarization), or
-a full recompute of every proposal (the float64 SCF, and the many-body
-and crystal-sum terms); full recomputes are dense or in row blocks
-(``blocked_energy``).  The incremental branches add the
-cavity_autoreject_absolute penalty of the moved rows, and under
-simulated annealing the Feynman-Hibbs terms read the chain's temperature
-(``_params_at``).  Also ``init_carry``,
-``make_refresher``, ``accumulate_stats`` and ``make_chunk_runner``.  Any
-other option raises NotImplementedError naming it.
+mixture), NVT, NPT and NVE (``make_step_fn``, chain.py:351-693), with
+or without cavity-biased insertion and simulated annealing, with every
+move of the twin: displacement, insertion, removal, the adiabatic
+molecules' move, spin flips (quantum rotation), the volume move, and the
+special moves' displacements (the 1-D anharmonic one, SPECTRE's with its
+domain wrap and reject leak, GWP's with its widths), by molecule window
+(``topology``) or by atom masks (``topology=None``, and always for the
+adiabatic and special moves, as in the twin).  Each runs on the
+evaluation branch the runner selects: the incremental polarization
+cache with incremental Delta-E (polar_mixed), incremental pairwise
+Delta-E (no polarization), or a full recompute of every proposal (the
+float64 SCF, the many-body, crystal-sum and special moves' terms); full
+recomputes are dense or in row blocks (``blocked_energy``).  The
+incremental branches add the cavity_autoreject_absolute penalty of the
+moved rows, and under simulated annealing the Feynman-Hibbs terms read
+the chain's temperature (``_params_at``).  Also ``init_carry``,
+``make_refresher``, ``accumulate_stats`` and ``make_chunk_runner``.  An
+ensemble other than these four raises NotImplementedError naming it.
 
 The twin's chunk is a jitted ``lax.scan``; here it is a host loop over
 ``step``.  The loop never waits on the device: the random draws of the
@@ -25,6 +30,13 @@ select, and the polarization cache is committed in place.  The one
 choice made on the host is NPT's volume pick: N is constant in NPT, so
 the twin's pick reads only the draws and a count taken once per chunk,
 and a volume move (a full O(A^2) recompute) runs only where it is picked.
+In uVT the step reads once per state layout whether any molecule is
+adiabatic, and proposes the adiabatic move only if one is.
+
+Two faults of the twin are kept, each for want of a feature it lacks:
+no spin flip is ever accepted (the rotational partition functions stay
+0, so their ratio is NaN), and feynman_kleinert drops the anharmonic
+well's quantum correction (ops/pair_potentials.anharmonic).
 """
 
 from __future__ import annotations
@@ -88,28 +100,19 @@ class MCOptions:
     blocked_energy: bool = False
 
 
-# MCOptions fields that select a branch, and the values the port has
-_PORTED_OPTS = {
-    "ensemble": (const.ENSEMBLE_UVT, const.ENSEMBLE_NVT, const.ENSEMBLE_NPT,
-                 const.ENSEMBLE_NVE),
-    "quantum_rotation": (False,),
-    "spectre": (False,),
-    "rd_anharmonic": (False,),
-    "gwp": (False,),
-}
+# the ensembles of the standard chain (the twin's _pick_movetype raises on
+# any other)
+_ENSEMBLES = (const.ENSEMBLE_UVT, const.ENSEMBLE_NVT, const.ENSEMBLE_NPT,
+              const.ENSEMBLE_NVE)
 
 
 def require_options(flags: FFlags, params: RunParams,
                     opts: MCOptions) -> None:
-    """Raise NotImplementedError naming the first option the port has no
-    branch for."""
+    """Raise NotImplementedError naming a flag or an ensemble outside the
+    standard chain's range."""
     require_supported(flags, params)
-    for name, ok in _PORTED_OPTS.items():
-        v = getattr(opts, name)
-        if v not in ok:
-            raise NotImplementedError(f"MCOptions.{name}={v!r}")
-    if opts.cavity_bias and opts.ensemble != const.ENSEMBLE_UVT:
-        raise NotImplementedError("MCOptions.cavity_bias=True outside uVT")
+    if opts.ensemble not in _ENSEMBLES:
+        raise NotImplementedError(f"MCOptions.ensemble={opts.ensemble!r}")
 
 
 class NodeStats(NamedTuple):
@@ -173,69 +176,129 @@ def observables_from_breakdown(state: SystemState, eb: EnergyBreakdown,
         total_mass=torch.sum(mol_mass))
 
 
+def _spin_flips(opts: MCOptions) -> bool:
+    """Whether the chain proposes spin flips (chain.py:256-260)."""
+    return opts.quantum_rotation and opts.ensemble in (
+        const.ENSEMBLE_UVT, const.ENSEMBLE_NVT, const.ENSEMBLE_NVE)
+
+
 def _pick_movetype(opts: MCOptions, r, N_movable, n_adiabatic,
                    volume: bool):
     """Move selection per ensemble (do_checkpoint,
     src/System.MonteCarlo.cpp:318-454; chain.py:163-202) from the four
-    uniforms ``r``: uVT on the device; NVT and NVE always displace; NPT's
-    volume pick is the host's ``volume`` (see volume_steps)."""
-    if opts.ensemble != const.ENSEMBLE_UVT:
+    uniforms ``r``: uVT, NVT and NVE on the device (a spin flip below
+    spinflip_probability under quantum rotation); NPT's volume pick is
+    the host's ``volume`` (see volume_steps)."""
+    dev = r.device
+
+    def spin_or_displace(u):
+        if opts.quantum_rotation:
+            return torch.where(u < opts.spinflip_probability,
+                               const.MOVETYPE_SPINFLIP,
+                               const.MOVETYPE_DISPLACE)
+        return torch.full((), const.MOVETYPE_DISPLACE, dtype=torch.int64,
+                          device=dev)
+
+    if opts.ensemble == const.ENSEMBLE_NPT:
         mv = const.MOVETYPE_VOLUME if volume else const.MOVETYPE_DISPLACE
-        return torch.full((), mv, dtype=torch.int64, device=r.device)
+        return torch.full((), mv, dtype=torch.int64, device=dev)
+    if opts.ensemble != const.ENSEMBLE_UVT:
+        return spin_or_displace(r[0])
     disp = torch.where((n_adiabatic > 0) & (r[3] < 0.5),
                        const.MOVETYPE_ADIABATIC, const.MOVETYPE_DISPLACE)
+    if opts.quantum_rotation:
+        disp = torch.where(r[2] < opts.spinflip_probability,
+                           const.MOVETYPE_SPINFLIP, disp)
     mv = torch.where(r[0] < opts.insert_probability,
                      torch.where(r[1] < 0.5, const.MOVETYPE_INSERT,
                                  const.MOVETYPE_REMOVE), disp)
     # never remove the last molecule (src/System.MonteCarlo.cpp:449-454)
     return torch.where((mv == const.MOVETYPE_REMOVE) & (N_movable <= 1),
-                       const.MOVETYPE_DISPLACE, mv)
+                       spin_or_displace(r[2]), mv)
 
 
-# columns of one step's draws (see chunk_draws)
+# columns of one step's draws (see chunk_draws); those from _U_ADIA on
+# are made only with ``special``
 _U_TARGET, _R_MOVE, _DICE, _AXIS, _U_ANGLE, _U_ACC = 0, 1, 5, 11, 14, 15
 _U_PICK, _U_RM, _U_VOL, _U_SPEC = 16, 19, 20, 21
+_U_ADIA, _SP_DICE, _U_1D_SIGN, _GWP = 22, 23, 29, 30
 
 
-def chunk_draws(key: torch.Tensor, n: int):
-    """The draws of ``n`` consecutive steps from the chain key, as the
-    twin's step derives them (chain.py:352-353, 270, 391, 420-422,
-    moves.py:49, 67-73, 93-108, 177, 251, cavity.py:81, 93): returns (the
-    key after the chunk, [n, 22] f64 on the host, the [n, 2] dart keys).
-    Per step: split(key, 6) -> (next key, k_move, k_target, k_apply,
-    k_acc, k_cav); the target uniform; four move-type uniforms from
-    split(k_move, 4); with k1 = split(k_apply, 1)[0], from split(k1, 3)
-    the move's six translation uniforms (an insertion reads the first
-    three as its position: partitionable threefry makes uniform(k, (3,))
-    the head of uniform(k, (6,))), three normal axis components and the
-    angle uniform; the acceptance uniform; from split(k_cav, 3) ->
-    (k_grid, k_pick, k_rm) three uniforms of k_pick (the cavity pick reads
-    the first, the fallback insert position all three) and the uniform of
-    k_rm; the volume move's uniform(k1); and the mixture's species
-    uniform(fold_in(k_target, 2)).  k_grid is returned for the darts."""
+def step_keys(key: torch.Tensor, n: int, num: int = 6):
+    """(the key after ``n`` steps, each step's split(key, num): [n, num,
+    2]); the first of each split is the next step's key."""
     subs = []
     for _ in range(n):
-        sub = rnd.split(key, 6)
+        sub = rnd.split(key, num)
         key = sub[0]
         subs.append(sub)
-    ks = torch.stack(subs)                              # [n, 6, 2]
+    return key, torch.stack(subs)
+
+
+def move_draws(k):
+    """A whole-molecule move's draws from its keys ``k`` [n, 2]
+    (moves.py:137-143, 189-213): split(k, 3) -> uniform (6,), normal
+    (3,), uniform; [n, 10].  An insertion reads the first three uniforms
+    as its position (the head of uniform(k, (6,)) under partitionable
+    threefry)."""
+    k3 = rnd.split(k, 3)
+    return torch.cat([rnd.uniform(k3[:, 0], (6,)),
+                      rnd.normal(k3[:, 1], (3,)),
+                      rnd.uniform(k3[:, 2])[:, None]], dim=1)
+
+
+def chunk_draws(key: torch.Tensor, n: int, special: bool = False):
+    """The draws of ``n`` consecutive steps from the chain key, as the
+    twin's step derives them (chain.py:352-353, 270, 291-302, 365-371,
+    391, 420-422, moves.py:49, 67-73, 93-108, 155-157, 177, 251,
+    274-283, 294-296, cavity.py:81, 93): returns (the key after the
+    chunk, [n, 22] f64 on the host, or [n, 40] with ``special``, the
+    [n, 2] dart keys).  Per step: split(key, 6) -> (next key, k_move,
+    k_target, k_apply, k_acc, k_cav); the target uniform; four move-type
+    uniforms from split(k_move, 4); with k1 = split(k_apply, 1)[0], from
+    split(k1, 3) the move's six translation uniforms (an insertion reads
+    the first three as its position: partitionable threefry makes
+    uniform(k, (3,)) the head of uniform(k, (6,))), three normal axis
+    components and the angle uniform; the acceptance uniform; from
+    split(k_cav, 3) -> (k_grid, k_pick, k_rm) three uniforms of k_pick
+    (the cavity pick reads the first, the fallback insert position all
+    three) and the uniform of k_rm; the volume move's uniform(k1); the
+    mixture's species uniform(fold_in(k_target, 2)).  With ``special``
+    (uVT's adiabatic move and the special moves): the adiabatic target's
+    uniform(fold_in(k_target, 1)); with (ka, kb) = split(k1), SPECTRE's
+    six uniforms of ka (the anharmonic move reads the first as
+    uniform(ka)), uniform(kb) (the anharmonic sign) and GWP's
+    displacement draws of ka (split(ka, 3) as above).  k_grid is returned
+    for the darts; the [A]-wide draws of kb are ``wide_draws``."""
+    key, ks = step_keys(key, n)
     k_move, k_target, k_apply, k_acc = ks[:, 1], ks[:, 2], ks[:, 3], ks[:, 4]
     k_vol = rnd.split(k_apply, 1)[:, 0]
-    k1 = rnd.split(k_vol, 3)                            # [n, 3, 2]
     k_cav = rnd.split(ks[:, 5], 3)                      # [n, 3, 2]
-    draws = torch.cat([
+    cols = [
         rnd.uniform(k_target)[:, None],
         rnd.uniform(rnd.split(k_move, 4)),
-        rnd.uniform(k1[:, 0], (6,)),
-        rnd.normal(k1[:, 1], (3,)),
-        rnd.uniform(k1[:, 2])[:, None],
+        move_draws(k_vol),
         rnd.uniform(k_acc)[:, None],
         rnd.uniform(k_cav[:, 1], (3,)),
         rnd.uniform(k_cav[:, 2])[:, None],
         rnd.uniform(k_vol)[:, None],
         rnd.uniform(rnd.fold_in(k_target, 2))[:, None],
-    ], dim=1)
-    return key, draws, k_cav[:, 0]
+    ]
+    if special:
+        ka, kb = rnd.split(k_vol, 2).unbind(1)
+        cols += [rnd.uniform(rnd.fold_in(k_target, 1))[:, None],
+                 rnd.uniform(ka, (6,)), rnd.uniform(kb)[:, None],
+                 move_draws(ka)]
+    return key, torch.cat(cols, dim=1), k_cav[:, 0]
+
+
+def wide_draws(key: torch.Tensor, n: int, A: int):
+    """The [n, A] uniforms of ``n`` steps' kb = split(split(k_apply,
+    1)[0])[1] (see chunk_draws): SPECTRE's charge deltas and GWP's width
+    moves (moves.py:283, 294)."""
+    _, ks = step_keys(key, n)
+    k1 = rnd.split(ks[:, 3], 1)[:, 0]
+    return rnd.uniform(rnd.split(k1, 2)[:, 1], (A,))
 
 
 def volume_steps(opts: MCOptions, draws, state: SystemState) -> list:
@@ -291,29 +354,36 @@ def _params_at(flags: FFlags, base_params: RunParams, opts: MCOptions):
 
 def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
                  topology=None):
-    """Build ``step(carry, draws, dart_u=None, volume=False) -> (carry,
-    StepOut)`` for one move; ``draws`` is one row of chunk_draws on the
-    state's device, ``dart_u`` the step's [darts, 3] uniforms when cavity
-    bias is on, ``volume`` the host's NPT volume pick.  ``topology`` is
-    the (mol_start[M], mol_natoms[M]) host pair of state.topology."""
+    """Build ``step(carry, draws, dart_u=None, volume=False, wide=None) ->
+    (carry, StepOut)`` for one move; ``draws`` is one row of chunk_draws
+    on the state's device, ``dart_u`` the step's [darts, 3] uniforms when
+    cavity bias is on, ``volume`` the host's NPT volume pick, ``wide`` the
+    step's row of wide_draws under SPECTRE or GWP.  ``topology`` is the
+    (mol_start[M], mol_natoms[M]) host pair of state.topology; without it
+    every move works by atom masks (chain.py:272-305)."""
     require_options(flags, base_params, opts)
-    if topology is None:
-        raise NotImplementedError("topology=None (masked, non-window moves)")
     params_at = _params_at(flags, base_params, opts)
     S = opts.max_mol_atoms
     uvt = opts.ensemble == const.ENSEMBLE_UVT
+    spins = _spin_flips(opts)
     with_cache = opts.incremental and opts.polar_incremental
     mixture = opts.sorbate_count > 1 and bool(opts.insert_species)
     species_fug = opts.sorbate_count > 1 and bool(opts.type_fugacities)
+    # the fields a move may change besides pos (chain.py:219-243)
+    moved_fields = (("mol_alive", "aalive", "nuclear_spin") if uvt else
+                    ("nuclear_spin",) if spins else ()) + \
+        (("charge",) if opts.spectre else ()) + \
+        (("gwp_alpha",) if opts.gwp else ())
     consts = {}   # device -> host tables on that device
-    # cavity grid points per device: cavity bias is uVT-only
-    # (require_options) and uVT never changes the box, so no volume move
-    # can leave them stale
+    # cavity grid points per device; a volume move changes the box, so
+    # NPT rebuilds them every step
     grid = {}
+    adiabatic = {}   # mol_adiabatic tensor -> whether any is set
 
     def on(dev):
         if dev not in consts:
             consts[dev] = (
+                None if topology is None else
                 tuple(torch.as_tensor(t, dtype=torch.int64, device=dev)
                       for t in topology),
                 torch.as_tensor(opts.insert_species, dtype=torch.int64,
@@ -322,21 +392,31 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
                                 device=dev))
         return consts[dev]
 
-    def rows_of(mol):
+    def rows_of(state, mol):
+        if topology is None:
+            return moves.mask_rows(state, mol, S)
         return moves.molecule_rows(*on(mol.device)[0], mol, S)
 
+    def any_adiabatic(state) -> bool:
+        """Whether a molecule slot is adiabatic: read from the device once
+        per state layout (mol_adiabatic is static)."""
+        t = state.mol_adiabatic
+        if adiabatic.get("t") is not t:
+            adiabatic["t"], adiabatic["any"] = t, bool(torch.any(t))
+        return adiabatic["any"]
+
     def cavity_branch(carry: MCCarry, d, dart_u, is_ins, is_rem):
-        """Cavity-biased insertion machinery (chain.py:373-414): the grid
-        is rebuilt before every move.  carry.cavity[0] is the per-step
-        running mean of the open fraction, updated at the END of the step
-        so the acceptance factor reads the PRIOR value; [1] the current
-        dart volume; [2] the per-corrtime snapshot of [0] (advanced by
-        make_refresher), read only by the REMOVE flag; [3] the
-        checkpoint count.  Returns (cavity carry, biased, prior mean,
+        """Cavity-biased insertion machinery (chain.py:373-414), in every
+        ensemble: the grid is rebuilt before every move.  carry.cavity[0]
+        is the per-step running mean of the open fraction, updated at the
+        END of the step so the acceptance factor reads the PRIOR value;
+        [1] the current dart volume; [2] the per-corrtime snapshot of [0]
+        (advanced by make_refresher), read only by the REMOVE flag; [3]
+        the checkpoint count.  Returns (cavity carry, biased, prior mean,
         insertion COM)."""
         state = carry.state
         dev = state.pos.device
-        if dev not in grid:
+        if dev not in grid or opts.ensemble == const.ENSEMBLE_NPT:
             grid[dev] = cavity_mod.grid_points(state, opts.cavity_grid_size)
         info = cavity_mod.update_grid(state, opts.cavity_grid_size,
                                       opts.cavity_radius, dart_u,
@@ -356,27 +436,63 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
                                      state, d[_U_PICK:_U_PICK + 3]))
         return cavity, biased, prior, insert_com
 
-    def local_move(carry: MCCarry, d, dart_u, movetype, target):
-        """The proposal of a displacement, insertion or removal
-        (chain.py:416-431): (new state, valid, target, rows, cavity carry,
-        biased, prior cavity mean, insertion slot)."""
+    def displacement(state, d, wide, target, rows):
+        """The DISPLACE proposal (chain.py:273-305): the special moves'
+        (by atom masks), else the molecule's window, or its atom masks
+        without a topology."""
+        dice, axis, angle = d[_DICE:_DICE + 6], d[_AXIS:_AXIS + 3], \
+            d[_U_ANGLE]
+        if opts.rd_anharmonic:
+            return moves.displace_1d(state, d[_SP_DICE], d[_U_1D_SIGN],
+                                     target, opts.move_factor)
+        if opts.spectre:
+            # the domain wrap after every SPECTRE move
+            # (src/System.MonteCarlo.cpp:1183)
+            moved = moves.spectre_displace(
+                state, d[_SP_DICE:_SP_DICE + 6], wide, target,
+                opts.move_factor, opts.spectre_max_charge,
+                opts.spectre_max_target)
+            return moves.spectre_wrapall(moved, opts.spectre_max_target)
+        if opts.gwp:
+            # GWP molecules move by gwp_probability and perturb their
+            # widths (src/System.MonteCarlo.cpp:868-875)
+            g = d[_GWP:_GWP + 10]
+            has_gwp = torch.any((state.mol_id == target) & state.gwp_spin)
+            scale = torch.where(has_gwp, torch.full_like(
+                state.pbc.cutoff, opts.gwp_probability), opts.move_factor)
+            moved = moves.displace(state, g[:6], g[6:9], g[9], target,
+                                   scale, opts.rot_factor)
+            widened = moves.displace_gwp(moved, wide, target,
+                                         opts.gwp_probability)
+            return moved.replace(gwp_alpha=torch.where(
+                has_gwp, widened.gwp_alpha, moved.gwp_alpha))
+        if topology is None:
+            return moves.displace(state, dice, axis, angle, target,
+                                  opts.move_factor, opts.rot_factor)
+        return moves.displace_rows(state, dice, axis, angle, rows,
+                                   rows >= 0, opts.move_factor,
+                                   opts.rot_factor)
+
+    def local_move(carry: MCCarry, d, wide, movetype, target, insert_com):
+        """The proposal of a displacement, adiabatic move, spin flip,
+        insertion or removal (chain.py:416-431), every possible one built
+        and selected on the device: (new state, valid, target, rows,
+        insertion slot)."""
         state = carry.state
-        disp_of = lambda rows: moves.displace_rows(
-            state, d[_DICE:_DICE + 6], d[_AXIS:_AXIS + 3], d[_U_ANGLE],
-            rows, rows >= 0, opts.move_factor, opts.rot_factor)
-        no = torch.zeros((), dtype=torch.bool, device=state.pos.device)
+        is_spin = movetype == const.MOVETYPE_SPINFLIP
         if not uvt:
-            rows = rows_of(target)
-            return (disp_of(rows), True, target, rows, carry.cavity, no,
-                    0.0, None)
+            rows = rows_of(state, target)
+            new = displacement(state, d, wide, target, rows)
+            if spins:
+                flip = moves.spinflip(state, target)
+                new = state.replace(**{
+                    f: torch.where(is_spin, getattr(flip, f),
+                                   getattr(new, f))
+                    for f in ("pos",) + moved_fields})
+            return new, True, target, rows, None
         is_ins = movetype == const.MOVETYPE_INSERT
         is_rem = movetype == const.MOVETYPE_REMOVE
-        if opts.cavity_bias:
-            cavity, biased, cavity_prior, insert_com = cavity_branch(
-                carry, d, dart_u, is_ins, is_rem)
-        else:
-            cavity, biased, cavity_prior, insert_com = \
-                carry.cavity, no, 0.0, None
+        is_disp = movetype == const.MOVETYPE_DISPLACE
         if mixture:
             # draw the insertion species; its dead slot doubles as the
             # geometry template (slots keep their species geometry)
@@ -390,30 +506,48 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
             insert_slot = moves.find_dead_slot(
                 state, state.mol_type.index_select(0, target.reshape(1))[0])
 
-        # every branch of the twin's lax.switch, selected on the device
-        tmpl_rows = rows_of(target)
-        disp = disp_of(tmpl_rows)
-        slot_rows = rows_of(torch.clamp(insert_slot, min=0))
-        ins, ins_valid = moves.insert_rows(
-            state, d[_DICE:_DICE + 3], d[_AXIS:_AXIS + 3], d[_U_ANGLE],
-            tmpl_rows, slot_rows, tmpl_rows >= 0, insert_slot,
-            insert_slot >= 0, com=insert_com)
+        tmpl_rows = rows_of(state, target)
+        slot_rows = rows_of(state, torch.clamp(insert_slot, min=0))
+        if topology is None:
+            ins, ins_valid = moves.insert(
+                state, d[_DICE:_DICE + 3], d[_AXIS:_AXIS + 3], d[_U_ANGLE],
+                target, insert_slot, com=insert_com)
+        else:
+            ins, ins_valid = moves.insert_rows(
+                state, d[_DICE:_DICE + 3], d[_AXIS:_AXIS + 3], d[_U_ANGLE],
+                tmpl_rows, slot_rows, tmpl_rows >= 0, insert_slot,
+                insert_slot >= 0, com=insert_com)
+        disp = displacement(state, d, wide, target, tmpl_rows)
         rem = moves.remove(state, target)
+        pos = torch.where(is_ins, ins.pos,
+                          torch.where(is_rem, state.pos, disp.pos))
+        if any_adiabatic(state):
+            # the adiabatic molecules' move: rotation factor 1
+            # (chain.py:307-309)
+            adia = moves.displace(state, d[_DICE:_DICE + 6],
+                                  d[_AXIS:_AXIS + 3], d[_U_ANGLE], target,
+                                  opts.adiabatic_probability, 1.0)
+            pos = torch.where(movetype == const.MOVETYPE_ADIABATIC,
+                              adia.pos, pos)
+        spin = torch.where(is_ins, ins.nuclear_spin, state.nuclear_spin)
+        if spins:
+            spin = torch.where(is_spin, moves.spinflip(state,
+                                                       target).nuclear_spin,
+                               spin)
         new_state = state.replace(
-            pos=torch.where(is_ins, ins.pos,
-                            torch.where(is_rem, state.pos, disp.pos)),
+            pos=pos,
             mol_alive=torch.where(is_ins, ins.mol_alive,
                                   torch.where(is_rem, rem.mol_alive,
                                               state.mol_alive)),
             aalive=torch.where(is_ins, ins.aalive,
                                torch.where(is_rem, rem.aalive,
                                            state.aalive)),
-            nuclear_spin=torch.where(is_ins, ins.nuclear_spin,
-                                     state.nuclear_spin))
+            nuclear_spin=spin,
+            **{f: torch.where(is_disp, getattr(disp, f), getattr(state, f))
+               for f in ("charge", "gwp_alpha") if f in moved_fields})
         valid = torch.where(is_ins, ins_valid, True)
         rows = torch.where(is_ins, slot_rows, tmpl_rows)
-        return (new_state, valid, target, rows, cavity, biased, cavity_prior,
-                insert_slot)
+        return new_state, valid, target, rows, insert_slot
 
     def evaluate(carry: MCCarry, new_state, rows, volume: bool):
         """The proposal's energy (chain.py:434-580): (EnergyBreakdown, new
@@ -459,21 +593,36 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
         return (eb, new_state.replace(mu=pres.mu), dres.sf_new,
                 dres.recip_new, pcommit)
 
-    def step(carry: MCCarry, d, dart_u=None, volume=False):
+    def step(carry: MCCarry, d, dart_u=None, volume=False, wide=None):
         state = carry.state
         T = carry.temperature
         target, N_movable = moves.pick_random_movable(state, d[_U_TARGET])
         n_adiabatic = torch.sum(state.mol_alive & state.mol_adiabatic)
         movetype = _pick_movetype(opts, d[_R_MOVE:_R_MOVE + 4], N_movable,
                                   n_adiabatic, volume)
+        if uvt and any_adiabatic(state):
+            # ADIABATIC moves target the k-th live adiabatic molecule
+            # (src/System.MonteCarlo.cpp:405-410; chain.py:365-371)
+            ka = torch.floor(d[_U_ADIA] * torch.clamp(n_adiabatic, min=1))
+            adia_target = moves.pick_kth_true(
+                state.mol_alive & state.mol_adiabatic, ka.to(torch.int64))
+            target = torch.where(movetype == const.MOVETYPE_ADIABATIC,
+                                 adia_target, target)
+        is_ins = movetype == const.MOVETYPE_INSERT
+        is_rem = movetype == const.MOVETYPE_REMOVE
+        if opts.cavity_bias:
+            cavity, biased, cavity_prior, insert_com = cavity_branch(
+                carry, d, dart_u, is_ins, is_rem)
+        else:
+            cavity, cavity_prior, insert_com = carry.cavity, 0.0, None
+            biased = torch.zeros_like(movetype, dtype=torch.bool)
         if volume:
             new_state = moves.volume_change(state, d[_U_VOL],
                                             opts.volume_change_factor)
-            valid, rows, cavity = True, None, carry.cavity
-            biased = torch.zeros_like(movetype, dtype=torch.bool)
+            valid, rows, insert_slot = True, None, None
         else:
-            (new_state, valid, target, rows, cavity, biased, cavity_prior,
-             insert_slot) = local_move(carry, d, dart_u, movetype, target)
+            new_state, valid, target, rows, insert_slot = local_move(
+                carry, d, wide, movetype, target, insert_com)
         eb, new_state, sf_new, recip_new, pnew = evaluate(
             carry, new_state, rows, volume)
 
@@ -482,6 +631,8 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
                                                base_params, opts.ensemble)
         delta = final_energy - carry.obs.energy
         t1 = target.reshape(1)
+        # the spin flip's ratio of rotational partition functions: NaN
+        # while they are 0, as the twin leaves them (fault kept)
         pr = metropolis.spin_partfunc_ratio(
             new_state.nuclear_spin.index_select(0, t1)[0],
             state.rot_partfunc_g.index_select(0, t1)[0],
@@ -518,11 +669,18 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
         def sel(a, b):
             return torch.where(accept, a, b)
 
-        changed = ("pos",) + (("mu",) if flags.polarization else ()) + (
-            ("mol_alive", "aalive", "nuclear_spin") if uvt else ())
+        changed = ("pos",) + (("mu",) if flags.polarization else ()) + \
+            moved_fields
         state_out = state.replace(**{
             f: sel(getattr(new_state, f), getattr(state, f))
             for f in changed})
+        if opts.spectre:
+            # a rejected SPECTRE move keeps the renormalization shift it
+            # gave the other SPECTRE sites (the reference's restore,
+            # src/System.MonteCarlo.cpp:1559-1582; chain.py:627-635)
+            state_out.charge = sel(new_state.charge,
+                                   moves.spectre_reject_restore(
+                                       state, new_state, target))
         if volume:
             state_out.pbc = PBC(**{
                 f.name: sel(getattr(new_state.pbc, f.name),
@@ -540,9 +698,8 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
             # geometry-free commit from the proposal's own tables: on
             # reject every write re-writes current content
             pcache = pcache_mod.cache_commit(pcache, accept, pnew, flags)
-        if uvt:
-            capacity_reject = (movetype == const.MOVETYPE_INSERT) & \
-                (insert_slot < 0)
+        if uvt and not volume:
+            capacity_reject = is_ins & (insert_slot < 0)
         else:
             capacity_reject = torch.zeros_like(accept)
         if opts.simulated_annealing:
@@ -557,6 +714,7 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
             cavity=cavity, sf=sf_out, recip_e=sel(recip_new, carry.recip_e),
             pcache=pcache), out
 
+    step.any_adiabatic = any_adiabatic
     return step
 
 
@@ -578,18 +736,24 @@ def make_chunk_runner(flags: FFlags, params: RunParams, opts: MCOptions,
 
     def run_chunk(carry: MCCarry):
         dev = carry.state.pos.device
-        key, draws, k_grid = chunk_draws(carry.key, chunk_steps)
+        special = opts.rd_anharmonic or opts.spectre or opts.gwp or (
+            opts.ensemble == const.ENSEMBLE_UVT and
+            step.any_adiabatic(carry.state))
+        key, draws, k_grid = chunk_draws(carry.key, chunk_steps, special)
         volume = volume_steps(opts, draws, carry.state)
         draws = draws.to(dev)
-        darts = [None] * chunk_steps
+        darts = wide = [None] * chunk_steps
         if opts.cavity_bias:
             # the twin's uniform(k_grid, (n_darts, 3)) of every step, made
             # on the device in one call (update_grid's 256 when unset)
             n_darts = opts.cavity_darts if opts.cavity_darts > 0 else 256
             darts = rnd.uniform(k_grid.to(dev), (n_darts, 3))
+        if opts.spectre or opts.gwp:
+            wide = wide_draws(carry.key, chunk_steps,
+                              carry.state.n_atom_slots).to(dev)
         outs = []
         for i in range(chunk_steps):
-            carry, out = step(carry, draws[i], darts[i], volume[i])
+            carry, out = step(carry, draws[i], darts[i], volume[i], wide[i])
             outs.append(out)
         outs = StepOut(*(torch.stack(col) for col in zip(*outs)))
         carry = dataclasses.replace(
@@ -623,8 +787,6 @@ def init_carry(state: SystemState, flags: FFlags, params: RunParams,
     """Initial energy + carry (mc_initial_energy,
     src/System.MonteCarlo.cpp:158-173)."""
     require_options(flags, params, opts)
-    if bool(torch.any(state.mol_adiabatic)):
-        raise NotImplementedError("adiabatic molecules")
     dev = state.pos.device
     eb, sf, recip_e, pcache = _full_recompute(state, flags, params, opts)
     obs = observables_from_breakdown(state, eb, flags, params, opts.ensemble)

@@ -8,23 +8,26 @@ exchanges accept jointly; displacements accept per box
 pick_Gibbs_move src/System.MonteCarlo.cpp:509-714).  The two boxes may
 have different capacities, so the carry holds two states.
 
-Ported: displacements, transfers and the coupled volume exchange on the
+Ported: displacements, spin flips (quantum rotation; one in each box,
+accepted per box), transfers and the coupled volume exchange on the
 per-box incremental pairwise branch (any pairwise term of ops/energy,
 with the moved rows' cavity_autoreject_absolute penalty; a volume
 exchange recomputes both boxes) or the full-recompute branch (dense,
 or in row blocks above 1,024 slots), the volume factor's deliberate
-deviation from the reference's law (README Fidelity) included.
-Quantum rotation (spin flips) raises NotImplementedError.
+deviation from the reference's law (README Fidelity) included.  As in
+the twin, no spin flip is accepted: the rotational partition functions
+stay 0 and their ratio is NaN.
 
 As in ``mc/chain.py`` the chunk is a host loop that never waits on the
 device.  Every draw of a step is a function of the carried key, so the
 chunk's draws are made on the host up front (``gibbs_draws``), and with
-them the move pick (transfer, volume exchange or displacement) and a
-transfer's direction.  The one data-dependent choice, "never empty a
-box" (a transfer out of a box holding one molecule becomes a
-displacement), is a device-side select: on a transfer step both the
-transfer and the two displacements are proposed (each an O(S) window
-write) and selected before the one energy evaluation per box.
+them the move pick (spin flip, volume exchange, transfer or
+displacement) and a transfer's direction.  The one data-dependent
+choice, "never empty a box" (a transfer out of a box holding one
+molecule becomes a displacement), is a device-side select: on a transfer
+step both the transfer and the two displacements are proposed (each an
+O(S) window write) and selected before the one energy evaluation per
+box.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ from ..pbc import PBC
 from ..runner import _live, _obs_to_dict
 from ..state import Observables, SystemState, build_state, topology
 from . import chain as chain_mod
-from . import moves
+from . import metropolis, moves
 from .averages import AvgObservables, nodestats_from_counters
 
 
@@ -98,50 +101,37 @@ class GibbsStepOut(NamedTuple):
 
 
 # the host's move pick of a step (transfers are reported as INSERT)
-DISPLACE, TRANSFER, VOLUME = "displace", "transfer", "volume"
+DISPLACE, TRANSFER, VOLUME, SPIN = "displace", "transfer", "volume", "spin"
 
 # columns of one step's draws (see gibbs_draws)
 _U_MOVE, _U_DIR, _U_T1, _U_T2, _U_ACC1, _U_ACC2, _U_VOL = range(7)
 _MOVE_A, _MOVE_B = 7, 17     # each 10 wide: dice (6), axis (3), angle
 
 
-def _move_draws(k):
-    """A whole-molecule move's draws from its key (moves.py:137-143,
-    189-213): split(k, 3) -> uniform (6,), normal (3,), uniform; an
-    insertion reads the first three uniforms as its position (the head of
-    uniform(k, (6,)) under partitionable threefry)."""
-    k3 = rnd.split(k, 3)
-    return torch.cat([rnd.uniform(k3[:, 0], (6,)),
-                      rnd.normal(k3[:, 1], (3,)),
-                      rnd.uniform(k3[:, 2])[:, None]], dim=1)
-
-
 def gibbs_draws(key: torch.Tensor, n: int):
     """The draws of ``n`` consecutive Gibbs steps from the chain key
     (gibbs.py:88-89): per step split(key, 10) -> (next key, k_move, k_dir,
     ka1, ka2, kt1, kt2, kacc1, kacc2, kv), one uniform of each but ka1 and
-    ka2, whose moves' draws follow (``_move_draws``).  Returns (the key
+    ka2, whose moves' draws follow (``chain.move_draws``).  Returns (the key
     after the chunk, [n, 27] f64 on the host)."""
-    subs = []
-    for _ in range(n):
-        sub = rnd.split(key, 10)
-        key = sub[0]
-        subs.append(sub)
-    ks = torch.stack(subs)                              # [n, 10, 2]
+    key, ks = chain_mod.step_keys(key, n, 10)          # [n, 10, 2]
     u = rnd.uniform(ks[:, [1, 2, 5, 6, 7, 8, 9]])       # [n, 7]
-    return key, torch.cat([u, _move_draws(ks[:, 3]),
-                           _move_draws(ks[:, 4])], dim=1)
+    return key, torch.cat([u, chain_mod.move_draws(ks[:, 3]),
+                           chain_mod.move_draws(ks[:, 4])], dim=1)
 
 
 def move_picks(opts: GibbsOptions, draws) -> list:
     """Per step of a chunk, (move, A->B): the move from the move uniform
-    (gibbs.py:98-106; no spin flips, so volume below volume_probability,
-    then transfer) and the transfer direction, both from the host draws."""
-    vol_p = opts.volume_probability
+    (gibbs.py:98-106: a spin flip below spinflip_probability under
+    quantum rotation, then the volume exchange, then the transfer) and
+    the transfer direction, both from the host draws."""
+    spin_p = opts.spinflip_probability if opts.quantum_rotation else 0.0
+    vol_p = opts.volume_probability + spin_p
     xfer_p = opts.transfer_probability + vol_p
     out = []
     for r, u_dir in draws[:, [_U_MOVE, _U_DIR]].tolist():
-        move = VOLUME if r < vol_p else TRANSFER if r < xfer_p else DISPLACE
+        move = SPIN if r < spin_p else VOLUME if r < vol_p else \
+            TRANSFER if r < xfer_p else DISPLACE
         out.append((move, u_dir < 0.5))
     return out
 
@@ -153,9 +143,6 @@ def make_gibbs_step(flags: FFlags, base_params: RunParams,
     ``a_to_b`` the host's pick (move_picks), ``topologies`` the two boxes'
     (mol_start[M], mol_natoms[M]) host pairs (state.topology)."""
     require_supported(flags, base_params)
-    if opts.quantum_rotation:
-        raise NotImplementedError("GibbsOptions.quantum_rotation=True "
-                                  "(spin flips)")
     params = base_params
     S = opts.max_mol_atoms
     full_energy = _full_energy(opts)
@@ -267,6 +254,13 @@ def make_gibbs_step(flags: FFlags, base_params: RunParams,
             valid = demote | (valid_b if a_to_b else valid_a)
             movetype = torch.where(demote, const.MOVETYPE_DISPLACE,
                                    const.MOVETYPE_INSERT)
+        elif move == SPIN:
+            # a spin flip in each box (gibbs.py:121-123)
+            new_a, rows_a = moves.spinflip(sa, ta), rows_of(0, ta)
+            new_b, rows_b = moves.spinflip(sb, tb), rows_of(1, tb)
+            valid = True
+            movetype = torch.full((), const.MOVETYPE_SPINFLIP,
+                                  dtype=torch.int64, device=dev)
         else:
             new_a, rows_a = displace(sa, 0, ta, dma)
             new_b, rows_b = displace(sb, 1, tb, dmb)
@@ -282,14 +276,20 @@ def make_gibbs_step(flags: FFlags, base_params: RunParams,
         dEa = ea - carry.energy_a
         dEb = eb_ - carry.energy_b
         beta = 1.0 / T
-        # displacements accept per box
-        bf_a_ind = torch.exp(-dEa / T)
+        # displacements and spin flips accept per box (gibbs.py:234-252);
+        # a flip's ratio of rotational partition functions is NaN while
+        # they are 0, as the twin leaves them (fault kept)
+        if move == SPIN:
+            bf_a_ind = _spin_ratio(sa, new_a, ta)
+            bf_b_ind = _spin_ratio(sb, new_b, tb)
+        else:
+            bf_a_ind, bf_b_ind = torch.exp(-dEa / T), torch.exp(-dEb / T)
         acc_a = (d[_U_ACC1] < torch.where(torch.isfinite(ea), bf_a_ind,
                                           0.0)) & ~fail_a
-        acc_b = (d[_U_ACC2] < torch.where(torch.isfinite(eb_),
-                                          torch.exp(-dEb / T), 0.0)) & ~fail_b
+        acc_b = (d[_U_ACC2] < torch.where(torch.isfinite(eb_), bf_b_ind,
+                                          0.0)) & ~fail_b
         bf = bf_a_ind
-        if move != DISPLACE:
+        if move in (TRANSFER, VOLUME):
             va, vb = sa.pbc.volume, sb.pbc.volume
             if move == TRANSFER:
                 # (src/SimulationControl.Gibbs.cpp:416-441) with the
@@ -319,7 +319,8 @@ def make_gibbs_step(flags: FFlags, base_params: RunParams,
                 bf = torch.where(demote, bf_a_ind, bf_joint)
 
         changed = ("pos", "mol_alive", "aalive", "nuclear_spin") \
-            if move == TRANSFER else ("pos",)
+            if move == TRANSFER else ("nuclear_spin",) if move == SPIN \
+            else ("pos",)
 
         def select(acc, new, old):
             out = old.replace(**{f: torch.where(acc, getattr(new, f),
@@ -357,6 +358,16 @@ def make_gibbs_step(flags: FFlags, base_params: RunParams,
             step=carry.step + 1), out
 
     return step
+
+
+def _spin_ratio(old, new, mol):
+    """The flip's ratio of rotational partition functions in one box
+    (gibbs.py:234-245)."""
+    one = mol.reshape(1)
+    return metropolis.spin_partfunc_ratio(
+        new.nuclear_spin.index_select(0, one)[0],
+        old.rot_partfunc_g.index_select(0, one)[0],
+        old.rot_partfunc_u.index_select(0, one)[0])
 
 
 def make_gibbs_chunk_runner(flags: FFlags, params: RunParams,
@@ -451,9 +462,6 @@ class GibbsSimulation:
     src/SimulationControl.Gibbs.cpp:136-352) on ``device``."""
 
     def __init__(self, cfg: SimConfig, quiet: bool = False, device="cuda"):
-        if cfg.quantum_rotation:
-            raise NotImplementedError("quantum_rotation (spin flips) in "
-                                      "nvt_gibbs")
         self.cfg = validate(cfg)
         self.quiet = quiet
         self.out = sys.stdout

@@ -20,15 +20,17 @@ Implements, as the twin does:
 * the PI-NVT Boltzmann factor (PI_NVT_boltzmann_factor, :490-547) with
   the reference's quirks: the orientation term omits the reduced-mass
   weight and the system-wide orientation chain term is 0
+* spin flips under quantum rotation, on every bead at once (pi.py:
+  161-165), which no run accepts: as in the twin the rotational
+  partition functions stay 0 and their ratio is NaN
 * simulated annealing on accept.
-Quantum rotation (spin flips) and the bead-per-device mesh raise
-NotImplementedError.
+The bead-per-device mesh raises NotImplementedError.
 
 The chunk is a host loop that never waits on the device: every draw of
 a step, Coker's per-bead normals and the bisection sampler's included,
 is a function of the carried key, so the chunk's draws are made on the
-host up front (``pi_draws``), and with them the move pick and the
-rotating Coker anchor.
+host up front (``pi_draws``), and with them the move pick
+(``move_picks``) and the rotating Coker anchor.
 """
 
 from __future__ import annotations
@@ -55,10 +57,10 @@ from ..ops.energy import energy_breakdown
 from ..pbc import PBC
 from ..runner import _live
 from ..state import SystemState, build_state, topology
-from . import moves
+from . import metropolis, moves
 from .averages import AvgObservables, nodestats_from_counters
 from .chain import (NodeStats, _params_at, accumulate_stats,
-                    annealed_temperature)
+                    annealed_temperature, step_keys)
 
 
 # ---------------------------------------------------------------------------
@@ -166,6 +168,16 @@ def pi_kinetic(stack: SystemState, temperature):
 # ---------------------------------------------------------------------------
 # PI moves (on the stacked state, with common dice)
 # ---------------------------------------------------------------------------
+
+def pi_spinflip(stack: SystemState, mol) -> SystemState:
+    """Para <-> ortho on molecule ``mol`` in every bead (pi.py:161-165)."""
+    one = mol.reshape(1)
+    cur = stack.nuclear_spin.index_select(1, one)
+    new = torch.where(cur == const.NUCLEAR_SPIN_PARA,
+                      const.NUCLEAR_SPIN_ORTHO, const.NUCLEAR_SPIN_PARA)
+    return stack.replace(nuclear_spin=stack.nuclear_spin.index_copy(
+        1, one, new.to(stack.nuclear_spin.dtype)))
+
 
 def pi_displace(stack: SystemState, dice, axis, u_angle, mol, move_factor,
                 rot_factor) -> SystemState:
@@ -440,12 +452,7 @@ def pi_draws(key: torch.Tensor, n: int, n_chain: int, P: int,
     and, for each schedule entry of split(split(k_orient)[1], L), the
     uniforms of its split pair.  Returns (the key after the chunk, [n, W]
     f64 on the host)."""
-    subs = []
-    for _ in range(n):
-        sub = rnd.split(key, 5)
-        key = sub[0]
-        subs.append(sub)
-    ks = torch.stack(subs)                              # [n, 5, 2]
+    key, ks = step_keys(key, n, 5)                      # [n, 5, 2]
     k_apply = ks[:, 3]
     k3 = rnd.split(k_apply, 3)
     k_orient, k_com = rnd.split(k_apply, 2).unbind(1)
@@ -467,16 +474,14 @@ def make_pi_step(flags: FFlags, base_params: RunParams, opts: PIOptions,
                  perturb_specs: PerturbSpec, trial_chain_len: int,
                  topology_pair, incremental: bool = False,
                  max_mol_atoms: int = 1, any_orientation: bool = True):
-    """Build ``step(carry, d, perturb) -> (carry, PIStepOut)`` (the twin's
-    make_pi_step, pi.py:385-573); ``d`` is one row of pi_draws on the
-    stack's device, ``perturb`` the host's move pick.  ``topology_pair``
-    is the (mol_start[M], mol_natoms[M]) host pair of state.topology;
-    ``max_mol_atoms`` the move window; ``any_orientation`` (static) keeps
-    the bisection staging in the graph."""
+    """Build ``step(carry, d, movetype) -> (carry, PIStepOut)`` (the
+    twin's make_pi_step, pi.py:385-573); ``d`` is one row of pi_draws on
+    the stack's device, ``movetype`` the host's move pick (move_picks).
+    ``topology_pair`` is the (mol_start[M], mol_natoms[M]) host pair of
+    state.topology; ``max_mol_atoms`` the move window;
+    ``any_orientation`` (static) keeps the bisection staging in the
+    graph."""
     require_supported(flags, base_params)
-    if opts.quantum_rotation:
-        raise NotImplementedError("PIOptions.quantum_rotation=True "
-                                  "(spin flips)")
     params_at = _params_at(flags, base_params, opts)
     n = trial_chain_len
     tables = {}
@@ -499,7 +504,9 @@ def make_pi_step(flags: FFlags, base_params: RunParams, opts: PIOptions,
         return [b.replace(pos=stack.pos[s])
                 for s, b in enumerate(views["beads"])]
 
-    def step(carry: PICarry, d, perturb: bool):
+    def step(carry: PICarry, d, movetype: int):
+        perturb = movetype == const.MOVETYPE_PERTURB_BEADS
+        spin = movetype == const.MOVETYPE_SPINFLIP
         stack = carry.stack
         P = stack.pos.shape[0]
         T = carry.temperature
@@ -519,7 +526,6 @@ def make_pi_step(flags: FFlags, base_params: RunParams, opts: PIOptions,
             return cml, torch.where(has_orient & (bond_len > 0), oml, 0.0)
 
         if perturb:
-            movetype = const.MOVETYPE_PERTURB_BEADS
             cml_init, oml_init = chain_metrics(stack)
             orient = None
             if any_orientation:
@@ -531,8 +537,9 @@ def make_pi_step(flags: FFlags, base_params: RunParams, opts: PIOptions,
             new_stack = pi_perturb_beads(
                 stack, target, d[_COKER:_COKER + 3 * n].reshape(n, 3), n,
                 carry.starter_bead, T, orient)
+        elif spin:
+            new_stack = pi_spinflip(stack, target)
         else:
-            movetype = const.MOVETYPE_DISPLACE
             new_stack = pi_displace(stack, d[_DICE:_DICE + 6],
                                     d[_AXIS:_AXIS + 3], d[_U_ANGLE], target,
                                     opts.move_factor, opts.rot_factor)
@@ -559,6 +566,14 @@ def make_pi_step(flags: FFlags, base_params: RunParams, opts: PIOptions,
             bf = torch.exp(-delta_pot / T -
                            (cml_trial - cml_init) * (P * T * _C_CHAIN) -
                            (oml_trial - oml_init) * (P * T * _C_ORIENT))
+        elif spin:
+            # the ratio of rotational partition functions (pi.py:520-535):
+            # NaN while they are 0, as the twin leaves them (fault kept)
+            b0 = bead(stack, 0)
+            bf = metropolis.spin_partfunc_ratio(
+                new_stack.nuclear_spin[0].index_select(0, t1)[0],
+                b0.rot_partfunc_g.index_select(0, t1)[0],
+                b0.rot_partfunc_u.index_select(0, t1)[0])
         else:
             bf = torch.exp(-delta_pot / T)
         bf = torch.where(torch.isfinite(pot_trial), bf, 0.0)
@@ -572,8 +587,12 @@ def make_pi_step(flags: FFlags, base_params: RunParams, opts: PIOptions,
             # (PI main loop :151-160)
             T_out = sel(annealed_temperature(opts, T, carry.step), T)
         out = PIStepOut(bf, accept, movetype)
+        moved = {"pos": sel(new_stack.pos, stack.pos)}
+        if opts.quantum_rotation:
+            moved["nuclear_spin"] = sel(new_stack.nuclear_spin,
+                                        stack.nuclear_spin)
         return dataclasses.replace(
-            carry, stack=stack.replace(pos=sel(new_stack.pos, stack.pos)),
+            carry, stack=stack.replace(**moved),
             potential_current=sel(pot_trial, carry.potential_current),
             obs_components=sel(comps, carry.obs_components),
             comps_per_bead=sel(comps_pb, carry.comps_per_bead),
@@ -587,6 +606,19 @@ def make_pi_step(flags: FFlags, base_params: RunParams, opts: PIOptions,
     return step
 
 
+def move_picks(opts: PIOptions, draws) -> list:
+    """Each step's move from its move uniform (pi.py:420-430): under
+    quantum rotation a spin flip below spinflip_probability, then a bead
+    perturbation below the sum with bead_perturb_probability, else a
+    displacement; without it a bead perturbation below
+    bead_perturb_probability."""
+    spin_p = opts.spinflip_probability if opts.quantum_rotation else 0.0
+    perturb_p = spin_p + opts.bead_perturb_probability
+    return [const.MOVETYPE_SPINFLIP if r < spin_p else
+            const.MOVETYPE_PERTURB_BEADS if r < perturb_p else
+            const.MOVETYPE_DISPLACE for r in draws[:, _R_MOVE].tolist()]
+
+
 def make_pi_chunk_runner(step, chunk_steps: int, opts: PIOptions,
                          n_chain: int, any_orientation: bool):
     """``run_chunk(carry) -> (carry, PIStepOut of [chunk_steps] columns)``:
@@ -597,12 +629,11 @@ def make_pi_chunk_runner(step, chunk_steps: int, opts: PIOptions,
         P = carry.stack.pos.shape[0]
         key, draws = pi_draws(carry.key, chunk_steps, n_chain, P,
                               any_orientation)
-        perturb = (draws[:, _R_MOVE] <
-                   opts.bead_perturb_probability).tolist()
+        picks = move_picks(opts, draws)
         draws = draws.to(dev, non_blocking=True)
         outs = []
         for i in range(chunk_steps):
-            carry, out = step(carry, draws[i], perturb[i])
+            carry, out = step(carry, draws[i], picks[i])
             outs.append(out)
         outs = PIStepOut(
             torch.stack([o.boltzmann_factor for o in outs]),
@@ -655,9 +686,6 @@ class PISimulation:
         if mesh is not None:
             raise NotImplementedError("PISimulation(mesh=...): the "
                                       "bead-per-device mesh")
-        if cfg.quantum_rotation:
-            raise NotImplementedError("quantum_rotation (spin flips) in "
-                                      "pi_nvt")
         if P is None:
             P = cfg.total_trotter_number or 8
         self.P = P

@@ -3,14 +3,14 @@ large ones.
 
 JAX twin: mpmcxx_tpu/ops/energy.py (``EnergyBreakdown``,
 ``cavity_absolute_check``, ``energy_breakdown`` and
-``energy_breakdown_blocked``, all but the SPECTRE, GWP and anharmonic
-branches): the equivalent of System::energy()
+``energy_breakdown_blocked``): the equivalent of System::energy()
 (src/System.Energy.cpp:19-171) on the dense [A,A] pairs, or by
 O(B*A)-memory row-block tiling of the dense pair triangle.  The dense
 path dispatches every repulsion-dispersion form, Ewald or Wolf
-electrostatics, every Thole SCF (ops/polar.polar), the many-body vdW
-term and the Axilrod-Teller 3-body term; the blocked one the pairwise
-terms and the matrix-free SCFs (ops/polar.polar_blocked).
+electrostatics, SPECTRE's no-PBC Coulomb, the GWP Coulomb and kinetic
+terms, the anharmonic well, every Thole SCF (ops/polar.polar), the
+many-body vdW term and the Axilrod-Teller 3-body term; the blocked one
+the pairwise terms and the matrix-free SCFs (ops/polar.polar_blocked).
 """
 
 from __future__ import annotations
@@ -27,13 +27,13 @@ from .pairwise import PairTensors, build_pairs, build_pairs_block
 
 
 class EnergyBreakdown(NamedTuple):
-    total: torch.Tensor              # potential (K)
+    total: torch.Tensor              # potential incl. GWP kinetic (K)
     rd: torch.Tensor
     coulombic: torch.Tensor
     polarization: torch.Tensor
     vdw: torch.Tensor
     three_body: torch.Tensor
-    kinetic: torch.Tensor
+    kinetic: torch.Tensor            # GWP kinetic
     mu: torch.Tensor                 # [A,3] induced dipoles
     polarization_iterations: torch.Tensor
     iterator_failed: torch.Tensor
@@ -74,11 +74,17 @@ def energy_breakdown(state: SystemState, flags: FFlags,
     require_supported(flags, params)
     pt = build_pairs(state, flags)
     z = torch.zeros((), dtype=torch.float64, device=state.pos.device)
-    coul, vdw_e = z, z
+    coul, vdw_e, kin = z, z, z
     pol, mu, pol_iters, failed, rrms = _no_polar(state)
     amat = None
     if not (flags.use_sg or flags.rd_only):
-        coul = ewald.coulombic(state, pt, flags, params)
+        if flags.spectre:
+            coul = ewald.coulombic_nopbc(state, pt)
+        elif flags.gwp:
+            coul = ewald.coulombic_nopbc_gwp(state, pt)
+            kin = ewald.coulombic_kinetic_gwp(state)
+        else:
+            coul = ewald.coulombic(state, pt, flags, params)
         if flags.polarization:
             pol, mu, pol_iters, failed, rrms = polar.polar(state, pt, flags,
                                                            params)
@@ -88,7 +94,7 @@ def energy_breakdown(state: SystemState, flags: FFlags,
 
     rd = pair_potentials.rd_energy(state, pt, flags, params)
     if flags.disp_expansion_mbvdw and flags.using_disp_expansion and not (
-            flags.use_sg or flags.use_dreiding or
+            flags.rd_anharmonic or flags.use_sg or flags.use_dreiding or
             flags.using_lj_buffered_14_7):
         # mbvdw couples the many-body vdW term into rd
         # (src/System.Energy.cpp:1998-2002)
@@ -100,8 +106,8 @@ def energy_breakdown(state: SystemState, flags: FFlags,
     pen = cavity_absolute_check(state, pt, params) \
         if flags.cavity_autoreject_absolute else z
     return EnergyBreakdown(
-        total=rd + coul + pol + vdw_e + tb, rd=rd, coulombic=coul,
-        polarization=pol, vdw=vdw_e, three_body=tb, kinetic=z, mu=mu,
+        total=rd + coul + pol + vdw_e + tb + kin, rd=rd, coulombic=coul,
+        polarization=pol, vdw=vdw_e, three_body=tb, kinetic=kin, mu=mu,
         polarization_iterations=pol_iters, iterator_failed=failed,
         dipole_rrms=rrms, cavity_penalty=pen)
 
@@ -110,12 +116,15 @@ def energy_breakdown_blocked(state: SystemState, flags: FFlags,
                              params: RunParams,
                              block: int = 256) -> EnergyBreakdown:
     """Full energy via [block, A] row tiles (energy.py:120-218): the
-    pairwise terms and Thole polarization.  The full-Ewald SCF is routed
-    to the dense ``energy_breakdown`` (the twin's blocked SCF would
-    solve on the no-PBC field instead; flags.dense_only); the many-body
-    and crystal-sum terms are dense-only and raise."""
+    pairwise terms and Thole polarization.  The full-Ewald SCF and the
+    special moves' terms (SPECTRE, GWP, the anharmonic well) are routed
+    to the dense ``energy_breakdown`` (flags.dense_only; the twin's
+    blocked SCF would solve on the no-PBC field instead, and its blocked
+    energy raises on the special moves); the many-body and crystal-sum
+    terms are dense-only and raise."""
     require_supported(flags, params)
-    if flags.polarization and flags.polar_ewald_full:
+    if (flags.polarization and flags.polar_ewald_full) or flags.spectre or \
+            flags.gwp or flags.rd_anharmonic:
         return energy_breakdown(state, flags, params)
     if dense_only(flags):
         raise ValueError("blocked energy requires pairwise + k-space terms "

@@ -1,11 +1,12 @@
 """Ewald electrostatics.
 
-JAX twin: mpmcxx_tpu/ops/ewald.py (all but the no-PBC and GWP Coulomb,
-which come with SPECTRE and GWP): the real-space erfc sum with the
+JAX twin: mpmcxx_tpu/ops/ewald.py: the real-space erfc sum with the
 intra-molecular screening correction (src/System.Energy.cpp:1466-1517)
 and its Feynman-Hibbs correction (:1521-1557), hemisphere k-space
-structure factors (:1561-1622), the self term (:1626-1643) and the Wolf
-damped-shifted sum (:1420-1462).  Charges are in reduced units
+structure factors (:1561-1622), the self term (:1626-1643), the Wolf
+damped-shifted sum (:1420-1462), and the special moves' terms: SPECTRE's
+plain no-PBC Coulomb (:1304-1326) and the Gaussian-wave-packet Coulomb
+and kinetic energies (:1330-1392).  Charges are in reduced units
 sqrt(K*Angstrom); energies in Kelvin.
 """
 
@@ -142,6 +143,42 @@ def coulombic_wolf(state: SystemState, pt: PairTensors, flags: FFlags,
     q_i, q_j = pt.row(state.charge)[:, None], state.charge[None, :]
     pot = q_i * q_j * (1.0 / r - erfaRoverR - iR * iR * (R - r))
     return torch.sum(torch.where(ok, pot, 0.0))
+
+
+def coulombic_nopbc(state: SystemState, pt: PairTensors):
+    """Plain Coulomb over the real (unwrapped) distance, no PBC
+    (src/System.Energy.cpp:1304-1326; ewald.py:149-154)."""
+    ok = pt.pair_once & pt.alive & ~pt.es_excluded
+    r = torch.where(pt.r == 0.0, 1.0, pt.r)
+    q_i, q_j = pt.row(state.charge)[:, None], state.charge[None, :]
+    return torch.sum(torch.where(ok, q_i * q_j / r, 0.0))
+
+
+def coulombic_nopbc_gwp(state: SystemState, pt: PairTensors):
+    """Gaussian-wave-packet Coulomb (src/System.Energy.cpp:1330-1367;
+    ewald.py:157-169): over every pair, with no exclusion, as the
+    reference applies it."""
+    ok = pt.pair_once & pt.alive
+    r = torch.where(pt.rimg == 0.0, 1.0, pt.rimg)
+    q_i, q_j = pt.row(state.charge)[:, None], state.charge[None, :]
+    ai = pt.row(state.gwp_alpha)[:, None]
+    aj = state.gwp_alpha[None, :]
+    spin = pt.row(state.gwp_spin)[:, None] | state.gwp_spin[None, :]
+    pe_gwp = q_i * q_j * torch.special.erf(
+        torch.sqrt(1.5 * (ai * ai + aj * aj)) * r) / r
+    pe = torch.where(spin, pe_gwp, q_i * q_j / r)
+    return torch.sum(torch.where(ok, pe, 0.0))
+
+
+def coulombic_kinetic_gwp(state: SystemState):
+    """GWP kinetic energy (src/System.Energy.cpp:1371-1392;
+    ewald.py:172-179)."""
+    ok = state.atom_alive() & state.gwp_spin
+    ai = state.gwp_alpha / const.METER2ANGSTROM
+    mass = const.AMU2KG * state.mass
+    e = 9.0 * const.hBar ** 2 / (8.0 * ai * ai * torch.where(
+        mass == 0, 1.0, mass)) / const.kB
+    return torch.sum(torch.where(ok, e, 0.0))
 
 
 def coulombic(state: SystemState, pt: PairTensors, flags: FFlags,

@@ -6,8 +6,8 @@ corrections (src/System.Energy.cpp:897-1208), the buffered 14-7 MMFF
 (:1212-1291), Silvera-Goldman H2 (:1773-1928), DREIDING (:2098-2265), the
 dispersion expansion with Tang-Toennies damping (:1939-2078) and the
 exponential repulsion (:2275-2485), each with its cavity_autoreject
-branch.  Not ported yet: ``anharmonic`` (the 1-D oscillator comes with
-its moves).
+branch, SPECTRE's repulsion-only LJ, and the 1-D anharmonic oscillator
+with its Feynman-Hibbs terms (:757-885).
 
 Every function takes the pair tensors of any layout (dense [A,A], an
 [S,A] move window, a [B,A] row tile): per-row arrays go through
@@ -116,12 +116,17 @@ def lj(state: SystemState, pt: PairTensors, flags: FFlags,
         sor6 = sor ** 6
         sor12 = sor6 * sor6
 
-    term6 = torch.zeros_like(sor6) if flags.polarvdw else sor6
-    term12 = torch.where(pt.attractive_only, 0.0, sor12)
-    if flags.cdvdw_sig_repulsion:
-        pot = pt.sigrep * term12
+    if flags.spectre:
+        # repulsion only, with no 4 epsilon (pair_potentials.py:111-114)
+        term6, term12 = torch.zeros_like(sor6), sor12
+        pot = term12
     else:
-        pot = 4.0 * pt.epsilon * (term12 - term6)
+        term6 = torch.zeros_like(sor6) if flags.polarvdw else sor6
+        term12 = torch.where(pt.attractive_only, 0.0, sor12)
+        if flags.cdvdw_sig_repulsion:
+            pot = pt.sigrep * term12
+        else:
+            pot = 4.0 * pt.epsilon * (term12 - term6)
     if flags.feynman_hibbs:
         pot = pot + lj_fh_corr(flags, params, state, pt.rimg, term12, term6,
                                pt.epsilon, pt.sigrep, pt)
@@ -192,7 +197,9 @@ def lj_rd_crystal_self(state: SystemState, flags: FFlags, cutoff):
     sor12 = 0.5 * torch.sum(sor ** 12, dim=0)
     term6 = torch.zeros_like(sor6) if flags.polarvdw else sor6
     term12 = torch.where(state.sigma < 0.0, 0.0, sor12)
-    if flags.cdvdw_sig_repulsion:
+    if flags.spectre:
+        pot = sor12
+    elif flags.cdvdw_sig_repulsion:
         pot = (0.75 * const.hBar / const.kB * const.au2invseconds *
                state.omega * state.polarizability ** 2 *
                _safe_div(term12, state.sigma ** 6))
@@ -455,11 +462,40 @@ def exp_repulsion(state: SystemState, pt: PairTensors, flags: FFlags,
     return energy
 
 
+def anharmonic(state: SystemState, flags: FFlags, params: RunParams):
+    """1-D anharmonic oscillator well (src/System.Energy.cpp:757-885;
+    pair_potentials.py:450-470).  The Feynman-Hibbs terms read the
+    chain's temperature and are added only with feynman_kleinert off:
+    with it on, the energy is the classical well, as in the twin, which
+    has no Feynman-Kleinert iteration (a fault shared with it)."""
+    k = flags.rd_anharmonic_k
+    g = flags.rd_anharmonic_g
+    x = state.pos[:, 0]
+    pot = 0.5 * k * x ** 2 + 0.25 * g * x ** 4
+    if flags.feynman_hibbs and not flags.feynman_kleinert:
+        mass = const.AMU2KG * state.mass
+        T = params.temperature
+        first = k * x + g * x ** 3
+        second = k + 3.0 * g * x ** 2
+        xs = torch.where(x == 0.0, 1.0, x)
+        pot = pot + (const.M2A2 * const.hBar ** 2 /
+                     (24.0 * const.kB * T * mass) *
+                     (second + 2.0 * first / xs))
+        if flags.feynman_hibbs_order == 4:
+            other = 15.0 * k / xs ** 2 + 45.0 * g
+            pot = pot + (const.M2A4 * const.hBar ** 4 /
+                         (1152.0 * (const.kB * T * mass) ** 2) * other)
+    return torch.sum(torch.where(state.atom_alive(), pot, 0.0))
+
+
 def rd_energy(state: SystemState, pt: PairTensors, flags: FFlags,
               params: RunParams, pair_only: bool = False):
     """Repulsion-dispersion energy of the pairs in ``pt`` in the dense
     dispatch order of energy.py:80-101 (the many-body coupling of
-    disp_expansion_mbvdw is added by the dense caller)."""
+    disp_expansion_mbvdw is added by the dense caller): the anharmonic
+    well first, and GWP with no other form has none."""
+    if flags.rd_anharmonic:
+        return anharmonic(state, flags, params)
     if flags.use_sg:
         return sg(state, pt, flags, params)
     if flags.use_dreiding:
@@ -470,4 +506,6 @@ def rd_energy(state: SystemState, pt: PairTensors, flags: FFlags,
         return disp_expansion(state, pt, flags, params, pair_only=pair_only)
     if flags.cdvdw_exp_repulsion:
         return exp_repulsion(state, pt, flags, params, pair_only=pair_only)
+    if flags.gwp:
+        return torch.zeros((), dtype=torch.float64, device=state.pos.device)
     return lj(state, pt, flags, params, pair_only=pair_only)

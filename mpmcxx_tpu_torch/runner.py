@@ -16,6 +16,9 @@ ends the run.
 ``run_input_file`` dispatches an input file to this Simulation, to
 ``mc.pi.PISimulation`` (path integrals) or to ``mc.gibbs.GibbsSimulation``.
 Not ported yet (NotImplementedError): replicas and parallel tempering.
+The special moves (SPECTRE with its initial domain wrap, GWP, the
+anharmonic oscillator), adiabatic molecules and spin flips run as the
+chain takes them (mc/chain.py).
 """
 
 from __future__ import annotations
@@ -147,6 +150,11 @@ class Simulation:
 
         self.flags = cfg.to_flags()
         self.params = cfg.to_params()
+        # the initial SPECTRE domain wrap (src/SimulationControl.cpp:192;
+        # runner.py:127-131)
+        if cfg.spectre:
+            self.state = moves.spectre_wrapall(self.state,
+                                               cfg.spectre_max_target)
 
         # multi-sorbate mixtures: uniform-species insertion with
         # per-species fugacities (fugacities[sorbateInsert],

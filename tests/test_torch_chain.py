@@ -224,24 +224,66 @@ def test_state_from_jax_round_trips():
                                       fields[f.name], err_msg=f.name)
 
 
+def _special_chain(chain, topology, system, flag, opt, n=8):
+    """``n`` uVT moves of the CO2 system, seed 0, with FFlags changed by
+    ``flag`` and MCOptions by ``opt``, on the full-recompute branch the
+    runner takes for them (dense, no polarization cache; polarization
+    off, which keeps the JAX compile short).  Returns (carry, move
+    types, accept flags)."""
+    state, _, flags, params, opts = system
+    flags = flags.replace(polarization=False, **flag)
+    opts = dataclasses.replace(opts, incremental=False,
+                               polar_incremental=False, blocked_energy=False,
+                               **opt)
+    carry = chain.init_carry(state, flags, params, opts, seed=0)
+    carry, outs = chain.make_chunk_runner(flags, params, opts, n,
+                                          topology=topology(state))(carry)
+    return carry, [int(m) for m in np.asarray(outs.movetype)], \
+        [bool(a) for a in np.asarray(outs.accepted)]
+
+
+def _twin_chains(flag, opt):
+    (cj, mj, aj) = _special_chain(chain_j, topology_j, co2.jax_system(),
+                                  flag, opt)
+    (ct, mt, at) = _special_chain(chain_t, topology_t, co2.torch_system(),
+                                  flag, opt)
+    assert mt == mj and at == aj
+    assert float(ct.obs.energy) == pytest.approx(float(cj.obs.energy),
+                                                 rel=1e-9)
+    np.testing.assert_allclose(ct.state.pos.numpy(), np.asarray(cj.state.pos),
+                               rtol=0, atol=1e-9)
+    return mt, at
+
+
 @pytest.mark.parametrize("flag", [{"rd_anharmonic": True}, {"gwp": True},
                                   {"spectre": True},
                                   {"feynman_kleinert": True}])
-def test_unported_flag_raises(flag):
-    state, _, flags, params, opts = co2.torch_system()
-    with pytest.raises(NotImplementedError, match=next(iter(flag))):
-        chain_t.make_chunk_runner(flags.replace(**flag), params, opts, 4,
-                                  topology=topology_t(state))
+def test_special_flag_chain_matches_jax(flag):
+    """The special moves' energy flags (they once raised here) run the
+    chain as the JAX package's does."""
+    _twin_chains(flag, {})
 
 
-@pytest.mark.parametrize("opt", [{"ensemble": const.ENSEMBLE_SURF},
-                                 {"spectre": True},
-                                 {"quantum_rotation": True}])
+@pytest.mark.parametrize("opt", [{"ensemble": const.ENSEMBLE_SURF}])
 def test_unported_option_raises(opt):
+    """An ensemble the standard chain has no branch for raises and names
+    itself."""
     state, _, flags, params, opts = co2.torch_system()
     with pytest.raises(NotImplementedError, match=next(iter(opt))):
         chain_t.init_carry(state, flags, params,
                            dataclasses.replace(opts, **opt), seed=0)
+
+
+@pytest.mark.parametrize("opt", [
+    {"spectre": True, "spectre_max_charge": 100.0, "spectre_max_target": 3.0},
+    {"quantum_rotation": True, "spinflip_probability": 0.3}])
+def test_special_option_chain_matches_jax(opt):
+    """The special moves' options (they once raised here) run the chain as
+    the JAX package's does; every spin flip is rejected in both."""
+    mt, at = _twin_chains({}, opt)
+    if opt.get("quantum_rotation"):
+        flips = [a for m, a in zip(mt, at) if m == const.MOVETYPE_SPINFLIP]
+        assert flips and not any(flips)
 
 
 def test_refresher_rebuilds_caches(chains):

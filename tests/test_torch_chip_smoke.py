@@ -306,3 +306,64 @@ def test_polar_solver_steps_run_on_cpu(step, tmp_path):
         " if 'dense' not in total else not any(total['dense'].values())\n")
     r = _run(["-c", code], ROOT)
     assert r.returncode == 0, r.stderr[-3000:]
+
+
+SPECIAL_MOVE_STEPS = {
+    # chip_smoke step -> the code that runs it on the CPU
+    "special_dense": (
+        "chip_smoke.SPECIAL_MOVES = 16\n"
+        "total, ms = chip_smoke.run_special_moves(ROOT, device='cpu')\n"
+        "assert set(ms) == set(chip_smoke.SPECIAL_CHAINS)\n"
+        "assert not any(total.values()), total\n"),
+    "h2_spin": (
+        # the small H2 system in the flagship's place, K5 and K2 counting
+        # their plain versions' calls
+        "import flagship, torch_co2_system as co2\n"
+        "flagship.write_pqr_h2 = lambda p: co2.write_pqr(\n"
+        "    p, co2.records(model='h2'))\n"
+        "flagship.L = co2.L\n"
+        "flagship.H2_EXTRA_SLOTS, flagship.N_H2 = 8, co2.N_MOL\n"
+        "chip_smoke.H2_SPIN_SLOTS = 8 + 5 * (co2.N_MOL + 32)\n"
+        "from mpmcxx_tpu_torch.ops import cuda_polar, polar\n"
+        "def counting(orig):\n"
+        "    def f(*a, **k):\n"
+        "        f.launches += 1\n"
+        "        return orig(*a, **k)\n"
+        "    f.launches = 0\n"
+        "    return f\n"
+        "for name in ('contract_planes_sym', 'write_plane_strips'):\n"
+        "    setattr(cuda_polar, name, counting(getattr(cuda_polar, name)))\n"
+        "polar.use_sym = lambda shape: shape[0] == shape[1]\n"
+        "chip_smoke.count_launches = lambda fn, tries=8: (\n"
+        "    fn(), 0, 0.0, 'no profiler on the CPU')\n"
+        "total, rate = chip_smoke.run_h2_spin(w, 'cpu', device='cpu')\n"
+        "assert total['contract_planes_sym'] >= 4 * 64\n"),
+    "spin_ensembles": (
+        "g, p, rg, rp = chip_smoke.run_spin_ensembles(w, device='cpu')\n"
+        "assert not any(g.values()) and not any(p.values())\n"),
+}
+
+
+@pytest.mark.parametrize("step", list(SPECIAL_MOVE_STEPS))
+def test_special_move_steps_run_on_cpu(step, tmp_path):
+    """Steps 21-23 (the special moves' goldens and dense chains, the H2
+    flagship with spin flips and adiabatic molecules, spin flips in the
+    Gibbs VLE and PI-NVT) on the CPU, step 22 on the small H2 system,
+    with jax and the JAX package made unimportable and the card's calls
+    stubbed: their gates pass."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mpmcxx_tpu'] = None\n"
+        f"sys.path.insert(0, {os.path.join(ROOT, 'tests')!r})\n"
+        f"ROOT = {ROOT!r}\n"
+        "import torch\n"
+        "for f in ('synchronize', 'reset_peak_memory_stats',\n"
+        "          'max_memory_allocated', 'empty_cache',\n"
+        "          'set_sync_debug_mode'):\n"
+        "    setattr(torch.cuda, f, lambda *a, **k: 0)\n"
+        "import chip_smoke\n"
+        f"w = {str(tmp_path)!r}\n"
+        + SPECIAL_MOVE_STEPS[step])
+    r = _run(["-c", code], ROOT)
+    assert r.returncode == 0, r.stderr[-3000:]

@@ -5,11 +5,12 @@ SCF, through the JAX package and the port on the same inputs.
   (fixed K = 4 and 6 Jacobi iterations, polar_precision 0) on the atoms of
   the 7-atom ``polar_ewald`` golden fixture: within 1e-10 relative (the
   same float64 formulas, summed in another order).
-- ``energy_breakdown`` on 36 goldens of every mixing rule, repulsion-
-  dispersion form, Feynman-Hibbs order, Wolf, the 3-body term and every
-  polar solver, static field and damping, the system built with the
-  port's own parser: within the goldens' 2e-6 absolute
-  (tests/test_golden.py).
+- ``energy_breakdown`` on 39 goldens of every mixing rule, repulsion-
+  dispersion form, Feynman-Hibbs order, Wolf, the 3-body term, every
+  polar solver, static field and damping, and the special moves' terms
+  (the anharmonic well, the GWP Coulomb and kinetic terms, SPECTRE), the
+  system built with the port's own parser: within the goldens' 2e-6
+  absolute (tests/test_golden.py).
 - ``energy_breakdown_blocked`` at 1,034 atom slots with polarization off
   and with polar_mixed off (the float64 matrix-free SCF): within 1e-10
   relative of the JAX package's."""
@@ -50,13 +51,23 @@ def _fixture(name):
 
 def _build(fix, AtomRecord, build_state, const, config_extra=None):
     """(state, flags, params) of a golden fixture's atoms in one package
-    (the recipe of tests/test_golden.py::build_from_fixture)."""
-    atoms = [AtomRecord(atomtype=at, moleculetype=mt, molecule_id=mid, x=x,
-                        y=y, z=z, mass=mass, charge=q * const.E2REDUCED,
-                        polarizability=al, epsilon=eps, sigma=sig, omega=om,
-                        gwp_alpha=gw, c6=c6, c8=c8, c10=c10, c9=c9)
-             for (at, mt, mid, x, y, z, mass, q, al, eps, sig, om, gw, c6,
-                  c8, c10, c9) in fix["atoms"]]
+    (the recipe of tests/test_golden.py::build_from_fixture): its atom
+    table, or its literal PQR (``pqr_text``) through the package's
+    reader."""
+    if "pqr_text" in fix:
+        if const is const_j:
+            from mpmcxx_tpu.io.pqr import read_pqr
+        else:
+            from mpmcxx_tpu_torch.io.pqr import read_pqr
+        atoms = read_pqr(fix["pqr_text"], is_text=True)
+    else:
+        atoms = [AtomRecord(atomtype=at, moleculetype=mt, molecule_id=mid,
+                            x=x, y=y, z=z, mass=mass,
+                            charge=q * const.E2REDUCED, polarizability=al,
+                            epsilon=eps, sigma=sig, omega=om, gwp_alpha=gw,
+                            c6=c6, c8=c8, c10=c10, c9=c9)
+                 for (at, mt, mid, x, y, z, mass, q, al, eps, sig, om, gw,
+                      c6, c8, c10, c9) in fix["atoms"]]
     state = build_state(atoms, np.eye(3) * fix["basis"])[0]
     if const is const_j:
         from mpmcxx_tpu.config.parser import parse_config as parse
@@ -146,7 +157,9 @@ GOLDENS = ["lj_lb", "lj_nolrc", "lb_attractive_only", "triatomic_ewald",
            "polar_damp_off", "polar_esor", "polar_ewald", "polar_ewald_full",
            "polar_exact", "polar_gs", "polar_gs_ranked", "polar_linear_damp",
            "polar_nopbc", "polar_palmo", "polar_sor", "polar_wolf",
-           "polar_wolf_full", "polar_zodid"]
+           "polar_wolf_full", "polar_zodid",
+           # the special moves' terms (the GWP golden compares kinetic)
+           "anharmonic", "gwp_coulomb_kinetic", "spectre_nvt"]
 
 
 @pytest.mark.parametrize("name", GOLDENS)
@@ -161,7 +174,7 @@ def test_energy_breakdown_matches_golden(name):
     exp = fix["expected"]
     deltas = fix.get("known_delta", {})
     field = {"rd": "rd", "coulombic": "coulombic", "polar": "polarization",
-             "vdw": "vdw", "three_body": "three_body"}
+             "vdw": "vdw", "three_body": "three_body", "kinetic": "kinetic"}
     for comp in fix.get("compare", ["rd", "coulombic", "polar", "vdw"]):
         want = exp[comp] + deltas.get(comp, 0.0)
         assert float(getattr(eb, field[comp])) == pytest.approx(

@@ -298,23 +298,103 @@ def test_polar_flags_are_free_without_polarization():
     assert 1.0 < float(eb.polarization_iterations) < 128.0
 
 
-def test_cavity_bias_outside_uvt_raises():
-    state, flags, params, opts = _case(co2.torch_system(), chain_t, "npt")
-    with pytest.raises(NotImplementedError, match="cavity_bias"):
-        chain_t.make_chunk_runner(
-            flags, params, dataclasses.replace(opts, cavity_bias=True), 4,
-            topology=topology_t(state))
+def test_cavity_bias_outside_uvt_matches_jax():
+    """Cavity bias outside uVT (it once raised here): NPT rebuilds the
+    grid on the current box every move and carries the open fraction as
+    the JAX chain does; no move is biased."""
+    out = []
+    for system, chain, topology in ((co2.jax_system(), chain_j, topology_j),
+                                    (co2.torch_system(), chain_t,
+                                     topology_t)):
+        state, flags, params, opts = _case(system, chain, "npt")
+        opts = dataclasses.replace(opts, cavity_bias=True,
+                                   cavity_grid_size=6, cavity_radius=2.0,
+                                   cavity_darts=300)
+        out.append(_run(chain, topology, (state, flags, params, opts)))
+    (cj, ej, mj, aj), (ct, et, mt, at) = out
+    assert mt == mj and at == aj
+    assert const.MOVETYPE_VOLUME in mt and 0 < sum(at) < len(at)
+    np.testing.assert_allclose(np.array(et), np.array(ej), rtol=1e-9)
+    np.testing.assert_allclose(ct.cavity.numpy(), np.asarray(cj.cavity),
+                               rtol=1e-12)
+    assert 0.0 < float(ct.cavity[0]) < 1.0 and float(ct.cavity[3]) == 2.0
+
+
+QROT = ("quantum_rotation on\nspinflip_probability 0.2\n"
+        "quantum_rotation_B 85.3\nquantum_rotation_level_max 36\n"
+        "quantum_rotation_l_max 5\nquantum_rotation_sum 10\n")
+
+
+def _example_dir(name, extra, workdir):
+    """The example in ``workdir`` at test_examples.QUICK_STEPS (corrtime
+    half of them) with ``extra`` input lines."""
+    import re
+    from test_examples import EXAMPLES, QUICK_STEPS
+    shutil.copytree(os.path.join(EXAMPLES, name), workdir)
+    n = QUICK_STEPS[name]
+    path = os.path.join(workdir, "run.in")
+    with open(path) as f:
+        text = f.read()
+    text = re.sub(r"(?m)^numsteps .*$", f"numsteps {n}", text)
+    text = re.sub(r"(?m)^corrtime .*$", f"corrtime {n // 2}", text)
+    with open(path, "w") as f:
+        f.write(text + extra)
+
+
+@pytest.mark.parametrize("name,extra,args", [
+    ("gibbs-argon", QROT, []), ("pi-argon-dimer", QROT, ["-P", "8"])])
+def test_spinflip_examples_match_jax(name, extra, args, tmp_path,
+                                     monkeypatch):
+    """Quantum rotation in Gibbs and PI runs (it once raised here): the
+    example through the port's CLI and through the JAX package's runner,
+    with the validator's quantum_rotation_* keywords; the same accept and
+    reject counts and energy logs, and every spin flip rejected."""
+    from mpmcxx_tpu import runner as runner_j
+    from mpmcxx_tpu.io.pqr import drain as drain_j
+    from mpmcxx_tpu.mc.gibbs import GibbsSimulation
+    from mpmcxx_tpu.mc.pi import PISimulation
+    from mpmcxx_tpu_torch import cli
+    sims = {}
+    for pkg in ("jax", "torch"):
+        d = str(tmp_path / pkg)
+        _example_dir(name, extra, d)
+        monkeypatch.chdir(d)
+        if pkg == "torch":
+            rc, sims[pkg] = cli.run(["--device", "cpu", "--quiet"] + args +
+                                    ["run.in"])
+            assert rc == 0
+            continue
+        cls = GibbsSimulation if name == "gibbs-argon" else PISimulation
+        made, run = [], cls.run
+
+        def capture(self):
+            made.append(self)
+            return run(self)
+        monkeypatch.setattr(cls, "run", capture)
+        runner_j.run_input_file("run.in", quiet=True)
+        drain_j()
+        sims[pkg] = made[0]
+    acc_t, rej_t = (np.asarray(x) for x in (sims["torch"].carry.accept,
+                                            sims["torch"].carry.reject))
+    acc_j, rej_j = (np.asarray(x) for x in (sims["jax"].carry.accept,
+                                            sims["jax"].carry.reject))
+    np.testing.assert_array_equal(acc_t, acc_j)
+    np.testing.assert_array_equal(rej_t, rej_j)
+    spin = const.MOVETYPE_SPINFLIP
+    assert rej_t[spin] > 0 and acc_t[spin] == 0
+    logs = sorted(f for f in os.listdir(tmp_path / "torch")
+                  if f.endswith(".dat") and "energy" in f)
+    assert logs
+    for fn in logs:
+        rows = [np.loadtxt(tmp_path / pkg / fn) for pkg in ("torch", "jax")]
+        np.testing.assert_allclose(rows[0], rows[1], rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("name,extra,args,match", [
-    ("gibbs-argon", "quantum_rotation on\n", [], "quantum_rotation"),
-    ("pi-argon-dimer", "quantum_rotation on\n", ["-P", "8"],
-     "quantum_rotation"),
     ("nvt-argon", "", ["--replicas", "2"], "replicas")])
 def test_unported_examples_raise(name, extra, args, match, tmp_path):
     """What the port has no path for raises through the CLI and names
-    itself: quantum rotation (spin flips) in Gibbs and PI runs, and
-    replica chains."""
+    itself: replica chains."""
     from mpmcxx_tpu_torch import cli
     from test_examples import EXAMPLES
     d = tmp_path / name

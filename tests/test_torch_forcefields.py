@@ -477,7 +477,7 @@ def test_chain_matches_jax(name):
         assert all(r[6] != 0.0 for r in et)
 
 
-# --- what still raises ----------------------------------------------------
+# --- the special moves' terms, and what still raises ---------------------
 
 @pytest.mark.parametrize("flag", [
     {"rd_anharmonic": True}, {"gwp": True}, {"spectre": True},
@@ -487,11 +487,26 @@ def test_chain_matches_jax(name):
     {"gwp": True, "polar_wolf": True},
     {"feynman_kleinert": True, "polar_gs": True},
     {"quantum_rotation": True, "damp_type": const.DAMPING_LINEAR}])
+def test_special_terms_match_jax(flag):
+    """The special moves' terms (they once raised here) against the JAX
+    package under the many-body vdW term, with polarization on and off,
+    whatever SCF and Thole damping they come with."""
+    (sj, fj, pj), (st, ft, pt) = _system("polarvdw")
+    for pol in (True, False):
+        ej = energy_j.energy_breakdown(
+            sj, fj.replace(polarization=pol, **flag), pj)
+        et = energy_t.energy_breakdown(
+            st, ft.replace(polarization=pol, **flag), pt)
+        for name in ("rd", "coulombic", "polarization", "vdw", "kinetic",
+                     "total"):
+            _close(getattr(et, name), getattr(ej, name),
+                   scale=float(ej.total))
+
+
+@pytest.mark.parametrize("flag", [{"damp_type": 7}])
 def test_unported_terms_raise(flag):
-    """The special moves' terms raise and name themselves, with
-    polarization on and off under the many-body vdW term, whatever SCF
-    and Thole damping they come with (every polar solver and damping is
-    ported)."""
+    """A value outside a field's range raises and names the field, with
+    polarization on and off."""
     _, (st, ft, pt) = _system("polarvdw")
     name = next(iter(flag))
     with pytest.raises(NotImplementedError, match=name):
