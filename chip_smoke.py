@@ -191,8 +191,30 @@ its hand-written kernels, and check the results.
    spinflip_probability 0.2, one corrtime each: the spin flips counted
    as a host replay of the move draws counts them, every one rejected,
    and the rest of each step's gates; steps/s and moves/s.
-24. Prints ``{"kernels": [...]}`` (per kernel: the sum over the main paths
-   of steps 3, 5-23 of its launches, each path counted from 0, and
+24. Replicas (``parallel.replicas``, ``parallel.driver``) and the native
+   PQR codec.  (a) Step 3's CO2 flagship state (11,264 slots, K5 + K2):
+   ``make_replica_runner`` with 2 replicas for one 16-move chunk against
+   ``make_chunk_runner`` on each replica's initial carry with key
+   fold_in(PRNGKey(0), r): the same move types and accepts, energies
+   within 1e-9 relative, the committed planes bitwise equal.  (b) Step
+   5's cavity-biased flagship (19,712 slots) through ``python -m
+   mpmcxx_tpu_torch.cli --replicas 4`` with parallel tempering (ladder
+   150 -> 300 K, ptemp_freq 16, 64 steps, corrtime 32): exit code 0; 4
+   restart and 4 final PQRs re-read with each replica's live atom count;
+   the final temperatures a permutation of the ladder; swap_attempts
+   equal to the host's count of left partners per sweep; before each
+   refresh each replica's carried rd and coulombic within 1e-8 and
+   polarization within 1e-5 of its refresh and every committed plane
+   within 1e-6 of a rebuild; per replica K5 >= 4, K2 >= 1 and K3 >= 1
+   launches per move, each within 5 % of step 5's, K1 and K4 none; the
+   peak device memory within the budget of max_slots(n_caches=4).
+   Moves/s per replica and for the run, the swap acceptance, the peak
+   memory and the host seconds of each corrtime's 4 restart writes.  (c)
+   The codec must build; ``format_pqr`` of step 5's state through it
+   byte-identical to the Python path's; one ``write_state_pqr`` each way,
+   timed until it returns and until ``drain()`` returns.
+25. Prints ``{"kernels": [...]}`` (per kernel: the sum over the main paths
+   of steps 3, 5-24 of its launches, each path counted from 0, and
    the count of each path; the time, plain time and bound at the shapes
    of step 4 for K2, K3 and K5, step 6 for K4 and step 7 for K1; the
    worst error of the checks), the card's name and power limit, and,
@@ -381,6 +403,20 @@ QROT_LINES = ("quantum_rotation on\nquantum_rotation_B 85.3\n"
               "quantum_rotation_level_max 36\nquantum_rotation_l_max 5\n"
               "quantum_rotation_sum 10\n")
 SPIN_P = 0.2
+# step 24: replicas.  Phase (a) runs REP_PAIR replicas of the CO2
+# flagship for one REP_A_MOVES-move chunk beside single chains; phase (b)
+# the cavity-biased CLI flagship with --replicas REP_R under tempering
+# (RUN_IN at REP_STEPS steps, corrtime REP_CORRTIME, swaps every
+# REP_PTEMP steps up to REP_TMAX K); its launches per move per replica
+# within REP_LAUNCH_REL of step 5's
+REP_PAIR = 2
+REP_A_MOVES = 16
+REP_R = 4
+REP_STEPS = 64
+REP_CORRTIME = 32
+REP_PTEMP = 16
+REP_TMAX = 300.0
+REP_LAUNCH_REL = 0.05
 SYNTH_A = 4096
 RAGGED_A = 4001          # A % 4 != 0: no TMA tensor map (16-byte rows)
 SYM_SYNTH_A = (4096, 4032)   # K5's 64-row tiles: nr = 64 (even), 63 (odd)
@@ -992,15 +1028,18 @@ def check_k2(cache, device):
     return rec
 
 
-def cli_flagship_state(pqr, device):
+def cli_flagship_state(pqr, device, with_meta=False):
     """The state the runner builds from the flagship's PQR: uVT headroom
-    of one dead slot per live sorbate (runner.py:94-107), 19,712 slots."""
+    of one dead slot per live sorbate (runner.py:94-107), 19,712 slots
+    (and its meta, ``with_meta``)."""
     from mpmcxx_tpu_torch.io.pqr import read_pqr
     from mpmcxx_tpu_torch.state import build_state
     atoms = read_pqr(pqr)
     n_mov = len({a.molecule_id for a in atoms if not a.frozen})
-    return build_state(atoms, np.eye(3) * 80.0,
-                       extra_mol_capacity=max(n_mov, 32), device=device)[0]
+    state, meta = build_state(atoms, np.eye(3) * 80.0,
+                              extra_mol_capacity=max(n_mov, 32),
+                              device=device)
+    return (state, meta) if with_meta else state
 
 
 def check_k3(state, device):
@@ -1106,14 +1145,16 @@ def _instrument_chain(log):
     return undo
 
 
-def _run_cli(workdir, args):
+def _run_cli(workdir, args, instrument=None, log=None):
     """``cli.run(args)`` in ``workdir`` with every launch count 0 just
-    before and the chain instrumented (_instrument_chain); returns (the
-    Simulation, its chain log, launch counts, wall s, stdout)."""
+    before and the chain instrumented (``instrument``, _instrument_chain
+    by default, filling ``log``); returns (the simulation, its chain log,
+    launch counts, wall s, stdout)."""
     import torch
     from mpmcxx_tpu_torch import cli
-    log = {"chunks": [], "refresh": []}
-    undo = _instrument_chain(log)
+    if log is None:
+        log = {"chunks": [], "refresh": []}
+    undo = (instrument or _instrument_chain)(log)
     stdout = io.StringIO()
     cwd = os.getcwd()
     zero_launches()
@@ -3306,6 +3347,382 @@ def run_spin_ensembles(workdir, device="cuda"):
     return gibbs_launches, pi_launches, gibbs_rate, pi_rate
 
 
+def replica_input():
+    """RUN_IN as step 24's tempering run: REP_STEPS steps in corrtimes of
+    REP_CORRTIME, a swap sweep every REP_PTEMP steps over the ladder from
+    its temperature to REP_TMAX."""
+    keep = [ln for ln in RUN_IN.replace("flagship_cav",
+                                        "flagship_rep").splitlines()
+            if not ln.startswith(("numsteps", "corrtime"))]
+    return "\n".join(keep + [
+        f"numsteps {REP_STEPS}", f"corrtime {REP_CORRTIME}",
+        "parallel_tempering on", f"max_temperature {REP_TMAX}",
+        f"ptemp_freq {REP_PTEMP}"]) + "\n"
+
+
+def _launch_delta(before):
+    now = launches_now()
+    return {k: now[k] - before[k] for k in now}
+
+
+def check_replicas_vs_single(state, flags, params, opts):
+    """Step 24a: REP_PAIR replicas of the CO2 flagship (step 3's state,
+    K5 + K2) through ``make_replica_runner``, one REP_A_MOVES-move chunk,
+    against ``make_chunk_runner`` on each replica's initial carry with key
+    fold_in(PRNGKey(0), r).  Gates: the same move types and accepts,
+    energies within 1e-9 relative, the committed planes bitwise equal.
+    Returns the launch counts of the replica run."""
+    import torch
+    from mpmcxx_tpu_torch import random as rnd
+    from mpmcxx_tpu_torch.mc import chain
+    from mpmcxx_tpu_torch.ops import polar_cache as pcache
+    from mpmcxx_tpu_torch.parallel import replicas as rep
+    from mpmcxx_tpu_torch.state import topology
+
+    carry = chain.init_carry(state, flags, params, opts, seed=0)
+    reps = rep.replicate_carry(carry, REP_PAIR, base_seed=0)
+    singles = [dataclasses.replace(copy.deepcopy(carry),
+                                   key=rnd.fold_in(rnd.PRNGKey(0), r))
+               for r in range(REP_PAIR)]
+    del carry
+    zero_launches()
+    t0 = time.time()
+    reps, outs = rep.make_replica_runner(flags, params, opts,
+                                         REP_A_MOVES)(reps)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = launches_now()
+    one = chain.make_chunk_runner(flags, params, opts, REP_A_MOVES,
+                                  topology=topology(state))
+    for r in range(REP_PAIR):
+        single, outs_1 = one(singles[r])
+        same = (torch.equal(outs[r].movetype, outs_1.movetype) and
+                torch.equal(outs[r].accepted, outs_1.accepted))
+        rel = abs(float(reps[r].obs.energy) - float(single.obs.energy)) / \
+            abs(float(single.obs.energy))
+        planes = all(torch.equal(a, b) for a, b in zip(
+            pcache.planes_of(reps[r].pcache), pcache.planes_of(single.pcache)))
+        _say(f"[replicas-a] replica {r}: {int(outs[r].accepted.sum())} of "
+             f"{REP_A_MOVES} moves accepted, moves and accepts equal to the "
+             f"single chain's: {same}; energy {float(reps[r].obs.energy):.9f}"
+             f" vs {float(single.obs.energy):.9f} (rel {rel:.2e}, tol "
+             f"1e-09); committed planes bitwise equal: {planes}")
+        if not (same and rel <= 1e-9 and planes):
+            raise AssertionError(f"[replicas-a] replica {r} differs from its "
+                                 "single chain")
+        singles[r] = None
+        del single
+    if torch.equal(reps[0].state.pos, reps[1].state.pos):
+        raise AssertionError("[replicas-a] the replicas did not diverge")
+    n = REP_PAIR * REP_A_MOVES
+    _say(f"[replicas-a] {REP_PAIR} x {REP_A_MOVES} moves at "
+         f"{state.n_atom_slots} slots in {dt:.3f} s ({n / dt:.2f} moves/s "
+         f"for the pair); launches {launches}")
+    if launches["contract_planes_sym"] < 4 * n or \
+            launches["write_plane_strips"] < n:
+        raise AssertionError(f"[replicas-a] launches {launches}")
+    return launches
+
+
+def _instrument_replicas(log):
+    """Like _instrument_chain, for a replica run: each chunk's replica
+    (the chunk runners are made one per replica, in replica order, at
+    their first call), moves, seconds, StepOut and launch counts; before
+    each refresh (replicas in order) the committed planes' largest
+    difference from a rebuild, then the carried energies beside the
+    refresh's and the refresh's own launches."""
+    import torch
+    from mpmcxx_tpu_torch.mc import chain
+    from mpmcxx_tpu_torch.ops import polar_cache as pcache
+    orig_runner, orig_refresher = chain.make_chunk_runner, \
+        chain.make_refresher
+    fields = ("rd_energy", "coulombic_energy", "polarization_energy")
+    made = []
+
+    def make_chunk_runner(*a, **kw):
+        run_chunk = orig_runner(*a, **kw)
+        tag = len(made)
+        made.append(tag)
+
+        def timed(carry):
+            torch.cuda.synchronize()
+            before = launches_now()
+            t0 = time.time()
+            carry, outs = run_chunk(carry)
+            torch.cuda.synchronize()
+            log["chunks"].append((tag, len(outs.movetype), time.time() - t0,
+                                  outs, _launch_delta(before)))
+            return carry, outs
+        return timed
+
+    def make_refresher(flags, params, opts):
+        refresh = orig_refresher(flags, params, opts)
+
+        def recorded(carry):
+            if carry.pcache is not None:
+                fresh = pcache.cache_init(carry.state, flags, params)
+                log["planes"].append(max(
+                    float(torch.max(torch.abs(got - want))) for got, want in
+                    zip(pcache.planes_of(carry.pcache),
+                        pcache.planes_of(fresh))))
+                del fresh
+            inc = {f: float(getattr(carry.obs, f)) for f in fields}
+            before = launches_now()
+            out = refresh(carry)
+            torch.cuda.synchronize()
+            log["refresh"].append(
+                (inc, {f: float(getattr(out.obs, f)) for f in fields}))
+            log["refresh_launches"].append(_launch_delta(before))
+            return out
+        return recorded
+
+    chain.make_chunk_runner = make_chunk_runner
+    chain.make_refresher = make_refresher
+
+    def undo():
+        chain.make_chunk_runner = orig_runner
+        chain.make_refresher = orig_refresher
+    return undo
+
+
+def run_replica_flagship(workdir, cli_launches, card, device="cuda"):
+    """Step 24b: the cavity-biased CO2 flagship of step 5 (``workdir``
+    holds flagship_co2.pqr) through the CLI with ``--replicas REP_R``
+    under parallel tempering (replica_input).  Gates: exit code 0; REP_R
+    restart and REP_R final PQRs, each re-read with its replica's live
+    atom count; the final temperatures a permutation of the ladder;
+    swap_attempts equal to the host's count of left partners per sweep;
+    before each refresh, each replica's carried rd and coulombic within
+    1e-8 and polarization within 1e-5 of its refresh, and every committed
+    plane within 1e-6 of a rebuild; per replica, K5 >= 4, K2 >= 1 and K3
+    >= 1 launches per move and each within REP_LAUNCH_REL of step 5's
+    (``cli_launches``, 2 CHUNK moves, without the initial carry's), K1
+    and K4 none; on a GPU the peak
+    device memory within the budget of max_slots(n_caches=REP_R).
+    Returns (launch counts of the run, a dict of its measurements)."""
+    import torch
+    from mpmcxx_tpu_torch.io import pqr as pqr_io
+    from mpmcxx_tpu_torch.io.pqr import read_pqr
+    from mpmcxx_tpu_torch.ops import polar_cache as pcache
+    from mpmcxx_tpu_torch.ops.polar import plane_mode
+    from mpmcxx_tpu_torch.parallel import replicas as rep
+    from mpmcxx_tpu_torch.parallel.driver import ReplicaSimulation
+
+    with open(os.path.join(workdir, "run.in"), "w") as f:
+        f.write(replica_input())
+    log = {"chunks": [], "refresh": [], "refresh_launches": [],
+           "planes": [], "writes": []}
+    write_pqrs, drain = ReplicaSimulation._write_pqrs, pqr_io.drain
+
+    def timed_writes(sim, basename):
+        t0 = time.time()
+        write_pqrs(sim, basename)
+        log["writes"].append((basename, time.time() - t0))
+
+    def timed_drain():
+        t0 = time.time()
+        drain()
+        log["writes"].append(("drain", time.time() - t0))
+
+    ReplicaSimulation._write_pqrs = timed_writes
+    pqr_io.drain = timed_drain
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        sim, _, launches, wall, stdout = _run_cli(
+            workdir, ["--device", str(device), "--replicas", str(REP_R),
+                      "run.in"], instrument=_instrument_replicas, log=log)
+    finally:
+        ReplicaSimulation._write_pqrs = write_pqrs
+        pqr_io.drain = drain
+    peak = torch.cuda.max_memory_allocated()
+    for line in stdout.splitlines():
+        if line.startswith(("SIM_CONTROL: Simulation complete",
+                            "OUTPUT: AR", "MC:")):
+            _say("  cli| " + line)
+    R = REP_R
+    if not isinstance(sim, ReplicaSimulation) or sim.R != R or \
+            not sim.tempering:
+        raise AssertionError(f"[replicas] the CLI ran {type(sim).__name__}")
+    st = sim.carries[0].state
+    _say(f"[replicas] CLI run: exit code 0, {wall:.1f} s wall including "
+         f"set-up; {R} replicas of {st.n_atom_slots} atom slots, "
+         f"{sim.base.opts.cavity_darts} darts per move, polar cache "
+         f"{sim.base.opts.polar_incremental}")
+    if st.n_atom_slots != CLI_SLOTS or sim.base.opts.cavity_darts != \
+            CLI_DARTS or not sim.base.opts.polar_incremental:
+        raise AssertionError("[replicas] not the flagship's width, or no "
+                             "polar cache")
+
+    # the ladder, the swaps
+    ladder = rep.temperature_ladder(float(sim.cfg.temperature), REP_TMAX, R)
+    temps = [float(c.temperature) for c in sim.carries]
+    sweeps = REP_STEPS // min(REP_PTEMP, REP_CORRTIME)
+    want = sum(1 for s in range(sweeps) for i in range(R - 1)
+               if i % 2 == s % 2)
+    _say(f"[replicas] final temperatures {temps} (ladder "
+         f"{ladder.tolist()}); swaps {sim.swap_accepts} of "
+         f"{sim.swap_attempts} accepted (host count of left partners "
+         f"{want})")
+    if sorted(temps) != ladder.tolist() or sim.swap_attempts != want:
+        raise AssertionError("[replicas] temperatures or swap count")
+
+    # the carried energies and the planes against each refresh
+    _check_refreshes("[replicas]", log, (("rd_energy", 1e-8),
+                                         ("coulombic_energy", 1e-8),
+                                         ("polarization_energy", 1e-5)),
+                     R * (REP_STEPS // REP_CORRTIME))
+    worst = max(log["planes"])
+    _say(f"[replicas] committed planes vs rebuild before each of "
+         f"{len(log['planes'])} refreshes: max |diff| {worst:.3e} (tol 1e-06)")
+    if len(log["planes"]) != len(log["refresh"]) or not worst <= 1e-6:
+        raise AssertionError("[replicas] a plane drifted from a rebuild")
+
+    # the restart and final PQRs, re-read
+    n_frozen = int(st.frozen.sum())
+    for kind in ("restart", "final"):
+        counts = []
+        for r, c in enumerate(sim.carries):
+            path = os.path.join(workdir, f"flagship_rep.{kind}-000{r}.pqr")
+            n_atoms = len(read_pqr(path))
+            counts.append(n_atoms)
+            if n_atoms != n_frozen + 3 * int(c.obs.N):
+                raise AssertionError(f"[replicas] {path}: {n_atoms} atoms, "
+                                     f"N = {int(c.obs.N)}")
+        _say(f"[replicas] {kind} PQRs re-read: {counts} atoms = {n_frozen} "
+             f"framework + 3 N per replica")
+
+    # launches and rates per replica
+    tags = sorted({t for t, *_ in log["chunks"]})
+    if len(tags) != R:
+        raise AssertionError(f"[replicas] {len(tags)} chunk runners")
+    rates, moves_all, dt_all = [], 0, 0.0
+    # the run's launches outside its chunks and refreshes are the initial
+    # carry's (one init_carry of the same state as step 5's): step 5's
+    # per move without them
+    init = {k: launches[k] - sum(c[4][k] for c in log["chunks"]) -
+            sum(d[k] for d in log["refresh_launches"]) for k in launches}
+    step5 = {k: (cli_launches[k] - init[k]) / (2 * CHUNK)
+             for k in cli_launches}
+    _say(f"[replicas] the initial carry's launches {init}")
+    names = ("contract_planes_sym", "write_plane_strips", "occupancy")
+    for r, tag in enumerate(tags):
+        mine = [c for c in log["chunks"] if c[0] == tag]
+        moves = sum(n for _, n, *_ in mine)
+        dt = sum(t for _, _, t, *_ in mine)
+        moves_all, dt_all = moves_all + moves, dt_all + dt
+        counts = {k: sum(c[4][k] for c in mine) +
+                  sum(d[k] for d in log["refresh_launches"][r::R])
+                  for k in launches}
+        per = {k: counts[k] / moves for k in counts}
+        rates.append(moves / dt)
+        _say(f"[replicas] replica {r}: {moves} moves in {dt:.3f} s = "
+             f"{moves / dt:.2f} moves/s; launches per move (refreshes "
+             f"included) " + ", ".join(
+                 f"{k} {per[k]:.3f} (step 5 {step5[k]:.3f})" for k in names))
+        if per["contract_planes_sym"] < 4 or per["write_plane_strips"] < 1 \
+                or per["occupancy"] < 1 or counts["contract_planes"] or \
+                counts["contract_planes_tri"]:
+            raise AssertionError(f"[replicas] replica {r} launches {counts}")
+        for k in names:
+            if abs(per[k] - step5[k]) > REP_LAUNCH_REL * step5[k]:
+                raise AssertionError(f"[replicas] replica {r} {k} "
+                                     f"{per[k]:.3f} per move vs step 5's "
+                                     f"{step5[k]:.3f}")
+    if launches["contract_planes"] or launches["contract_planes_tri"]:
+        raise AssertionError("[replicas] K1 or K4 ran")
+
+    # memory against the R-cache budget
+    n_planes = plane_mode(sim.base.flags)
+    planes_gb = n_planes * 4 * CLI_SLOTS ** 2 / 1e9
+    if torch.device(device).type == "cuda":
+        total = torch.cuda.get_device_properties(0).total_memory
+        budget = pcache.DEVICE_MEMORY_SHARE * total
+        cap = pcache.max_slots(device, n_planes, R)
+        _say(f"[replicas] peak device memory {peak / 1e9:.2f} GB; budget "
+             f"{budget / 1e9:.2f} GB ({pcache.DEVICE_MEMORY_SHARE:g} of "
+             f"{total / 1e9:.2f} GB); planes {planes_gb:.2f} GB per cache, "
+             f"{R} + {pcache.PLANE_COPIES_AT_PEAK - 1} copies at the peak = "
+             f"{(R + pcache.PLANE_COPIES_AT_PEAK - 1) * planes_gb:.2f} GB; "
+             f"max_slots(n_caches={R}) = {cap}")
+        if not peak <= budget or CLI_SLOTS > cap:
+            raise AssertionError("[replicas] over the R-cache budget")
+    restart = [t for b, t in log["writes"] if b == sim.cfg.pqr_restart]
+    final = [t for b, t in log["writes"] if b == sim.cfg.pqr_output]
+    drains = [t for b, t in log["writes"] if b == "drain"]
+    out = {"rates": rates, "rate": moves_all / dt_all,
+           "swap": (sim.swap_accepts, sim.swap_attempts),
+           "peak_gb": peak / 1e9, "restart_s": restart,
+           "final_s": final, "drain_s": drains}
+    _say(f"[replicas] on {card}: {moves_all} replica-moves in {dt_all:.3f} s "
+         f"of chunks = {out['rate']:.2f} moves/s for the run ("
+         + ", ".join(f"{x:.2f}" for x in rates) + " per replica); swap "
+         f"acceptance {sim.swap_accepts}/{sim.swap_attempts}; {R} restart "
+         f"writes per corrtime took " + ", ".join(f"{t:.3f}" for t in restart)
+         + " s on the host until they returned (final " +
+         ", ".join(f"{t:.3f}" for t in final) + " s, drain " +
+         ", ".join(f"{t:.3f}" for t in drains) + " s)")
+    return launches, out
+
+
+def check_codec(pqr, device="cuda"):
+    """Step 24c: the native PQR codec on this machine.  It must build;
+    ``format_pqr`` of step 5's 19,712-slot state through the codec must be
+    byte-identical to the Python path's; one ``write_state_pqr`` of that
+    state each way, timed on the host until the call returns and until
+    ``drain()`` returns.  Returns those times."""
+    from mpmcxx_tpu_torch.io import pqr as pqr_io
+    from mpmcxx_tpu_torch.runtime import native
+
+    t0 = time.time()
+    if native.get_lib() is None:
+        raise AssertionError("[codec] the native codec did not build")
+    _say(f"[codec] built and loaded in {time.time() - t0:.2f} s: "
+         f"{native.lib_path()}")
+    state, meta = cli_flagship_state(pqr, device, with_meta=True)
+    basis = state.pbc.basis.cpu().numpy()
+    data = pqr_io.state_to_atoms_data(state, meta)
+    get_lib = native.get_lib
+    t0 = time.time()
+    native_text = pqr_io.format_pqr(data, basis)
+    t_native = time.time() - t0
+    native.get_lib = lambda: None
+    try:
+        t0 = time.time()
+        python_text = pqr_io.format_pqr(data, basis)
+        t_python = time.time() - t0
+    finally:
+        native.get_lib = get_lib
+    n = len(data["atomtype"])
+    _say(f"[codec] format_pqr of {n} live atoms ({state.n_atom_slots} "
+         f"slots): codec {t_native:.3f} s, Python {t_python:.3f} s; "
+         f"byte-identical: {native_text == python_text}")
+    if native_text != python_text:
+        raise AssertionError("[codec] the codec's PQR differs from Python's")
+    times = {}
+    with tempfile.TemporaryDirectory() as d:
+        for how in ("codec", "python"):
+            path = os.path.join(d, f"{how}.pqr")
+            if how == "python":
+                native.get_lib = lambda: None
+            try:
+                t0 = time.time()
+                pqr_io.write_state_pqr(path, state, meta)
+                t_return = time.time() - t0
+                pqr_io.drain()
+                times[how] = (t_return, time.time() - t0)
+            finally:
+                native.get_lib = get_lib
+        pqr_io.drain()
+        with open(os.path.join(d, "codec.pqr"), "rb") as a, \
+                open(os.path.join(d, "python.pqr"), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError("[codec] the written files differ")
+    for how, (ret, done) in times.items():
+        _say(f"[codec] write_state_pqr via {how}: returned after {ret:.3f} "
+             f"s, on disk after {done:.3f} s")
+    return times
+
+
 def ptxas_report(log):
     """Per kernel of nvcc's build log: its registers, barriers and shared
     memory ("Used ...") and its stack and spills, named by the kernel's
@@ -3587,6 +4004,24 @@ def main() -> int:
     _say(f"step 23 took {time.time() - t0:.1f} s; steps 21-23 "
          f"{time.time() - t_special:.1f} s")
 
+    # --- 24. replicas: against single chains, under tempering, the codec -
+    t_rep = time.time()
+    state, _, flags, params, opts = build_flagship("co2", device)
+    with schedule():
+        launches["replicas-a"] = check_replicas_vs_single(state, flags,
+                                                          params, opts)
+    del state
+    flush()
+    with schedule(), tempfile.TemporaryDirectory() as workdir:
+        pqr = os.path.join(workdir, "flagship_co2.pqr")
+        flagship.write_pqr_co2(pqr)
+        launches["replicas"], rep = run_replica_flagship(
+            workdir, launches["cli"], card)
+        flush()
+        codec = check_codec(pqr)
+    flush()
+    _say(f"step 24 took {time.time() - t_rep:.1f} s")
+
     _say(f"second-chunk moves/s on {card}: " + ", ".join(
         f"{m} {r:.2f}" for m, r in rates.items()) +
         f"; examples' chunk steps/s: " + ", ".join(
@@ -3613,7 +4048,14 @@ def main() -> int:
         f"launches per sweep; special moves (ms per move): " + ", ".join(
             f"{m} {r:.2f}" for m, r in special_ms.items()) +
         f"; Gibbs VLE with spin flips {spin_gibbs:.2f} steps/s, PI H2 with "
-        f"spin flips {spin_pi:.2f} moves/s; whole check "
+        f"spin flips {spin_pi:.2f} moves/s; {REP_R} tempering replicas "
+        f"{rep['rate']:.2f} moves/s (per replica " + "/".join(
+            f"{x:.2f}" for x in rep["rates"]) + f"), swaps {rep['swap'][0]}/"
+        f"{rep['swap'][1]}, peak {rep['peak_gb']:.2f} GB, restart writes "
+        + "/".join(f"{t:.3f}" for t in rep["restart_s"]) + " s per "
+        f"corrtime; write_state_pqr at {CLI_SLOTS} slots (returned/on disk) "
+        + ", ".join(f"{h} {a:.3f}/{b:.3f} s" for h, (a, b) in codec.items())
+        + f"; whole check "
         f"{time.time() - t_start:.1f} s after the card query")
     k5_all = dict(k5_cli, max_abs_err=max(k5["max_abs_err"],
                                           k5_cli["max_abs_err"]))

@@ -28,6 +28,11 @@ molecule becomes a displacement), is a device-side select: on a transfer
 step both the transfer and the two displacements are proposed (each an
 O(S) window write) and selected before the one energy evaluation per
 box.
+
+``GibbsSimulation.run`` drains the PQR writer (``io.pqr.drain``) before
+it returns, so the two boxes' final PQRs are on disk when a caller in
+the same process reads them.  The twin does not drain there: its writes
+finish when the writer thread exits at the end of the process.
 """
 
 from __future__ import annotations
@@ -571,6 +576,7 @@ class GibbsSimulation:
                 pqr_io.write_state_pqr(
                     pqr_io.make_filename(cfg.pqr_output, i), st, meta,
                     wrapall=cfg.wrapall, long_output=cfg.long_output)
+        pqr_io.drain()
         for f in fps:
             if f:
                 f.close()

@@ -685,7 +685,8 @@ class PISimulation:
                  mesh=None, device="cuda"):
         if mesh is not None:
             raise NotImplementedError("PISimulation(mesh=...): the "
-                                      "bead-per-device mesh")
+                                      "bead-per-device mesh is ROADMAP "
+                                      "queue A item 3")
         if P is None:
             P = cfg.total_trotter_number or 8
         self.P = P
@@ -885,6 +886,7 @@ class PISimulation:
                 self._display(carry)
 
         self._write_beads(carry, self.cfg.pqr_output)
+        pqr_io.drain()
         for f in (fp_energy, fp_csv):
             if f:
                 f.close()

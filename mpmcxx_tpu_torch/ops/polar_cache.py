@@ -76,38 +76,45 @@ def plane_signs(n_planes: int):
 
 # Slot bound of the CPU path: the JAX twin's cap (polar_cache.py:92-104).
 CPU_MAX_SLOTS = 16384
-# Device-memory budget of the cache on a GPU: a corrtime refresh holds the
+# Device-memory budget of the caches on a GPU: a corrtime refresh holds the
 # carry's old planes, cache_init's tile stack and the assembled new planes
-# at once (3 copies of 4 A^2 bytes per plane), and that peak stays within
-# this share of the card's memory, leaving the rest to the blocked
-# energy, the proposal's [S,A] rows and the allocator.
+# at once (3 copies of 4 A^2 bytes per plane), beside the resident planes
+# of the other replicas' caches (they refresh one after the other), and
+# that peak stays within this share of the card's memory, leaving the
+# rest to the blocked energy, the proposal's [S,A] rows and the allocator.
 PLANE_COPIES_AT_PEAK = 3
 DEVICE_MEMORY_SHARE = 0.6
 
 
-def max_slots(device=None, n_planes: int = 3) -> int:
-    """Largest atom-slot count a cache of ``n_planes`` f32 [A,A] planes
-    (plane_mode: 3, 4 or 5) takes on ``device``."""
+def max_slots(device=None, n_planes: int = 3, n_caches: int = 1) -> int:
+    """Largest atom-slot count at which ``n_caches`` resident caches of
+    ``n_planes`` f32 [A,A] planes each (plane_mode: 3, 4 or 5), one of
+    them refreshing, fit ``device``: (n_caches + PLANE_COPIES_AT_PEAK - 1)
+    n_planes 4 A^2 bytes within DEVICE_MEMORY_SHARE of its memory.  The
+    CPU's cap is the twin's for every ``n_caches``."""
     dev = torch.device(device) if device is not None else None
     if dev is None or dev.type != "cuda":
         return CPU_MAX_SLOTS
     total = torch.cuda.get_device_properties(dev).total_memory
-    plane_bytes = n_planes * 4 * PLANE_COPIES_AT_PEAK      # per A^2
+    copies = n_caches + PLANE_COPIES_AT_PEAK - 1
+    plane_bytes = n_planes * 4 * copies                     # per A^2
     return int((DEVICE_MEMORY_SHARE * total / plane_bytes) ** 0.5)
 
 
-def supports(flags: FFlags, n_atom_slots: int = 0, device=None) -> bool:
+def supports(flags: FFlags, n_atom_slots: int = 0, device=None,
+             n_caches: int = 1) -> bool:
     """True when polarization can ride the incremental cache with
-    ``n_atom_slots`` slots on ``device`` (the mode's f32 [A,A] planes; see
-    max_slots).  flags.dense_only holds polar_ewald_full, whose SCF
-    couples the dipoles through k-space and has no row-local update."""
+    ``n_atom_slots`` slots on ``device`` beside ``n_caches`` - 1 other
+    replicas' caches (the mode's f32 [A,A] planes; see max_slots).
+    flags.dense_only holds polar_ewald_full, whose SCF couples the dipoles
+    through k-space and has no row-local update."""
     # under use_sg or rd_only the full energy has no polarization
     # (energy.py:62), which the twin's cache would still carry
     ok = (flags.polarization and flags.polar_mixed and
           not (flags.use_sg or flags.rd_only) and
           not dense_only(flags))
     if n_atom_slots and n_atom_slots > max_slots(
-            device, polar_mod.plane_mode(flags)):
+            device, polar_mod.plane_mode(flags), n_caches):
         return False
     return ok
 

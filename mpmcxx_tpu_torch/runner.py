@@ -14,11 +14,13 @@ the polarizability-tensor analysis mode, which prints the tensor and
 ends the run.
 
 ``run_input_file`` dispatches an input file to this Simulation, to
-``mc.pi.PISimulation`` (path integrals) or to ``mc.gibbs.GibbsSimulation``.
-Not ported yet (NotImplementedError): replicas and parallel tempering.
-The special moves (SPECTRE with its initial domain wrap, GWP, the
-anharmonic oscillator), adiabatic molecules and spin flips run as the
-chain takes them (mc/chain.py).
+``mc.pi.PISimulation`` (path integrals) or to ``mc.gibbs.GibbsSimulation``;
+as in the twin, an input with ``parallel_tempering`` runs here as one
+chain (the CLI's ``--replicas`` and tempering dispatch to
+``parallel.driver.ReplicaSimulation``).  The run drains the PQR writer
+(``io.pqr.drain``) before it returns.  The special moves (SPECTRE with
+its initial domain wrap, GWP, the anharmonic oscillator), adiabatic
+molecules and spin flips run as the chain takes them (mc/chain.py).
 """
 
 from __future__ import annotations
@@ -62,13 +64,6 @@ def _live(path: str) -> bool:
     return bool(path) and path != "/dev/null"
 
 
-def require_runner_options(cfg: SimConfig) -> None:
-    """Raise NotImplementedError naming the first run option the port's
-    Simulation has no path for."""
-    if cfg.parallel_tempering:
-        raise NotImplementedError("parallel_tempering (replicas)")
-
-
 def apply_state_fixups(state, cfg: SimConfig):
     """Post-build_state config overrides every constructed state receives:
     the manual cutoff (pbc_cutoff keyword, src/SimulationControl.cpp:
@@ -81,14 +76,16 @@ def apply_state_fixups(state, cfg: SimConfig):
     return state
 
 
-def capacity_opts(opts, flags, state):
+def capacity_opts(opts, flags, state, n_caches: int = 1):
     """Recompute the capacity-derived MCOptions fields after a state
     rebuild: blocked_energy and the polar-cache eligibility depend on the
-    atom-slot count; the move window ``max_mol_atoms`` is the largest
-    movable species of a mixture (``moves.movable_window``; the twin's is
-    the flagship's 512-atom framework)."""
+    atom-slot count and on the ``n_caches`` caches (one per replica) that
+    share the device (polar_cache.max_slots); the move window
+    ``max_mol_atoms`` is the largest movable species of a mixture
+    (``moves.movable_window``; the twin's is the flagship's 512-atom
+    framework)."""
     polar_incremental = pcache_mod.supports(flags, state.n_atom_slots,
-                                            state.pos.device)
+                                            state.pos.device, n_caches)
     incremental = delta_mod.supports(flags) or polar_incremental
     blocked = state.n_atom_slots > 1024 and not dense_only(flags)
     return dataclasses.replace(
@@ -108,7 +105,6 @@ class Simulation:
     def __init__(self, cfg: SimConfig, quiet: bool = False,
                  uvt_capacity_factor: float = 2.0, device="cuda"):
         self.cfg = validate(cfg)
-        require_runner_options(self.cfg)
         self.quiet = quiet
         self.out = sys.stdout
         self.device = torch.device(device)
@@ -436,6 +432,7 @@ class Simulation:
         for f in (self.fp_energy, self.fp_energy_csv):
             if f:
                 f.close()
+        pqr_io.drain()
         return self.avg
 
     def _write_field(self, step: int):

@@ -367,3 +367,82 @@ def test_special_move_steps_run_on_cpu(step, tmp_path):
         + SPECIAL_MOVE_STEPS[step])
     r = _run(["-c", code], ROOT)
     assert r.returncode == 0, r.stderr[-3000:]
+
+
+REPLICA_STUBS = (
+    # K5, K2 and K3 count their plain versions' calls and the switch picks
+    # K5 for every square plane; the small CO2 system in the flagship's
+    # place (248 runner slots, an 18 A box, an 8^3 cavity grid)
+    "from mpmcxx_tpu_torch.ops import cuda_cavity, cuda_polar, polar\n"
+    "from mpmcxx_tpu_torch.mc import cavity\n"
+    "def counting(orig):\n"
+    "    def f(*a, **k):\n"
+    "        f.launches += 1\n"
+    "        return orig(*a, **k)\n"
+    "    f.launches = 0\n"
+    "    return f\n"
+    "for name in ('contract_planes_sym', 'write_plane_strips'):\n"
+    "    setattr(cuda_polar, name, counting(getattr(cuda_polar, name)))\n"
+    "cuda_cavity.occupancy = cavity.occupancy = counting(\n"
+    "    cuda_cavity.occupancy)\n"
+    "polar.use_sym = lambda shape: shape[0] == shape[1]\n"
+    "import os, numpy as np, torch_co2_system as co2\n"
+    "pqr = os.path.join(w, 'flagship_co2.pqr')\n"
+    "co2.write_pqr(pqr, co2.records())\n"
+    "chip_smoke.RUN_IN = chip_smoke.RUN_IN.replace(' 80', ' 18').replace(\n"
+    "    'numsteps 128', 'numsteps 8').replace('corrtime 64', 'corrtime 4'\n"
+    "    ).replace('cavity_grid 24', 'cavity_grid 8')\n"
+    "chip_smoke.CLI_SLOTS, chip_smoke.CLI_DARTS = 8 + 6 * co2.N_MOL, 583\n"
+    "chip_smoke.CHUNK = 4\n"
+    "chip_smoke.REP_STEPS, chip_smoke.REP_CORRTIME = 8, 4\n"
+    "chip_smoke.REP_PTEMP = 2\n")
+REPLICA_STEPS = {
+    "replicas_vs_single": (
+        "state, _, flags, params, opts = co2.torch_system()\n"
+        "n = chip_smoke.check_replicas_vs_single(state, flags, params, opts)\n"
+        "assert n['contract_planes_sym'] >= 4 * 32, n\n"),
+    "replicas_cli": (
+        "with open(os.path.join(w, 'run.in'), 'w') as f:\n"
+        "    f.write(chip_smoke.RUN_IN)\n"
+        "_, _, cli, _, _ = chip_smoke._run_cli(w, ['--device', 'cpu',\n"
+        "                                         'run.in'])\n"
+        "n, out = chip_smoke.run_replica_flagship(w, cli, 'cpu',\n"
+        "                                         device='cpu')\n"
+        "assert n['occupancy'] >= 2 * 4 * 8 and out['swap'][1] == 6, out\n"
+        "assert len(out['restart_s']) == 2 and len(out['rates']) == 4\n"),
+    "codec": (
+        "from mpmcxx_tpu_torch.io.pqr import read_pqr\n"
+        "from mpmcxx_tpu_torch.state import build_state\n"
+        "def small(p, device, with_meta=False):\n"
+        "    st, meta = build_state(read_pqr(p), np.eye(3) * 18.0,\n"
+        "                           extra_mol_capacity=co2.N_MOL,\n"
+        "                           device=device)\n"
+        "    return (st, meta) if with_meta else st\n"
+        "chip_smoke.cli_flagship_state = small\n"
+        "times = chip_smoke.check_codec(pqr, device='cpu')\n"
+        "assert set(times) == {'codec', 'python'}\n"),
+}
+
+
+@pytest.mark.parametrize("step", list(REPLICA_STEPS))
+def test_replica_steps_run_on_cpu(step, tmp_path):
+    """Step 24 (2 replicas against single chains; 4 tempering replicas
+    of the cavity-biased flagship through the CLI with --replicas; the
+    native codec) on the small CO2 system on the CPU, with jax and the
+    JAX package made unimportable and the card's calls stubbed: their
+    gates pass, the launch gates against the counted plain calls."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mpmcxx_tpu'] = None\n"
+        f"sys.path.insert(0, {os.path.join(ROOT, 'tests')!r})\n"
+        "import torch\n"
+        "for f in ('synchronize', 'reset_peak_memory_stats',\n"
+        "          'max_memory_allocated', 'empty_cache',\n"
+        "          'set_sync_debug_mode'):\n"
+        "    setattr(torch.cuda, f, lambda *a, **k: 0)\n"
+        "import chip_smoke\n"
+        f"w = {str(tmp_path)!r}\n"
+        + REPLICA_STUBS + REPLICA_STEPS[step])
+    r = _run(["-c", code], ROOT)
+    assert r.returncode == 0, r.stderr[-3000:]

@@ -16,7 +16,9 @@ package and the port on the same inputs.
 - NVT with simulated annealing, linear and geometric: the temperature
   after each chunk equal to the JAX chain's (1e-12).
 - The draws of the volume move and of the mixture's insertion species,
-  key for key as the JAX chain's."""
+  key for key as the JAX chain's.
+- The nvt-argon example with ``--replicas 2`` through both packages'
+  CLI: the energy log and the restart and final PQRs byte for byte."""
 
 import dataclasses
 import os
@@ -392,19 +394,40 @@ def test_spinflip_examples_match_jax(name, extra, args, tmp_path,
 
 @pytest.mark.parametrize("name,extra,args,match", [
     ("nvt-argon", "", ["--replicas", "2"], "replicas")])
-def test_unported_examples_raise(name, extra, args, match, tmp_path):
-    """What the port has no path for raises through the CLI and names
-    itself: replica chains."""
+def test_unported_examples_raise(name, extra, args, match, tmp_path,
+                                 monkeypatch):
+    """What once raised through the port's CLI (replica chains) now runs
+    as the JAX CLI runs it: the example (8 moves, corrtime 4) with
+    ``args`` through both packages' CLI dispatches to the driver that
+    ``match`` names, and after both drains the energy log (one row per
+    replica per corrtime), the restart PQRs and their ``.last`` and the
+    final PQRs are byte-identical."""
+    import re
+    from mpmcxx_tpu import cli as cli_j
+    from mpmcxx_tpu.io.pqr import drain as drain_j
     from mpmcxx_tpu_torch import cli
     from test_examples import EXAMPLES
-    d = tmp_path / name
-    shutil.copytree(os.path.join(EXAMPLES, name), d)
-    with open(d / "run.in", "a") as f:
-        f.write(extra)
-    cwd = os.getcwd()
-    os.chdir(d)
-    try:
-        with pytest.raises(NotImplementedError, match=match):
-            cli.run(["--device", "cpu", "--quiet"] + args + ["run.in"])
-    finally:
-        os.chdir(cwd)
+    for pkg in ("jax", "torch"):
+        d = tmp_path / pkg
+        shutil.copytree(os.path.join(EXAMPLES, name), d)
+        text = (d / "run.in").read_text()
+        text = re.sub(r"(?m)^numsteps .*$", "numsteps 8", text)
+        text = re.sub(r"(?m)^corrtime .*$", "corrtime 4", text)
+        (d / "run.in").write_text(text + extra)
+        monkeypatch.chdir(d)
+        if pkg == "jax":
+            assert cli_j.main(["--quiet"] + args + ["run.in"]) == 0
+            drain_j()
+            continue
+        rc, sim = cli.run(["--device", "cpu", "--quiet"] + args +
+                          ["run.in"])
+        assert rc == 0 and match in type(sim).__name__.lower()
+    files = sorted(os.listdir(tmp_path / "jax"))
+    assert files == sorted(os.listdir(tmp_path / "torch"))
+    written = [f for f in files if ".restart-" in f or ".final-" in f]
+    assert len(written) == 6, files
+    for f in written + ["ar_nvt.energy.dat"]:
+        assert (tmp_path / "torch" / f).read_bytes() == \
+            (tmp_path / "jax" / f).read_bytes(), f
+    rows = (tmp_path / "torch" / "ar_nvt.energy.dat").read_text()
+    assert len(rows.splitlines()) == 1 + 3 * 2

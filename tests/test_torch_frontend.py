@@ -110,28 +110,67 @@ def test_write_state_pqr_byte_equal(tmp_path, wrapall):
     pqr_j.write_state_pqr(str(pj), sj, mj, wrapall=wrapall)
     pqr_j.drain()
     pqr_t.write_state_pqr(str(pt), st, mt, wrapall=wrapall)
+    pqr_t.drain()
     assert pt.read_bytes() == pj.read_bytes()
 
 
-def test_sim_control_echo_matches_golden(tmp_path, monkeypatch):
-    """The port's startup echo of examples/gcmc-mof-co2 equals the
-    reference binary's (tests/golden/sim_control/gcmc_mof_co2.txt, the
-    fixture of tests/test_sim_control_echo.py).  The runner sizes the
-    headroom so the system takes the blocked path (> 1024 slots)."""
+# golden -> (example, the PQR written beside its run.in: the example's
+# own file, or a one-line stand-in of tests/test_sim_control_echo.py, the
+# fixtures' capture), the number of systems the echo reports
+ECHO_CASES = {
+    "gcmc_mof_co2": ("gcmc-mof-co2", "mof_co2.pqr", None, 1),
+    "npt_argon": ("npt-argon", "argon.pqr", "AR_LINE", 1),
+    "gcmc_mof_h2": ("gcmc-mof-h2", "mof_h2.pqr", "H2_LINE", 1),
+    "gcmc_mof_mixture": ("gcmc-mof-mixture", "mof_mix.pqr", None, 1),
+    "gibbs_argon": ("gibbs-argon", "boxA.pqr boxB.pqr", "AR_LINE", 2),
+    "pi_argon_dimer": ("pi-argon-dimer", "dimer.pqr", None, 4),
+}
+
+
+@pytest.mark.parametrize("golden", list(ECHO_CASES))
+def test_sim_control_echo_matches_golden(golden, tmp_path, monkeypatch):
+    """The port's startup echo of each example equals the reference
+    binary's (tests/golden/sim_control/<golden>.txt, the fixtures of
+    tests/test_sim_control_echo.py), with the simulation each ensemble
+    builds (Simulation, GibbsSimulation, PISimulation with P = 4) on the
+    fixtures' inputs.  The CO2 example keeps its own PQR and the runner
+    sizes its headroom so the system takes the blocked path (> 1024
+    slots)."""
+    import test_sim_control_echo as echo_j
     from mpmcxx_tpu_torch.io.output import display_sim_control
+    from mpmcxx_tpu_torch.mc.gibbs import GibbsSimulation
+    from mpmcxx_tpu_torch.mc.pi import PISimulation
     from mpmcxx_tpu_torch.runner import Simulation
+    example, pqrs, line, n_systems = ECHO_CASES[golden]
     monkeypatch.chdir(tmp_path)
-    src = os.path.join(REPO, "examples", "gcmc-mof-co2")
-    for name in ("run.in", "mof_co2.pqr"):
-        with open(os.path.join(src, name)) as f:
-            (tmp_path / name).write_text(f.read())
-    sim = Simulation(parser_t.read_config("run.in"), quiet=True,
-                     uvt_capacity_factor=20.0, device="cpu")
-    assert sim.state.n_atom_slots > 1024
+    src = os.path.join(REPO, "examples", example)
+    with open(os.path.join(src, "run.in")) as f:
+        run_in = f.read()
+    if golden == "pi_argon_dimer":
+        run_in = run_in.replace("numsteps 3000", "numsteps 2").replace(
+            "corrtime 300", "corrtime 1")
+    (tmp_path / "run.in").write_text(run_in)
+    for name in pqrs.split():
+        if line is None:
+            with open(os.path.join(src, name)) as f:
+                (tmp_path / name).write_text(f.read())
+        else:
+            (tmp_path / name).write_text(getattr(echo_j, line))
+    cfg = parser_t.read_config("run.in")
+    if golden == "gcmc_mof_co2":
+        sim = Simulation(cfg, quiet=True, uvt_capacity_factor=20.0,
+                         device="cpu")
+        assert sim.state.n_atom_slots > 1024
+    elif golden == "gibbs_argon":
+        sim = GibbsSimulation(cfg, quiet=True, device="cpu")
+    elif golden == "pi_argon_dimer":
+        sim = PISimulation(cfg, P=4, quiet=True, device="cpu")
+    else:
+        sim = Simulation(cfg, quiet=True, device="cpu")
     buf = io.StringIO()
     buf.write("SIM_CONTROL: running parameters found in: run.in\n")
     buf.write("SIM_CONTROL: Finished reading config file.\n")
-    display_sim_control(sim.cfg, out=buf, n_systems=1)
+    display_sim_control(sim.cfg, out=buf, n_systems=n_systems)
     with open(os.path.join(HERE, "golden", "sim_control",
-                           "gcmc_mof_co2.txt")) as f:
+                           f"{golden}.txt")) as f:
         assert buf.getvalue().splitlines() == f.read().splitlines()

@@ -781,6 +781,7 @@ def test_special_runs_match_jax(name, tmp_path, monkeypatch):
     from mpmcxx_tpu import runner as runner_j
     from mpmcxx_tpu.config.parser import read_config as read_j
     from mpmcxx_tpu.io.output import display_sim_control as echo_j
+    from mpmcxx_tpu.io.pqr import drain as drain_j
     from mpmcxx_tpu.io.pqr import write_state_pqr as write_j
     from mpmcxx_tpu_torch import runner as runner_t
     from mpmcxx_tpu_torch.config.parser import read_config as read_t
@@ -796,6 +797,7 @@ def test_special_runs_match_jax(name, tmp_path, monkeypatch):
         d.mkdir()
         monkeypatch.chdir(d)
         write_j("in.pqr", state, meta, wrapall=False)
+        drain_j()          # the write is queued on the codec's thread
         with open("run.in", "w") as f:
             f.write(f"job_name sp\nensemble nvt\ntemperature "
                     f"{fix['temperature']}\nnumsteps 40\ncorrtime 20\n"
@@ -808,8 +810,7 @@ def test_special_runs_match_jax(name, tmp_path, monkeypatch):
             echo(sim.cfg, out=buf)
             sim.run()
         if pkg == "jax":
-            from mpmcxx_tpu.io.pqr import drain
-            drain()
+            drain_j()
         # (the timer's lines differ by the host's speed)
         lines = [ln for ln in buf.getvalue().splitlines()
                  if ln.startswith(("SIM_CONTROL", "OUTPUT")) and
