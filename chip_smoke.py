@@ -213,12 +213,37 @@ its hand-written kernels, and check the results.
    The codec must build; ``format_pqr`` of step 5's state through it
    byte-identical to the Python path's; one ``write_state_pqr`` each way,
    timed until it returns and until ``drain()`` returns.
-25. Prints ``{"kernels": [...]}`` (per kernel: the sum over the main paths
-   of steps 3, 5-24 of its launches, each path counted from 0, and
+25. The mesh paths (parallel/meshing.py) on MESH_SHARDS shards of the
+   one card (``make_mesh(devices=["cuda:0"] * 4)``): (e, first) step
+   24a's 2 replicas again through ``make_replica_runner(mesh=...)`` on a
+   2-shard mesh, bitwise step 24a's (moves, accepts, positions, energies,
+   planes); (a) ``sharded_breakdown`` of step 5's state (19,712 slots)
+   against ``energy_breakdown_blocked``: rd and coulombic within 1e-9
+   relative, polarization within 1e-5, K1 once per shard and SCF
+   iteration, K5 and K4 none; then K1 on each shard's [A/4, A] slice
+   against its plain version and one sharded contraction timed beside
+   the slices' bound; (b) step 5's flagship through
+   ``runner.Simulation(cfg, mesh=...)`` from a run.in, 2 corrtimes of 32
+   moves, the planes row-sharded: before each refresh the carried
+   energies as in step 5 and every shard's planes within 1e-6 of a
+   sharded rebuild; per move K1 >= 16, K2 4 and K3 >= 2 launches, K5 and
+   K4 none; peak device memory no more than 5 % above step 5's; moves/s
+   beside step 5's; the first corrtime's accept sequence beside a
+   one-device run under MPMCXX_SYM_KERNEL=0 (printed, not a gate); (c)
+   K2's row-slice mode bitwise against its plain version on copies of
+   (b)'s shards at window starts 0, inside a shard, across a shard
+   boundary and A - S, with its device and call times; (d) step 14's PI
+   fluid (512 H2 x 16 beads) for one corrtime through
+   ``PISimulation(mesh=...)`` and with no mesh: positions, accepts and
+   the carried potential bitwise equal, 16 restart files each, no K1-K5
+   launch.
+26. Prints ``{"kernels": [...]}`` (per kernel: the sum over the main paths
+   of steps 3, 5-25 of its launches, each path counted from 0, and
    the count of each path; the time, plain time and bound at the shapes
-   of step 4 for K2, K3 and K5, step 6 for K4 and step 7 for K1; the
-   worst error of the checks), the card's name and power limit, and,
-   last, ``{"ok": true, "device": {...}}``.  Any failure raises: non-zero
+   of step 4 for K2, K3 and K5, step 6 for K4 and step 7 for K1, with
+   step 25's sliced K1 and row-slice K2 beside them; the worst error of
+   the checks), the card's name and power limit, and, last,
+   ``{"ok": true, "device": {...}}``.  Any failure raises: non-zero
    exit, no result line.
 
 Imports torch, numpy and the port only (never jax).
@@ -417,6 +442,15 @@ REP_CORRTIME = 32
 REP_PTEMP = 16
 REP_TMAX = 300.0
 REP_LAUNCH_REL = 0.05
+# step 25: the mesh paths, MESH_SHARDS shards of the one card.  (b) runs 2
+# corrtimes of MESH_CORRTIME moves of the CLI flagship, its peak memory at
+# most MESH_PEAK_REL above step 5's; (d) one corrtime of MESH_PI_MOVES
+# moves of step 14's PI fluid on each side
+MESH_SHARDS = 4
+MESH_BLOCK = 256         # (a)'s row tile, sharded_breakdown's default
+MESH_CORRTIME = 32
+MESH_PEAK_REL = 0.05
+MESH_PI_MOVES = 64
 SYNTH_A = 4096
 RAGGED_A = 4001          # A % 4 != 0: no TMA tensor map (16-byte rows)
 SYM_SYNTH_A = (4096, 4032)   # K5's 64-row tiles: nr = 64 (even), 63 (odd)
@@ -865,13 +899,15 @@ def check_k5(cache, state, flags, params, device, label, modes=(3, 4, 5),
     return rec
 
 
-def device_split(fn, reps=TIMING_REPS, tries=8, want=""):
+def device_split(fn, reps=TIMING_REPS, tries=8, want="", count=0):
     """Device ms and kernels per call of ``fn``, by kernel name
     (torch.profiler over ``reps`` calls after one warm-up call).  On this
     card the profiler now and then records no device event of a session,
     or none of the kernel being measured, so a session without an event
-    whose name holds ``want`` is run again, up to ``tries`` sessions;
-    every call of ``fn`` runs the same work, so the sessions are alike."""
+    whose name holds ``want`` (or, with ``count``, with fewer than
+    ``count`` such kernels per call) is run again, up to ``tries``
+    sessions; every call of ``fn`` runs the same work, so the sessions
+    are alike."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -891,7 +927,8 @@ def device_split(fn, reps=TIMING_REPS, tries=8, want=""):
                 ms, n = out.get(key, (0.0, 0.0))
                 out[key] = (ms + e.time_range.elapsed_us() / 1e3 / reps,
                             n + 1 / reps)
-        if any(want in k for k in out):
+        seen = sum(n for k, (_, n) in out.items() if want in k)
+        if seen and seen >= count - 1e-9:
             break
     return out
 
@@ -1194,9 +1231,10 @@ def _check_refreshes(label, log, fields, n_refresh):
 
 
 def run_cli_flagship(workdir, golden, device="cuda"):
-    """Step 6: the cavity-biased flagship through the port's CLI in
+    """Step 5: the cavity-biased flagship through the port's CLI in
     ``workdir`` (which holds flagship_co2.pqr); returns the launch counts
-    of the run."""
+    of the run and {"peak_gb": its peak device memory, "rate": its second
+    corrtime's moves/s, "base_gb": the memory allocated before it}."""
     import torch
     from mpmcxx_tpu_torch import constants as const
     from mpmcxx_tpu_torch.io.pqr import read_pqr
@@ -1204,6 +1242,7 @@ def run_cli_flagship(workdir, golden, device="cuda"):
     with open(os.path.join(workdir, "run.in"), "w") as f:
         f.write(RUN_IN)
     torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
     sim, log, launches, wall, stdout = _run_cli(
         workdir, ["--device", str(device), "run.in"])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1280,7 +1319,8 @@ def run_cli_flagship(workdir, golden, device="cuda"):
     if launches["contract_planes_tri"] or launches["contract_planes"]:
         raise AssertionError("K1 or K4 ran on the default schedule")
     profile_chunk(sim)
-    return launches
+    return launches, {"peak_gb": peak_gb, "base_gb": base_gb,
+                      "rate": steps / dt}
 
 
 # kernel-name fragments -> the kernel they belong to (profiler groups)
@@ -2040,11 +2080,11 @@ def write_h2_fluid(path):
         f.write("END\n")
 
 
-def write_pi_h2(workdir, extra="", corrtimes=2, label="pi-h2"):
+def write_pi_h2(workdir, extra="", corrtimes=2, label="pi-h2", moves=None):
     """Step 14's input in ``workdir``/``label``: the fluid's PQR and a
-    run.in of ``corrtimes`` corrtimes of PI_H2["moves"] with the input
-    lines ``extra``; returns the directory."""
-    h = PI_H2
+    run.in of ``corrtimes`` corrtimes of ``moves`` (PI_H2["moves"] by
+    default) with the input lines ``extra``; returns the directory."""
+    h = dict(PI_H2, moves=moves or PI_H2["moves"])
     d = os.path.join(workdir, label)
     os.makedirs(d)
     write_h2_fluid(os.path.join(d, "h2.pqr"))
@@ -3371,7 +3411,8 @@ def check_replicas_vs_single(state, flags, params, opts):
     against ``make_chunk_runner`` on each replica's initial carry with key
     fold_in(PRNGKey(0), r).  Gates: the same move types and accepts,
     energies within 1e-9 relative, the committed planes bitwise equal.
-    Returns the launch counts of the replica run."""
+    Returns the launch counts of the replica run and, for step 25e, the
+    initial carry, the replicas after the chunk and their StepOuts."""
     import torch
     from mpmcxx_tpu_torch import random as rnd
     from mpmcxx_tpu_torch.mc import chain
@@ -3384,7 +3425,6 @@ def check_replicas_vs_single(state, flags, params, opts):
     singles = [dataclasses.replace(copy.deepcopy(carry),
                                    key=rnd.fold_in(rnd.PRNGKey(0), r))
                for r in range(REP_PAIR)]
-    del carry
     zero_launches()
     t0 = time.time()
     reps, outs = rep.make_replica_runner(flags, params, opts,
@@ -3421,7 +3461,7 @@ def check_replicas_vs_single(state, flags, params, opts):
     if launches["contract_planes_sym"] < 4 * n or \
             launches["write_plane_strips"] < n:
         raise AssertionError(f"[replicas-a] launches {launches}")
-    return launches
+    return launches, {"init": carry, "reps": reps, "outs": outs}
 
 
 def _instrument_replicas(log):
@@ -3723,6 +3763,471 @@ def check_codec(pqr, device="cuda"):
     return times
 
 
+def mesh_input():
+    """RUN_IN as step 25b's run: 2 corrtimes of MESH_CORRTIME moves."""
+    keep = [ln for ln in RUN_IN.replace("flagship_cav",
+                                        "flagship_mesh").splitlines()
+            if not ln.startswith(("numsteps", "corrtime"))]
+    return "\n".join(keep + [f"numsteps {2 * MESH_CORRTIME}",
+                             f"corrtime {MESH_CORRTIME}"]) + "\n"
+
+
+def check_sharded_energy(pqr, flags, params, mesh, device="cuda"):
+    """Step 25a: ``sharded_breakdown`` of the CLI flagship's state (19,712
+    slots) on ``mesh`` against ``energy_breakdown_blocked``: rd and
+    coulombic within 1e-9 relative, polarization within 1e-5; K1 exactly
+    one launch per shard holding rows and SCF iteration, K5 and K4 none.
+    Then the
+    sliced K1 on the even [A/n, A] row slices of the planes (the chain's
+    shards): each shard's launch against its plain version (relative
+    error <= K1_REL_TOL, repeats bitwise), and one sharded contraction
+    (n launches) timed: events, device time (profiler), plain time and
+    the slices' bound.  Returns (the path's launch counts, the record of
+    the sliced K1)."""
+    import torch
+    from mpmcxx_tpu_torch.ops import cuda_polar
+    from mpmcxx_tpu_torch.ops import polar as polar_mod
+    from mpmcxx_tpu_torch.ops import polar_cache as pcache
+    from mpmcxx_tpu_torch.ops.energy import energy_breakdown_blocked
+    from mpmcxx_tpu_torch.parallel import meshing
+    from mpmcxx_tpu_torch.parallel.sharded_energy import (_row_slices,
+                                                          sharded_breakdown)
+
+    state = cli_flagship_state(pqr, device)
+    A = state.n_atom_slots
+    # the shards whose padded row slice holds rows (all of them at 19,712)
+    holding = sum(int((r >= 0).any())
+                  for r in _row_slices(A, mesh.size, MESH_BLOCK))
+    want = energy_breakdown_blocked(state, flags, params)
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.time()
+    got = sharded_breakdown(state, flags, params, mesh, block=MESH_BLOCK)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = launches_now()
+    iters = int(got.polarization_iterations)
+    for comp, tol in (("rd", 1e-9), ("coulombic", 1e-9),
+                      ("polarization", 1e-5)):
+        g, w = float(getattr(got, comp)), float(getattr(want, comp))
+        rel, ok = _close(g, w, tol)
+        _say(f"[mesh-energy] {comp} {g:.9f} on {mesh.size} shards vs "
+             f"blocked {w:.9f}: rel {rel:.2e} (tol {tol:g})")
+        if not ok:
+            raise AssertionError(f"[mesh-energy] {comp}: rel {rel}")
+    _say(f"[mesh-energy] {A} slots on {mesh.size} shards of "
+         f"{mesh.leader} ({holding} holding rows): {dt:.2f} s; {iters} SCF "
+         f"iterations; launches {launches}")
+    if launches["contract_planes"] != holding * iters or iters < 1 or \
+            launches["contract_planes_sym"] or \
+            launches["contract_planes_tri"]:
+        raise AssertionError(f"[mesh-energy] launches {launches}: want "
+                             f"{holding} K1 per SCF iteration only")
+    del want, got
+
+    # the sliced K1 at the chain's shapes
+    l = params.polar_damp
+    ranges = meshing.even_rows(A, mesh.size)
+    planes, _ = pcache.sharded_rows(state, flags, params, mesh, ranges)
+    mu = _mu(A, device, state)
+    got, want = [], []
+    for d, (r0, R) in enumerate(ranges):
+        part = tuple(p.parts[d] for p in planes)
+        k = cuda_polar.contract_planes(part, mu, l)
+        again = cuda_polar.contract_planes(part, mu, l)
+        torch.cuda.synchronize()
+        if k.shape != (R, 3) or not torch.equal(k, again):
+            raise AssertionError(f"[mesh-energy] K1 on rows {r0}..{r0 + R}:"
+                                 " shape, or repeats differ")
+        got.append(k)
+        want.append(cuda_polar.contract_planes_plain(part, mu, l))
+    # the relative error over all rows (a shard of dead slots gives 0)
+    got, want = torch.cat(got), torch.cat(want)
+    rel = _rel(got, want)
+    worst = float(torch.max(torch.abs(got - want)))
+    if not rel <= K1_REL_TOL:
+        raise AssertionError(f"[mesh-energy] sliced K1: rel {rel:.3e}")
+    del got, want
+
+    def sharded():
+        polar_mod.contract_mixed(planes, mu, l=l)
+
+    def plain():
+        for d in range(mesh.size):
+            cuda_polar.contract_planes_plain(
+                tuple(p.parts[d] for p in planes), mu, l)
+    split = {k: v for k, v in device_split(
+        sharded, want="contract_planes_kernel", count=mesh.size).items()
+        if "contract_planes" in k or "sum_row_slots" in k}
+    if not split:
+        raise AssertionError("[mesh-energy] the profiler saw no K1 kernel")
+    bounds = [_contract_bound(A, 3, R * A, 1, R) for _, R in ranges]
+    rec = {"ms": _time_ms(sharded),
+           "device_ms": sum(ms for ms, _ in split.values()),
+           "plain_ms": _time_ms(plain), "max_abs_err": worst,
+           "bound": (sum(b[0] for b in bounds), bounds[0][1]),
+           "slices": [R for _, R in ranges]}
+    _say(f"K1 contract_planes sliced {mesh.size} x [{ranges[0][1]}, {A}] "
+         f"mode 3 (one sharded contraction, {mesh.size} launches): call "
+         f"{rec['ms']:.4f} ms (events), device {rec['device_ms']:.4f} ms "
+         f"(profiler: " + ", ".join(f"{k} {ms:.4f} ms x {n:.0f}"
+                                    for k, (ms, n) in split.items()) +
+         f"), plain {rec['plain_ms']:.3f} ms, bound {rec['bound'][0]:.4f} "
+         f"ms ({rec['bound'][1]}: the slices' full rows; call "
+         f"{rec['bound'][0] / rec['ms']:.1%}), max_abs_err {worst:.3e}, "
+         f"rel_err {rel:.3e}, repeats bitwise equal")
+    return launches, rec
+
+
+def _instrument_mesh(log):
+    """Like _instrument_chain, for a row-sharded run: each chunk's moves,
+    seconds, StepOut and launch counts; before each refresh the committed
+    planes' largest difference, shard by shard, from a sharded rebuild,
+    then the carried energies beside the refresh's.  The peak device
+    memory leaves out the rebuild: the running peak is read before it
+    and the counter reset after it (log["peak"])."""
+    import torch
+    from mpmcxx_tpu_torch.mc import chain
+    from mpmcxx_tpu_torch.ops import polar_cache as pcache
+    from mpmcxx_tpu_torch.parallel import meshing
+    orig_runner, orig_refresher = chain.make_chunk_runner, \
+        chain.make_refresher
+    fields = ("rd_energy", "coulombic_energy", "polarization_energy")
+
+    def make_chunk_runner(*a, **kw):
+        run_chunk = orig_runner(*a, **kw)
+
+        def timed(carry):
+            torch.cuda.synchronize()
+            before = launches_now()
+            t0 = time.time()
+            carry, outs = run_chunk(carry)
+            torch.cuda.synchronize()
+            log["chunks"].append((len(outs.movetype), time.time() - t0,
+                                  outs, _launch_delta(before)))
+            return carry, outs
+        return timed
+
+    def make_refresher(flags, params, opts):
+        refresh = orig_refresher(flags, params, opts)
+
+        def recorded(carry):
+            mesh = meshing.mesh_of(carry.pcache)
+            torch.cuda.synchronize()
+            log["peak"] = max(log["peak"], torch.cuda.max_memory_allocated())
+            before = launches_now()
+            fresh = pcache.cache_init(carry.state, flags, params, mesh=mesh)
+            worst = []
+            for got, want in zip(pcache.planes_of(carry.pcache),
+                                 pcache.planes_of(fresh)):
+                worst.append([float(torch.max(torch.abs(g - w)))
+                              for g, w in zip(got.parts, want.parts)])
+            log["planes"].append([max(c) for c in zip(*worst)])
+            del fresh
+            torch.cuda.synchronize()
+            log["check_launches"].append(_launch_delta(before))
+            torch.cuda.reset_peak_memory_stats()
+            inc = {f: float(getattr(carry.obs, f)) for f in fields}
+            out = refresh(carry)
+            log["refresh"].append(
+                (inc, {f: float(getattr(out.obs, f)) for f in fields}))
+            return out
+        return recorded
+
+    chain.make_chunk_runner = make_chunk_runner
+    chain.make_refresher = make_refresher
+
+    def undo():
+        chain.make_chunk_runner = orig_runner
+        chain.make_refresher = orig_refresher
+    return undo
+
+
+def run_mesh_chain(workdir, mesh, cli_stats, card, device="cuda"):
+    """Step 25b: the cavity-biased CLI flagship (``workdir`` holds
+    flagship_co2.pqr) through ``runner.Simulation(cfg, mesh=mesh)`` from a
+    run.in (mesh_input: 2 corrtimes of MESH_CORRTIME), the planes
+    row-sharded over ``mesh``.  Gates: before each refresh the carried rd
+    and coulombic within 1e-8 and polarization within 1e-5 of the
+    refresh, every shard's committed planes within 1e-6 of a sharded
+    rebuild; per move K1 >= 4 x n, K2 exactly n and K3 >= 2 launches, K5
+    and K4 none in the whole run; the peak device memory no more than
+    MESH_PEAK_REL above step 5's (``cli_stats``).  Moves/s beside step
+    5's.  Then the first corrtime of the same input with no mesh under
+    MPMCXX_SYM_KERNEL=0 (K1 on the whole planes): its accept sequence
+    beside the mesh run's (a finding, not a gate: K1's slot split depends
+    on R).  Returns (the launch counts, the run's Simulation, a record)."""
+    import torch
+    from mpmcxx_tpu_torch.config.parser import read_config
+    from mpmcxx_tpu_torch.runner import Simulation
+
+    with open(os.path.join(workdir, "run.in"), "w") as f:
+        f.write(mesh_input())
+    n = mesh.size
+    log = {"chunks": [], "refresh": [], "planes": [], "check_launches": [],
+           "peak": 0}
+    cwd = os.getcwd()
+    undo = _instrument_mesh(log)
+    try:
+        os.chdir(workdir)
+        cfg = read_config("run.in")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        zero_launches()
+        t0 = time.time()
+        sim = Simulation(cfg, quiet=True, device=device, mesh=mesh)
+        sim.run()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        os.chdir(cwd)
+        undo()
+    launches = launches_now()
+    for c in log["check_launches"]:
+        for k, v in c.items():
+            launches[k] -= v
+    peak_gb = max(log["peak"], torch.cuda.max_memory_allocated()) / 1e9
+    A = sim.state.n_atom_slots
+    parts = sim.carry.pcache.dx.parts
+    _say(f"[mesh-chain] {A} slots on {n} shards of {mesh.leader}: planes "
+         f"{[tuple(p.shape) for p in parts]}, {wall:.1f} s wall with "
+         f"set-up")
+    if A != CLI_SLOTS or [tuple(p.shape) for p in parts] != \
+            [(A // n, A)] * n:
+        raise AssertionError("[mesh-chain] not the flagship's shards")
+    _check_refreshes("[mesh-chain]", log, (("rd_energy", 1e-8),
+                                           ("coulombic_energy", 1e-8),
+                                           ("polarization_energy", 1e-5)),
+                     2)
+    for c, worst in enumerate(log["planes"]):
+        _say(f"[mesh-chain] corrtime {c + 1}: committed planes vs a sharded "
+             "rebuild, largest difference per shard " +
+             ", ".join(f"{w:.2e}" for w in worst) + " (tol 1e-06)")
+        if not max(worst) <= 1e-6:
+            raise AssertionError(f"[mesh-chain] planes off by {worst}")
+    moves = sum(m for m, *_ in log["chunks"])
+    chunk = {k: sum(c[3][k] for c in log["chunks"]) for k in launches}
+    per_move = {k: v / moves for k, v in chunk.items()}
+    steps, dt = log["chunks"][-1][:2]
+    _say(f"[mesh-chain] second corrtime {steps} moves in {dt:.3f} s = "
+         f"{steps / dt:.2f} moves/s (step 5 on one device: "
+         f"{cli_stats['rate']:.2f}); launches per move " +
+         ", ".join(f"{k} {v:.3f}" for k, v in per_move.items()) +
+         f"; whole run {launches}; peak device memory {peak_gb:.2f} GB, "
+         f"{peak_gb - base_gb:.2f} GB above the {base_gb:.2f} GB held before "
+         f"it (step 5: {cli_stats['peak_gb']:.2f} GB, "
+         f"{cli_stats['peak_gb'] - cli_stats['base_gb']:.2f} GB above "
+         f"{cli_stats['base_gb']:.2f}); {card}")
+    if chunk["contract_planes"] < 4 * n * moves or \
+            chunk["write_plane_strips"] != n * moves or \
+            chunk["occupancy"] < 2 * moves or \
+            launches["contract_planes_sym"] or \
+            launches["contract_planes_tri"]:
+        raise AssertionError(f"[mesh-chain] launches {chunk} per {moves} "
+                             f"moves, whole run {launches}")
+    if not peak_gb - base_gb <= (1 + MESH_PEAK_REL) * (
+            cli_stats["peak_gb"] - cli_stats["base_gb"]):
+        step5 = cli_stats["peak_gb"] - cli_stats["base_gb"]
+        raise AssertionError(f"[mesh-chain] peak {peak_gb - base_gb:.2f} GB "
+                             f"above the run's start vs step 5's {step5:.2f}"
+                             " GB")
+    first = log["chunks"][0][2]
+
+    # the same first corrtime on one device, K1 on the whole planes
+    cwd = os.getcwd()
+    try:
+        os.chdir(workdir)
+        with schedule(MPMCXX_SYM_KERNEL="0"):
+            one = Simulation(read_config("run.in"), quiet=True,
+                             device=device)
+            _, outs = one.run_chunk(one.carry)
+            torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+    del one
+    same_moves = torch.equal(outs.movetype, first.movetype)
+    differ = int((outs.accepted != first.accepted).sum())
+    _say(f"[mesh-chain] first corrtime against one device with K1 on the "
+         f"whole planes: move types equal {same_moves}; {differ} of "
+         f"{len(first.accepted)} accept decisions differ (not a gate: the "
+         "f32 row sums of K1 split by R)")
+    return launches, sim, {"rate": steps / dt,
+                           "peak_gb": peak_gb - base_gb, "differ": differ,
+                           "per_move": per_move}
+
+
+def check_k2_row_slices(cache, device):
+    """Step 25c: K2's row-slice mode on copies of the shards of a
+    row-sharded cache's planes (the flagship's 3 planes, S = 3), bitwise
+    against its plain version on the same slices, at window starts 0,
+    inside one shard, straddling the first shard boundary and A - S, all
+    valid and partly valid.  Then the main path's commit on those planes,
+    one launch per shard: device time (profiler), call time (events) and
+    plain time.  Returns the record."""
+    import torch
+    from mpmcxx_tpu_torch.ops import cuda_polar
+    from mpmcxx_tpu_torch.ops.polar_cache import commit_strips
+
+    planes = (cache.dx, cache.dy, cache.dz)
+    n = len(planes[0].parts)
+    A = planes[0].shape[0]
+    R = A // n
+    S = 3
+    rng = np.random.default_rng(11)
+    for start in (0, R + 1, R - 2, A - S):
+        for valid in ((True, True, True), (False, True, True)):
+            rows = tuple(torch.from_numpy(rng.normal(size=(S, A)).astype(
+                np.float32)).to(device) for _ in planes)
+            st = torch.tensor(start, device=device)
+            vt = torch.tensor(valid, device=device)
+            blend, cols = commit_strips(planes, rows, st, vt, -1.0)
+            for d in range(n):
+                r0 = planes[0].row0s[d]
+                k = tuple(p.parts[d].clone() for p in planes)
+                q = tuple(p.parts[d].clone() for p in planes)
+                cuda_polar.write_plane_strips(k, blend, cols, st, row0=r0)
+                cuda_polar.write_plane_strips_plain(q, blend, cols, st,
+                                                    row0=r0)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(k, q)):
+                    raise AssertionError(
+                        f"K2 row slice {d} start {start} valid {valid}: "
+                        "kernel differs from plain")
+            _say(f"K2 write_plane_strips row slices {n} x [{R}, {A}] S={S} "
+                 f"start={start} valid={valid}: bitwise equal on every "
+                 f"shard{' (straddles a boundary)' if start == R - 2 else ''}")
+    st = torch.tensor(R - 1, device=device)
+    vt = torch.ones(S, dtype=torch.bool, device=device)
+    rows = tuple(p.window_rows(st, S) for p in planes)
+    blend, cols = commit_strips(planes, rows, st, vt, -1.0)
+
+    def call():
+        for d in range(n):
+            cuda_polar.write_plane_strips(
+                tuple(p.parts[d] for p in planes), blend, cols, st,
+                row0=planes[0].row0s[d])
+
+    def plain():
+        for d in range(n):
+            cuda_polar.write_plane_strips_plain(
+                tuple(p.parts[d] for p in planes), blend, cols, st,
+                row0=planes[0].row0s[d])
+    split = {k: v for k, v in device_split(
+        call, want="write_plane_strips", count=n).items()
+        if "write_plane_strips" in k}
+    if not split:
+        raise AssertionError("the profiler saw no K2 kernel")
+    rec = {"ms": sum(ms for ms, _ in split.values()),
+           "call_ms": _time_ms(call), "plain_ms": _time_ms(plain),
+           "bound": _bound(4 * len(planes) * S * A * 4, 0, F32_OPS_PER_S)}
+    _say(f"K2 write_plane_strips row slices {n} x [{R}, {A}], 3 planes, "
+         f"S={S}, a window across the first boundary ({n} launches): "
+         f"device {rec['ms']:.4f} ms (profiler, "
+         f"{sum(c for _, c in split.values()):.1f} kernels per commit), "
+         f"call {rec['call_ms']:.4f} ms (events), plain "
+         f"{rec['plain_ms']:.4f} ms, bound {rec['bound'][0]:.5f} ms "
+         f"({rec['bound'][1]}; launch-bound)")
+    return rec
+
+
+def run_mesh_pi(workdir, mesh, moves, device="cuda"):
+    """Step 25d: step 14's para-H2 PI-NVT (512 H2 x PI_H2 beads) for one
+    corrtime of ``moves`` moves through PISimulation.run on ``mesh`` (the
+    beads split P/n per shard) and with no mesh: positions, accept counts
+    and the carried potential bitwise equal, the per-bead restart files
+    written, no K1-K5 launch.  Returns (the mesh run's launch counts,
+    {"rate": its moves/s, "rate_one": the one-device run's})."""
+    import torch
+    from mpmcxx_tpu_torch.config.parser import read_config
+    from mpmcxx_tpu_torch.io.pqr import make_filename
+    from mpmcxx_tpu_torch.mc import pi
+
+    h = PI_H2
+    runs = {}
+    cwd = os.getcwd()
+    try:
+        for label, m in (("pi-mesh", mesh), ("pi-one", None)):
+            os.chdir(write_pi_h2(workdir, corrtimes=1, label=label,
+                                 moves=moves))
+            cfg = read_config("run.in")
+            cfg.total_trotter_number = h["beads"]
+            sim = pi.PISimulation(cfg, quiet=True, device=device, mesh=m)
+            torch.cuda.synchronize()
+            zero_launches()
+            t0 = time.time()
+            sim.run()
+            torch.cuda.synchronize()
+            runs[label] = (sim, time.time() - t0, launches_now())
+            for s in range(h["beads"]):
+                if not os.path.getsize(make_filename(sim.cfg.pqr_restart,
+                                                     s)):
+                    raise AssertionError(f"[{label}] no restart for bead {s}")
+    finally:
+        os.chdir(cwd)
+    (sm, tm, launches), (so, to, _) = runs["pi-mesh"], runs["pi-one"]
+    got, want = sm.carry, so.carry
+    shapes = [p.pos.shape[0] for p in got.stack.parts]
+    same = (torch.equal(pi.whole(got.stack).pos, want.stack.pos) and
+            torch.equal(got.accept, want.accept) and
+            torch.equal(got.potential_current, want.potential_current))
+    _say(f"[mesh-pi] {h['n']} H2 x {h['beads']} beads, beads per shard "
+         f"{shapes}, one corrtime of {moves} moves: {moves / tm:.2f} moves/s "
+         f"with set-up on {mesh.size} shards, {moves / to:.2f} on one "
+         f"device; positions, accepts and potential "
+         f"{float(got.potential_current):.9f} bitwise equal: {same}; "
+         f"{h['beads']} restart files each; launches {launches}")
+    if not same or shapes != [h["beads"] // mesh.size] * mesh.size:
+        raise AssertionError("[mesh-pi] the mesh run differs from one "
+                             "device")
+    if any(launches.values()):
+        raise AssertionError(f"[mesh-pi] kernels launched: {launches}")
+    return launches, {"rate": moves / tm, "rate_one": moves / to}
+
+
+def check_replicas_on_mesh(rep_a, flags, params, opts, device="cuda"):
+    """Step 25e: step 24a's REP_PAIR replicas of the CO2 builder state
+    again, through ``make_replica_runner(mesh=...)`` on a REP_PAIR-shard
+    mesh of ``device`` (replica r on shard r), one REP_A_MOVES-move chunk
+    from the same initial carry: move types, accepts, positions, energies
+    and committed planes bitwise step 24a's replicas' (``rep_a``).
+    Returns the launch counts."""
+    import torch
+    from mpmcxx_tpu_torch.ops import polar_cache as pcache
+    from mpmcxx_tpu_torch.parallel import replicas as rep
+
+    mesh = rep.make_mesh(devices=[device] * REP_PAIR)
+    reps = rep.replicate_carry(rep_a["init"], REP_PAIR, base_seed=0)
+    zero_launches()
+    t0 = time.time()
+    reps, outs = rep.make_replica_runner(flags, params, opts, REP_A_MOVES,
+                                         mesh=mesh)(reps)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    launches = launches_now()
+    for r in range(REP_PAIR):
+        want, wo = rep_a["reps"][r], rep_a["outs"][r]
+        same = (torch.equal(outs[r].movetype, wo.movetype) and
+                torch.equal(outs[r].accepted, wo.accepted) and
+                torch.equal(reps[r].state.pos, want.state.pos) and
+                torch.equal(reps[r].obs.energy, want.obs.energy) and
+                all(torch.equal(a, b) for a, b in zip(
+                    pcache.planes_of(reps[r].pcache),
+                    pcache.planes_of(want.pcache))))
+        _say(f"[mesh-replicas] replica {r} on {mesh.devices[r]}: moves, "
+             f"accepts, positions, energy {float(reps[r].obs.energy):.9f} "
+             f"and planes bitwise step 24a's: {same}")
+        if not same:
+            raise AssertionError(f"[mesh-replicas] replica {r} differs")
+    n = REP_PAIR * REP_A_MOVES
+    _say(f"[mesh-replicas] {n / dt:.2f} moves/s for the pair; launches "
+         f"{launches}")
+    if launches["contract_planes_sym"] < 4 * n or \
+            launches["write_plane_strips"] != n:
+        raise AssertionError(f"[mesh-replicas] launches {launches}")
+    return launches
+
+
 def ptxas_report(log):
     """Per kernel of nvcc's build log: its registers, barriers and shared
     memory ("Used ...") and its stack and spills, named by the kernel's
@@ -3825,7 +4330,8 @@ def main() -> int:
         k3 = check_k3(cli_state, device)
         del cli_state
         flush()
-        launches["cli"] = run_cli_flagship(workdir, load_golden(root, "co2"))
+        launches["cli"], cli_stats = run_cli_flagship(
+            workdir, load_golden(root, "co2"))
     flush()
 
     # --- 3. the H2 flagship: K4 vs plain, then its path through K4 -------
@@ -4007,9 +4513,10 @@ def main() -> int:
     # --- 24. replicas: against single chains, under tempering, the codec -
     t_rep = time.time()
     state, _, flags, params, opts = build_flagship("co2", device)
+    co2_setup = (flags, params, opts)
     with schedule():
-        launches["replicas-a"] = check_replicas_vs_single(state, flags,
-                                                          params, opts)
+        launches["replicas-a"], rep_a = check_replicas_vs_single(
+            state, flags, params, opts)
     del state
     flush()
     with schedule(), tempfile.TemporaryDirectory() as workdir:
@@ -4021,6 +4528,35 @@ def main() -> int:
         codec = check_codec(pqr)
     flush()
     _say(f"step 24 took {time.time() - t_rep:.1f} s")
+
+    # --- 25. the mesh paths on MESH_SHARDS shards of the card -------------
+    from mpmcxx_tpu_torch.parallel import meshing
+    t_mesh = time.time()
+    flags, params, opts = co2_setup
+    with schedule():
+        launches["mesh-replicas"] = check_replicas_on_mesh(rep_a, flags,
+                                                           params, opts)
+    del rep_a
+    flush()
+    mesh = meshing.make_mesh(devices=["cuda:0"] * MESH_SHARDS)
+    _say(f"[mesh] {mesh.size} shards: {[str(d) for d in mesh.devices]}")
+    with schedule(), tempfile.TemporaryDirectory() as workdir:
+        pqr = os.path.join(workdir, "flagship_co2.pqr")
+        flagship.write_pqr_co2(pqr)
+        launches["mesh-energy"], k1_sliced = check_sharded_energy(
+            pqr, flags, params, mesh)
+        flush()
+        launches["mesh-chain"], sim, mesh_chain = run_mesh_chain(
+            workdir, mesh, cli_stats, card)
+        k2_rows = check_k2_row_slices(sim.carry.pcache, device)
+        del sim
+        flush()
+        launches["mesh-pi"], mesh_pi = run_mesh_pi(workdir, mesh,
+                                                   MESH_PI_MOVES)
+    flush()
+    mesh_s = time.time() - t_mesh
+    _say(f"step 25 took {mesh_s:.1f} s (budget 90 s; PI on the mesh: one "
+         f"corrtime of {MESH_PI_MOVES} moves each way)")
 
     _say(f"second-chunk moves/s on {card}: " + ", ".join(
         f"{m} {r:.2f}" for m, r in rates.items()) +
@@ -4055,6 +4591,13 @@ def main() -> int:
         + "/".join(f"{t:.3f}" for t in rep["restart_s"]) + " s per "
         f"corrtime; write_state_pqr at {CLI_SLOTS} slots (returned/on disk) "
         + ", ".join(f"{h} {a:.3f}/{b:.3f} s" for h, (a, b) in codec.items())
+        + f"; mesh of {MESH_SHARDS} shards: CLI flagship "
+        f"{mesh_chain['rate']:.2f} moves/s (one device {cli_stats['rate']:.2f}"
+        f"), {mesh_chain['differ']} of {MESH_CORRTIME} decisions apart from "
+        f"one device under MPMCXX_SYM_KERNEL=0, peak "
+        f"{mesh_chain['peak_gb']:.2f} GB above the start; PI H2 "
+        f"{mesh_pi['rate']:.2f} moves/s (one device "
+        f"{mesh_pi['rate_one']:.2f}); step 25 {mesh_s:.1f} s"
         + f"; whole check "
         f"{time.time() - t_start:.1f} s after the card query")
     k5_all = dict(k5_cli, max_abs_err=max(k5["max_abs_err"],
@@ -4063,9 +4606,16 @@ def main() -> int:
                                           k2_cli["max_abs_err"]))
     kernels_line = {"kernels": [
         _entry("contract_planes", "mpmcxx_tpu_torch/csrc/contract_planes.cu",
-               "mpmcxx_tpu/ops/pallas_polar.py:39", k1, launches,
-               main_ms=k1["main_ms"],
-               bound_full_planes_ms=k1["bound_full_planes_ms"]),
+               "mpmcxx_tpu/ops/pallas_polar.py:39",
+               dict(k1, max_abs_err=max(k1["max_abs_err"],
+                                        k1_sliced["max_abs_err"])),
+               launches, main_ms=k1["main_ms"],
+               bound_full_planes_ms=k1["bound_full_planes_ms"],
+               sliced_rows=k1_sliced["slices"],
+               sliced_ms=k1_sliced["ms"],
+               sliced_device_ms=k1_sliced["device_ms"],
+               sliced_plain_ms=k1_sliced["plain_ms"],
+               sliced_bound_ms=k1_sliced["bound"][0]),
         _entry("contract_planes_sym",
                "mpmcxx_tpu_torch/csrc/contract_planes_sym.cu",
                "mpmcxx_tpu/ops/pallas_polar.py:209", k5_all, launches,
@@ -4073,7 +4623,10 @@ def main() -> int:
         _entry("write_plane_strips",
                "mpmcxx_tpu_torch/csrc/write_plane_strips.cu",
                "mpmcxx_tpu/ops/pallas_polar.py:134", k2_all, launches,
-               call_ms=k2_all["call_ms"]),
+               call_ms=k2_all["call_ms"], row_slice_ms=k2_rows["ms"],
+               row_slice_call_ms=k2_rows["call_ms"],
+               row_slice_plain_ms=k2_rows["plain_ms"],
+               row_slice_bound_ms=k2_rows["bound"][0]),
         _entry("occupancy", "mpmcxx_tpu_torch/csrc/occupancy.cu",
                "mpmcxx_tpu/ops/pallas_cavity.py:54", k3, launches,
                darts_ms=k3["darts_ms"]),

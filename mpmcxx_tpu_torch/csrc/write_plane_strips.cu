@@ -10,6 +10,13 @@
 // column writes touch disjoint addresses, so the result is exact and does
 // not depend on scheduling: it is bitwise the plain version's.
 //
+// Row-slice mode: a plane may be the slice of R rows of a row-sharded
+// plane, holding global rows row0 .. row0 + R - 1 as an [R, A] tensor
+// (R == A, row0 == 0 is the whole plane).  The row writers then write only
+// the window rows that fall inside the slice, and the column writers take
+// cols[s, row0 + i] for the slice's row i.  A window may straddle two
+// slices; each slice's launch writes its share.
+//
 // Replaces the TPU kernel mpmcxx_tpu/ops/pallas_polar.py:134
 // write_columns_pallas and the row dynamic_update_slice of
 // write_symmetric_rows.
@@ -23,10 +30,10 @@
 //   host for it.
 // - Grid (segments, planes): blockIdx.y is the plane; the first S x
 //   row_segs blocks of a plane write its row strip (row s, one segment of
-//   columns each), the rest its column strip (one thread per row, its S
-//   floats).  Index math is 32-bit within a row, with one division per
-//   block and none per element.  A thread issues its loads before it
-//   reads the start, so the two wait on memory together.
+//   columns each), the rest its column strip (one thread per row of the
+//   slice, its S floats).  Index math is 32-bit within a row, with one
+//   division per block and none per element.  A thread issues its loads
+//   before it reads the start, so the two wait on memory together.
 // - Row strips move 16 bytes a thread where the rows allow it (A % 4 == 0
 //   and 16-byte aligned bases), element by element only in the float4
 //   that holds the window's edge.
@@ -59,7 +66,8 @@ write_plane_strips_kernel(const __grid_constant__ PlanePtrs planes,
                           const float* __restrict__ blend,
                           const float* __restrict__ cols,
                           const void* __restrict__ start_ptr,
-                          int start_is_64, int S, int A, int row_segs) {
+                          int start_is_64, int S, int A, int row0, int R,
+                          int row_segs) {
   const int p = blockIdx.y;
   const int row_blocks = S * row_segs;
   const int b = blockIdx.x;
@@ -72,8 +80,9 @@ write_plane_strips_kernel(const __grid_constant__ PlanePtrs planes,
       if (g >= A / 4) return;
       const float4 v = reinterpret_cast<const float4*>(src)[g];
       const int start = window_start(start_ptr, start_is_64, S, A);
-      if (start < 0) return;
-      float* dst = planes.p[p] + static_cast<size_t>(start + s) * A;
+      const int row = start + s - row0;              // row of the slice
+      if (start < 0 || row < 0 || row >= R) return;
+      float* dst = planes.p[p] + static_cast<size_t>(row) * A;
       const int j = 4 * g, end = start + S;
       if (j + 4 <= start || j >= end) {
         reinterpret_cast<float4*>(dst)[g] = v;
@@ -88,14 +97,17 @@ write_plane_strips_kernel(const __grid_constant__ PlanePtrs planes,
       if (j >= A) return;
       const float v = src[j];
       const int start = window_start(start_ptr, start_is_64, S, A);
-      if (start < 0 || (j >= start && j < start + S)) return;
-      planes.p[p][static_cast<size_t>(start + s) * A + j] = v;
+      const int row = start + s - row0;
+      if (start < 0 || row < 0 || row >= R || (j >= start && j < start + S))
+        return;
+      planes.p[p][static_cast<size_t>(row) * A + j] = v;
     }
   } else {
-    // row i of the column strip: its S floats, kChunk loads at a time
+    // row i of the slice's column strip: its S floats, kChunk loads at a
+    // time, from global row row0 + i of cols
     const int i = (b - row_blocks) * kThreads + threadIdx.x;
-    if (i >= A) return;
-    const float* src = cols + static_cast<size_t>(p * S) * A + i;
+    if (i >= R) return;
+    const float* src = cols + static_cast<size_t>(p * S) * A + row0 + i;
     float v[kChunk];
 #pragma unroll
     for (int k = 0; k < kChunk; ++k)
@@ -118,16 +130,18 @@ write_plane_strips_kernel(const __grid_constant__ PlanePtrs planes,
 
 }  // namespace
 
-// planes: host array of n_planes device pointers to [A, A] f32 planes;
-// blend, cols: device [n_planes, S, A] f32; start: device 0-d int64
-// (start_is_64) or int32.  Launches on `stream` and returns
+// planes: host array of n_planes device pointers to [R, A] f32 planes
+// holding global rows row0 .. row0 + R - 1 of [A, A] planes; blend, cols:
+// device [n_planes, S, A] f32; start: device 0-d int64 (start_is_64) or
+// int32, the window's global row.  Launches on `stream` and returns
 // cudaGetLastError() (0 = launched).
 extern "C" int mpmcxx_write_plane_strips(void* const* planes, int n_planes,
                                          const float* blend,
                                          const float* cols, const void* start,
                                          int start_is_64, int S, int A,
-                                         void* stream) {
-  if (n_planes < 1 || n_planes > kMaxPlanes || S < 1 || S > A)
+                                         int row0, int R, void* stream) {
+  if (n_planes < 1 || n_planes > kMaxPlanes || S < 1 || S > A || R < 1 ||
+      row0 < 0 || row0 > A - R)
     return static_cast<int>(cudaErrorInvalidValue);
   PlanePtrs ptrs = {};
   bool vec = A % 4 == 0 && reinterpret_cast<uintptr_t>(blend) % 16 == 0;
@@ -137,13 +151,13 @@ extern "C" int mpmcxx_write_plane_strips(void* const* planes, int n_planes,
   }
   const int row_segs = vec ? (A / 4 + kThreads - 1) / kThreads
                            : (A + kThreads - 1) / kThreads;
-  const dim3 grid(S * row_segs + (A + kThreads - 1) / kThreads, n_planes);
+  const dim3 grid(S * row_segs + (R + kThreads - 1) / kThreads, n_planes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec)
     write_plane_strips_kernel<true><<<grid, kThreads, 0, s>>>(
-        ptrs, blend, cols, start, start_is_64, S, A, row_segs);
+        ptrs, blend, cols, start, start_is_64, S, A, row0, R, row_segs);
   else
     write_plane_strips_kernel<false><<<grid, kThreads, 0, s>>>(
-        ptrs, blend, cols, start, start_is_64, S, A, row_segs);
+        ptrs, blend, cols, start, start_is_64, S, A, row0, R, row_segs);
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,7 +24,11 @@ Implements, as the twin does:
   161-165), which no run accepts: as in the twin the rotational
   partition functions stay 0 and their ratio is NaN
 * simulated annealing on accept.
-The bead-per-device mesh raises NotImplementedError.
+On a mesh (``PISimulation(mesh=...)``, parallel/meshing.py) the carry's
+stack is split into P/n-bead blocks, one per device: each bead's Delta-E,
+recompute and structure factors run on its device and the per-bead
+energies gather on the leader, where the moves (batched over the bead
+axis) act on the whole stack.
 
 The chunk is a host loop that never waits on the device: every draw of
 a step, Coker's per-bead normals and the bisection sampler's included,
@@ -54,6 +58,7 @@ from ..io import pqr as pqr_io
 from ..io.trajectory import PIFrameWriter
 from ..ops import delta as delta_mod
 from ..ops.energy import energy_breakdown
+from ..parallel import meshing
 from ..pbc import PBC
 from ..runner import _live
 from ..state import SystemState, build_state, topology
@@ -345,47 +350,74 @@ def pi_perturb_beads(stack: SystemState, mol, coker_normals, n_chain: int,
 # per-bead energies
 # ---------------------------------------------------------------------------
 
+def whole(stack):
+    """A stack on one device: a bead-sharded stack's beads gathered on the
+    leader."""
+    return stack.whole() if isinstance(stack, meshing.BeadShards) \
+        else stack
+
+
+def bead_views(stack) -> list:
+    """Bead views of a stack, each on its bead's device."""
+    if isinstance(stack, meshing.BeadShards):
+        return [bead(part, s) for part in stack.parts
+                for s in range(part.pos.shape[0])]
+    return [bead(stack, s) for s in range(stack.pos.shape[0])]
+
+
 def pi_potential_per_bead(stack: SystemState, flags: FFlags,
                           params: RunParams, beads=None):
-    """[P, 4] per-bead (rd, coul, polar, vdw) and [P] failure flags; one
-    full recompute per bead (``beads``: the stack's bead views, when the
-    caller has them)."""
+    """[P, 4] per-bead (rd, coul, polar, vdw) and [P] failure flags on the
+    stack's device; one full recompute per bead, on the bead's device
+    (``beads``: the bead views, when the caller has them)."""
+    dev = stack.pos.device
     comps, failed = [], []
-    for b in beads or [bead(stack, s) for s in range(stack.pos.shape[0])]:
-        eb = energy_breakdown(b, flags, params)
+    for b in beads or bead_views(stack):
+        with meshing.device_guard(b.pos.device):
+            eb = energy_breakdown(b, flags, params)
         comps.append(torch.stack([eb.rd, eb.coulombic, eb.polarization,
-                                  eb.vdw]))
-        failed.append(eb.iterator_failed)
+                                  eb.vdw]).to(dev))
+        failed.append(eb.iterator_failed.to(dev))
     return torch.stack(comps), torch.stack(failed)
 
 
-def pi_sf_compute(stack: SystemState, flags: FFlags, params: RunParams):
-    """[P, K] per-bead Ewald structure factors."""
-    sfs = [delta_mod.sf_compute(bead(stack, s), flags, params)
-           for s in range(stack.pos.shape[0])]
-    return delta_mod.SFCache(torch.stack([s.re for s in sfs]),
-                             torch.stack([s.im for s in sfs]))
+def pi_sf_compute(stack: SystemState, flags: FFlags, params: RunParams,
+                  beads=None):
+    """[P, K] per-bead Ewald structure factors on the stack's device, each
+    computed on its bead's device."""
+    dev = stack.pos.device
+    sfs = []
+    for b in beads or bead_views(stack):
+        with meshing.device_guard(b.pos.device):
+            sfs.append(delta_mod.sf_compute(b, flags, params))
+    return delta_mod.SFCache(torch.stack([s.re.to(dev) for s in sfs]),
+                             torch.stack([s.im.to(dev) for s in sfs]))
 
 
 def pi_delta_potential(old_stack: SystemState, new_stack: SystemState,
                        rows, sf, comps_old, flags: FFlags,
                        params: RunParams, beads=None):
     """Incremental per-bead Delta-E: the move touched only ``rows`` atoms
-    of each bead.  Returns (comps_new [P, 4], sf_new, total).  ``beads``:
-    (old, new) bead views, when the caller has them."""
+    of each bead.  Returns (comps_new [P, 4], sf_new, total) on the
+    device of ``comps_old``.  ``beads``: (old, new) bead views, when the
+    caller has them; each bead's Delta-E runs on its view's device."""
     P = old_stack.pos.shape[0]
+    lead = comps_old.device
     old_b, new_b = beads or ([bead(old_stack, s) for s in range(P)],
                              [bead(new_stack, s) for s in range(P)])
     d_rd, d_coul, re, im = [], [], [], []
     for s in range(P):
-        d = delta_mod.delta_energy(old_b[s], new_b[s], rows,
-                                   delta_mod.SFCache(sf.re[s], sf.im[s]),
-                                   flags, params)
-        d_rd.append(d.d_rd)
-        d_coul.append(d.d_coul)
-        re.append(d.sf_new.re)
-        im.append(d.sf_new.im)
-    zeros = torch.zeros(P, dtype=comps_old.dtype, device=comps_old.device)
+        dev = old_b[s].pos.device
+        with meshing.device_guard(dev):
+            d = delta_mod.delta_energy(
+                old_b[s], new_b[s], rows.to(dev),
+                delta_mod.SFCache(sf.re[s].to(dev), sf.im[s].to(dev)),
+                flags, params)
+        d_rd.append(d.d_rd.to(lead))
+        d_coul.append(d.d_coul.to(lead))
+        re.append(d.sf_new.re.to(lead))
+        im.append(d.sf_new.im.to(lead))
+    zeros = torch.zeros(P, dtype=comps_old.dtype, device=lead)
     comps_new = comps_old + torch.stack(
         [torch.stack(d_rd), torch.stack(d_coul), zeros, zeros], dim=1)
     total = torch.sum(torch.mean(comps_new, dim=0))
@@ -399,7 +431,7 @@ def pi_delta_potential(old_stack: SystemState, new_stack: SystemState,
 
 @dataclasses.dataclass
 class PICarry:
-    stack: SystemState
+    stack: SystemState                # or meshing.BeadShards on a mesh
     potential_current: torch.Tensor   # last-accepted bead-avg potential
     obs_components: torch.Tensor      # [4]: rd, coul, polar, vdw (bead-avg)
     comps_per_bead: torch.Tensor      # [P, 4]
@@ -494,20 +526,25 @@ def make_pi_step(flags: FFlags, base_params: RunParams, opts: PIOptions,
                                 for t in topology_pair)
         return tables[dev]
 
-    def beads_of(stack):
-        """Bead views of ``stack``: the static fields' views are made once
-        (a PI move changes only the positions)."""
-        P = stack.pos.shape[0]
-        if views.get("mass") is not stack.mass:
-            views["mass"] = stack.mass
-            views["beads"] = [bead(stack, s) for s in range(P)]
-        return [b.replace(pos=stack.pos[s])
+    def beads_of(stack, pos=None):
+        """Bead views of ``stack`` (whole or bead-sharded), each on its
+        bead's device, with the positions of ``pos`` ([P, A, 3] on the
+        leader) or the stack's own: the static fields' views are made
+        once per stack layout (a PI move changes only the positions)."""
+        parts = stack.parts if isinstance(stack, meshing.BeadShards) \
+            else (stack,)
+        if views.get("mass") is not parts[0].mass:
+            views["mass"] = parts[0].mass
+            views["beads"] = bead_views(stack)
+        if pos is None:
+            pos = [p for part in parts for p in part.pos]
+        return [b.replace(pos=pos[s].to(b.pos.device))
                 for s, b in enumerate(views["beads"])]
 
     def step(carry: PICarry, d, movetype: int):
         perturb = movetype == const.MOVETYPE_PERTURB_BEADS
         spin = movetype == const.MOVETYPE_SPINFLIP
-        stack = carry.stack
+        stack = whole(carry.stack)
         P = stack.pos.shape[0]
         T = carry.temperature
         params = params_at(T)
@@ -548,11 +585,13 @@ def make_pi_step(flags: FFlags, base_params: RunParams, opts: PIOptions,
             rows = moves.molecule_rows(*on(dev), target, max_mol_atoms)
             comps_pb, sf_new, pot_trial = pi_delta_potential(
                 stack, new_stack, rows, carry.sf, carry.comps_per_bead,
-                flags, params, beads=(beads_of(stack), beads_of(new_stack)))
+                flags, params, beads=(beads_of(carry.stack),
+                                      beads_of(carry.stack, new_stack.pos)))
             failed = torch.zeros((), dtype=torch.bool, device=dev)
         else:
             comps_pb, failed_pb = pi_potential_per_bead(
-                new_stack, flags, params, beads=beads_of(new_stack))
+                new_stack, flags, params,
+                beads=beads_of(carry.stack, new_stack.pos))
             pot_trial = torch.sum(torch.mean(comps_pb, dim=0))
             failed = torch.any(failed_pb)
             sf_new = carry.sf
@@ -591,8 +630,11 @@ def make_pi_step(flags: FFlags, base_params: RunParams, opts: PIOptions,
         if opts.quantum_rotation:
             moved["nuclear_spin"] = sel(new_stack.nuclear_spin,
                                         stack.nuclear_spin)
+        stack_out = carry.stack.with_fields(**moved) \
+            if isinstance(carry.stack, meshing.BeadShards) \
+            else stack.replace(**moved)
         return dataclasses.replace(
-            carry, stack=stack.replace(**moved),
+            carry, stack=stack_out,
             potential_current=sel(pot_trial, carry.potential_current),
             obs_components=sel(comps, carry.obs_components),
             comps_per_bead=sel(comps_pb, carry.comps_per_bead),
@@ -625,8 +667,9 @@ def make_pi_chunk_runner(step, chunk_steps: int, opts: PIOptions,
     a host loop over ``chunk_steps`` steps of ``step`` (make_pi_step)."""
 
     def run_chunk(carry: PICarry):
-        dev = carry.stack.pos.device
-        P = carry.stack.pos.shape[0]
+        lead = whole(carry.stack)
+        dev = lead.pos.device
+        P = lead.pos.shape[0]
         key, draws = pi_draws(carry.key, chunk_steps, n_chain, P,
                               any_orientation)
         picks = move_picks(opts, draws)
@@ -649,21 +692,26 @@ def make_pi_chunk_runner(step, chunk_steps: int, opts: PIOptions,
 
 
 def init_pi_carry(stack: SystemState, flags: FFlags, params: RunParams,
-                  temperature: float, key, incremental: bool) -> PICarry:
+                  temperature: float, key, incremental: bool,
+                  mesh=None) -> PICarry:
     """The chain's start (pi.py:753-775): per-bead energies, and their
-    structure factors on the incremental path."""
+    structure factors on the incremental path.  On a ``mesh`` the carry's
+    stack is bead-sharded (meshing.shard_pi_carry) and each bead's
+    energies are computed on its device."""
     P = stack.pos.shape[0]
     dev = stack.pos.device
-    comps_pb, _ = pi_potential_per_bead(stack, flags, params)
+    held = stack if mesh is None else meshing.BeadShards.split(stack, mesh)
+    beads = bead_views(held)
+    comps_pb, _ = pi_potential_per_bead(stack, flags, params, beads)
     comps = torch.mean(comps_pb, dim=0)
     if incremental:
-        sf = pi_sf_compute(stack, flags, params)
+        sf = pi_sf_compute(stack, flags, params, beads)
     else:
         z = torch.zeros((P, 0), dtype=torch.float64, device=dev)
         sf = delta_mod.SFCache(z, z)
     zeros7 = torch.zeros(7, dtype=torch.int64, device=dev)
     return PICarry(
-        stack=stack, potential_current=torch.sum(comps),
+        stack=held, potential_current=torch.sum(comps),
         obs_components=comps, comps_per_bead=comps_pb, sf=sf,
         temperature=torch.full((), temperature, dtype=torch.float64,
                                device=dev),
@@ -679,14 +727,16 @@ def init_pi_carry(stack: SystemState, flags: FFlags, params: RunParams,
 
 class PISimulation:
     """PI-NVT run (PI_nvt_mc, src/SimulationControl.PathIntegral.cpp:
-    31-196) on ``device``."""
+    31-196) on ``device``.
+
+    ``mesh`` (parallel/meshing.Mesh, whose leader must be of ``device``'s
+    type): the bead axis placed on its devices, P/n beads each, the
+    counterpart of the reference's bead-per-rank MPI_Allgather
+    (:752-805; the twin's pi.py:585-597).  Requires P % n == 0
+    (ValueError otherwise); the trajectory is the one-device run's."""
 
     def __init__(self, cfg: SimConfig, P: int = None, quiet: bool = False,
                  mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("PISimulation(mesh=...): the "
-                                      "bead-per-device mesh is ROADMAP "
-                                      "queue A item 3")
         if P is None:
             P = cfg.total_trotter_number or 8
         self.P = P
@@ -694,6 +744,13 @@ class PISimulation:
         self.quiet = quiet
         self.out = sys.stdout
         self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            meshing.check_beads(P, mesh)
+            if mesh.leader.type != self.device.type:
+                raise ValueError(f"PISimulation: a mesh led by {mesh.leader} "
+                                 f"for a run on {self.device}")
+            self.device = mesh.leader
         self.xyz_path = ""
 
         basis = np.zeros((3, 3))
@@ -800,8 +857,9 @@ class PISimulation:
 
     def _observables(self, carry) -> dict:
         comps = carry.obs_components.tolist()
-        kinetic = float(pi_kinetic(carry.stack, carry.temperature))
-        b0 = bead(carry.stack, 0)
+        stack = whole(carry.stack)
+        kinetic = float(pi_kinetic(stack, carry.temperature))
+        b0 = bead(stack, 0)
         N = float(b0.count_N())
         mm = b0.mol_mass.cpu().numpy()
         alive = b0.mol_alive.cpu().numpy()
@@ -821,18 +879,20 @@ class PISimulation:
     def _init_carry(self) -> PICarry:
         return init_pi_carry(self.stack, self.flags, self.params,
                              self.cfg.temperature, self.key,
-                             self.incremental)
+                             self.incremental, self.mesh)
 
     def _recompute(self, carry: PICarry) -> PICarry:
         """Full per-bead recompute each corrtime on the incremental path:
-        Delta-E drift control (pi.py:819-829)."""
-        comps_pb, _ = pi_potential_per_bead(carry.stack, self.flags,
-                                            self.params)
+        Delta-E drift control (pi.py:819-829), each bead on its device."""
+        stack = whole(carry.stack)
+        beads = bead_views(carry.stack)
+        comps_pb, _ = pi_potential_per_bead(stack, self.flags, self.params,
+                                            beads)
         comps = torch.mean(comps_pb, dim=0)
         return dataclasses.replace(
             carry, comps_per_bead=comps_pb, obs_components=comps,
             potential_current=torch.sum(comps),
-            sf=pi_sf_compute(carry.stack, self.flags, self.params))
+            sf=pi_sf_compute(stack, self.flags, self.params, beads))
 
     def run(self) -> AvgObservables:
         cfg = self.cfg
@@ -879,7 +939,7 @@ class PISimulation:
                                          float(carry.bf))
             self.avg.update_nodestats(ns)
             corrtime_io(step)
-            frames.write(carry.stack, self.meta)
+            frames.write(whole(carry.stack), self.meta)
             self._write_beads(carry, self.cfg.pqr_restart)
             if not self.quiet:
                 perf.report(step, self.out)
@@ -897,9 +957,10 @@ class PISimulation:
         """One PQR per bead (restart or final), make_filename's -000s."""
         if basename == "/dev/null":
             return
+        stack = whole(carry.stack)
         for s in range(self.P):
             pqr_io.write_state_pqr(pqr_io.make_filename(basename, s),
-                                   bead(carry.stack, s), self.meta,
+                                   bead(stack, s), self.meta,
                                    wrapall=self.cfg.wrapall,
                                    long_output=self.cfg.long_output)
 

@@ -19,7 +19,8 @@ JAX twin: mpmcxx_tpu/ops/pallas_polar.py.
 - K2 ``write_plane_strips`` (csrc/write_plane_strips.cu) replaces
   ``write_columns_pallas`` and the row update of
   ``polar_cache.write_symmetric_rows``: the commit's row and column strips
-  on every plane in one launch.  Bound by launch latency.
+  on every plane in one launch, on whole planes or on one shard's row
+  slices of row-sharded planes.  Bound by launch latency.
 
 Each wrapper runs its plain version only for CPU tensors.  For CUDA
 tensors it launches the kernel or raises: on a wrong dtype, shape or
@@ -262,41 +263,57 @@ contract_planes_sym.launches = 0
 # K2: commit row + column strips
 # --------------------------------------------------------------------------
 
-def write_plane_strips_plain(planes, blend, cols, start):
+def write_plane_strips_plain(planes, blend, cols, start, row0: int = 0):
     """The row update then the column-by-column loop of
     polar_cache.write_symmetric_rows (polar_cache.py:199-201, 221-224),
-    in place on each plane."""
+    in place on each plane.  A plane may be the [R, A] slice of global
+    rows row0 .. row0+R-1 of a row-sharded plane: the window rows inside
+    the slice take their row strip, and every row of the slice its
+    columns from ``cols[:, :, row0:row0+R]``."""
     S = blend.shape[1]
+    R = planes[0].shape[0]
     idx = start + torch.arange(S, dtype=torch.int64, device=start.device)
+    local = idx - row0
+    inside = (local >= 0) & (local < R)
     for p, plane in enumerate(planes):
-        plane.index_copy_(0, idx, blend[p])
+        plane.index_copy_(0, local[inside], blend[p][inside])
         for s in range(S):
-            plane.index_copy_(1, idx[s:s + 1], cols[p, s][:, None])
+            plane.index_copy_(1, idx[s:s + 1],
+                              cols[p, s, row0:row0 + R][:, None])
 
 
-def write_plane_strips(planes, blend, cols, start):
+def write_plane_strips(planes, blend, cols, start, row0: int = 0):
     """In place on each [A,A] f32 plane: rows start..start+S-1 from
     ``blend[p]`` and columns start..start+S-1 from ``cols[p]`` (both
     [P,S,A]), the columns winning inside the S x S window.  ``start`` is a
-    0-d int64 or int32 tensor on the planes' device, read by the kernel."""
+    0-d int64 or int32 tensor on the planes' device, read by the kernel.
+    Row-slice mode: each plane is the [R, A] slice of global rows
+    row0 .. row0+R-1, which takes the window rows it holds and its rows'
+    column values."""
     if _on_cpu(planes[0]):
-        return write_plane_strips_plain(planes, blend, cols, start)
-    A = planes[0].shape[0]
+        return write_plane_strips_plain(planes, blend, cols, start, row0)
+    R, A = planes[0].shape if planes[0].dim() == 2 else (0, 0)
     P, S = blend.shape[0], blend.shape[1]
     if P != len(planes) or not 1 <= S <= A:
         raise ValueError(f"write_plane_strips: {P}x{S} strips for "
-                         f"{len(planes)} planes of {A} rows")
+                         f"{len(planes)} planes of {A} columns")
+    if not (R >= 1 and 0 <= row0 <= A - R):
+        raise ValueError(f"write_plane_strips: rows {row0}..{row0 + R - 1} "
+                         f"are not a slice of {A} rows")
     for p in planes:
-        _check_cuda_f32("write_plane_strips plane", p, (A, A))
+        _check_cuda_f32("write_plane_strips plane", p, (R, A))
     _check_cuda_f32("write_plane_strips blend", blend, (P, S, A))
     _check_cuda_f32("write_plane_strips cols", cols, (P, S, A))
+    if blend.device != planes[0].device or cols.device != planes[0].device:
+        raise ValueError("write_plane_strips: strips and planes on "
+                         f"{blend.device}, {cols.device}, {planes[0].device}")
     if start.dim() != 0 or start.device != planes[0].device or \
             start.dtype not in (torch.int64, torch.int32):
         raise ValueError("write_plane_strips: start must be a 0-d int64 or "
                          "int32 tensor on the planes' device")
     rc = kernels.load().mpmcxx_write_plane_strips(
         _void_ptrs(planes), P, blend.data_ptr(), cols.data_ptr(),
-        start.data_ptr(), start.dtype == torch.int64, S, A,
+        start.data_ptr(), start.dtype == torch.int64, S, A, row0, R,
         torch.cuda.current_stream(blend.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(

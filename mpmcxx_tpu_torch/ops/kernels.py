@@ -112,7 +112,7 @@ def load() -> ctypes.CDLL:
             lib.mpmcxx_contract_planes_sym_slots.argtypes = [ci, ci]
             lib.mpmcxx_contract_planes_sym_slots.restype = ci
             lib.mpmcxx_write_plane_strips.argtypes = [
-                ctypes.POINTER(vp), ci, vp, vp, vp, ci, ci, ci, vp]
+                ctypes.POINTER(vp), ci, vp, vp, vp, ci, ci, ci, ci, ci, vp]
             lib.mpmcxx_write_plane_strips.restype = ci
             lib.mpmcxx_occupancy.argtypes = [
                 vp, vp, vp, ctypes.c_double, ci, ci, vp, vp]

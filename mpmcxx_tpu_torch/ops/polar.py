@@ -43,6 +43,7 @@ import torch
 
 from .. import constants as const
 from ..flags import FFlags, RunParams
+from ..parallel import meshing
 from ..state import SystemState
 from . import cuda_polar
 from .ewald import kvectors
@@ -813,15 +814,35 @@ def contract_mixed(coeffs, mu, l=None):
     contract_pallas_sym (use_sym) kernel K5 (contract_planes_sym),
     otherwise (contract_pallas, the XLA branch: other square sizes and
     [R, A] row slices, returning [R, 3]) kernel K1 (contract_planes);
-    each takes a plain PyTorch version on CPU tensors."""
+    each takes a plain PyTorch version on CPU tensors.  Row-sharded
+    planes (meshing.RowShards) contract shard by shard
+    (``contract_rows``)."""
     if len(coeffs) == 3 and l is None:
         raise ValueError("3-plane mixed coefficients need l=polar_damp")
     l = 0.0 if l is None else l
+    if isinstance(coeffs[0], meshing.RowShards):
+        return contract_rows(coeffs, mu, l)
     if use_tri(coeffs[0].shape):
         return cuda_polar.contract_planes_tri(coeffs, mu, l)
     if use_sym(coeffs[0].shape):
         return cuda_polar.contract_planes_sym(coeffs, mu, l)
     return cuda_polar.contract_planes(coeffs, mu, l)
+
+
+def contract_rows(coeffs, mu, l: float):
+    """``-T mu`` [A,3] over row-sharded planes (a tuple of
+    meshing.RowShards): one contract_mixed per shard on its [R_d, A]
+    slices, under that shard's device and with mu on it, the [R_d, 3]
+    results stacked in shard order on the leader.  Row slices are not
+    square, so they take K1 (the JAX package's rule, polar.py:867-870:
+    row slices never reach the triangle kernels)."""
+    mesh = coeffs[0].mesh
+    outs = []
+    for d, dev in enumerate(mesh.devices):
+        with meshing.device_guard(dev):
+            outs.append(contract_mixed(tuple(p.parts[d] for p in coeffs),
+                                       mu.to(dev), l))
+    return meshing.gather_rows(outs, mesh)
 
 
 def polar_blocked(state: SystemState, flags: FFlags, params: RunParams,

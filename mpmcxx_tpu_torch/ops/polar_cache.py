@@ -25,10 +25,18 @@ A proposal (``polar_proposal``) reads the cache only; the commit
 (``cache_commit``) writes the planes and phases IN PLACE, where the JAX
 twin returned new arrays: one launch of kernel K2 commits all 3, 4 or 5
 planes.
+
+On a mesh (``cache_init(..., mesh=)``, parallel/meshing.py) the planes
+are meshing.RowShards: each shard builds, contracts and commits its own
+[A/n, A] rows on its device (n K1 launches per contraction, n K2
+launches per commit); the window rows a proposal reads come from the one
+or two shards that hold them.  The [A, 3] and [A, K] leaves stay on the
+leader.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import NamedTuple
 
@@ -36,13 +44,16 @@ import torch
 
 from .. import constants as const
 from ..flags import FFlags, RunParams, dense_only
+from ..parallel import meshing
+from ..parallel.meshing import RowShards
 from ..state import SystemState
 from . import cuda_polar
 from . import polar as polar_mod
 from .ewald import kvectors
 from .pairwise import (_arange, assemble_tiles, build_pairs_rect,
                        contract_small_rows, normalize_window, phase_dot,
-                       rows_field, slice_rows, sum_small_rows, update_rows)
+                       rows_field, slice_rows, sum_small_rows, tile_starts,
+                       update_rows)
 
 
 @dataclasses.dataclass
@@ -86,12 +97,22 @@ PLANE_COPIES_AT_PEAK = 3
 DEVICE_MEMORY_SHARE = 0.6
 
 
-def max_slots(device=None, n_planes: int = 3, n_caches: int = 1) -> int:
+def max_slots(device=None, n_planes: int = 3, n_caches: int = 1,
+              mesh=None) -> int:
     """Largest atom-slot count at which ``n_caches`` resident caches of
     ``n_planes`` f32 [A,A] planes each (plane_mode: 3, 4 or 5), one of
     them refreshing, fit ``device``: (n_caches + PLANE_COPIES_AT_PEAK - 1)
-    n_planes 4 A^2 bytes within DEVICE_MEMORY_SHARE of its memory.  The
-    CPU's cap is the twin's for every ``n_caches``."""
+    n_planes 4 A^2 bytes within DEVICE_MEMORY_SHARE of its memory.  On a
+    ``mesh`` the planes are row-sharded and each card holds the rows of
+    its shards: the budget is that of the card holding the most (4 shards
+    on one card: the one-card cap).  The CPU's cap is the twin's for
+    every ``n_caches``."""
+    if mesh is not None:
+        dev, k = collections.Counter(mesh.devices).most_common(1)[0]
+        if dev.type != "cuda":
+            return CPU_MAX_SLOTS
+        return int(max_slots(dev, n_planes, n_caches) *
+                   (mesh.size / k) ** 0.5)
     dev = torch.device(device) if device is not None else None
     if dev is None or dev.type != "cuda":
         return CPU_MAX_SLOTS
@@ -102,19 +123,22 @@ def max_slots(device=None, n_planes: int = 3, n_caches: int = 1) -> int:
 
 
 def supports(flags: FFlags, n_atom_slots: int = 0, device=None,
-             n_caches: int = 1) -> bool:
+             n_caches: int = 1, mesh=None) -> bool:
     """True when polarization can ride the incremental cache with
-    ``n_atom_slots`` slots on ``device`` beside ``n_caches`` - 1 other
-    replicas' caches (the mode's f32 [A,A] planes; see max_slots).
-    flags.dense_only holds polar_ewald_full, whose SCF couples the dipoles
-    through k-space and has no row-local update."""
+    ``n_atom_slots`` slots on ``device`` (or row-sharded over ``mesh``)
+    beside ``n_caches`` - 1 other replicas' caches (the mode's f32 [A,A]
+    planes; see max_slots).  flags.dense_only holds polar_ewald_full,
+    whose SCF couples the dipoles through k-space and has no row-local
+    update."""
     # under use_sg or rd_only the full energy has no polarization
     # (energy.py:62), which the twin's cache would still carry
     ok = (flags.polarization and flags.polar_mixed and
           not (flags.use_sg or flags.rd_only) and
           not dense_only(flags))
-    if n_atom_slots and n_atom_slots > max_slots(
-            device, polar_mod.plane_mode(flags), n_caches):
+    mode = polar_mod.plane_mode(flags)
+    cap = max_slots(device, mode, n_caches) if mesh is None else \
+        max_slots(device, mode, n_caches, mesh=mesh)
+    if n_atom_slots and n_atom_slots > cap:
         return False
     return ok
 
@@ -127,13 +151,19 @@ def _empty_kspace(A: int, device):
     return z, z.clone(), f, f.clone()
 
 
-def cache_init(state: SystemState, flags: FFlags, params: RunParams,
-               block: int = 128) -> PolarCache:
-    """Full O(A^2) build (chain start and every refresh;
-    polar_cache.py:108-156)."""
-    A = state.n_atom_slots
+def plane_rows(state: SystemState, flags: FFlags, params: RunParams,
+               row0: int, R: int, block: int = 128):
+    """Rows row0 .. row0+R-1 of the cache's planes (in fold_outer_rows
+    form, each [R, A] f32) and of the pairwise static field ([R, 3] f64),
+    built in [min(block, R), A] row tiles on the state's device (the tiles
+    of tile_starts(R, block), shifted by row0).  No tile is padded: a
+    padded window that ends past A would be shifted into bounds by the
+    row normalisation (pairwise.window_start)."""
+    dev = state.pos.device
+    block = min(block, R)
     planes, fields = [], []
-    for rows in polar_mod.row_tiles(A, block, state.pos.device):
+    for s0 in tile_starts(R, block):
+        rows = row0 + s0 + torch.arange(block, device=dev)
         pt = build_pairs_rect(state, flags, rows)
         co, cd = polar_mod.mixed_coeff_scalars(state, pt, flags, params)
         f = polar_mod.field_scalars(state, pt, flags, params)
@@ -141,9 +171,41 @@ def cache_init(state: SystemState, flags: FFlags, params: RunParams,
         d32 = pt.dimg.to(torch.float32)
         planes.append(polar_mod.fold_outer_rows(
             co, cd, d32[..., 0], d32[..., 1], d32[..., 2], flags))
-    planes = [assemble_tiles(torch.stack(p), A, block).contiguous()
+    planes = [assemble_tiles(torch.stack(p), R, block).contiguous()
               for p in zip(*planes)]
-    e = assemble_tiles(torch.stack(fields), A, block)
+    return planes, assemble_tiles(torch.stack(fields), R, block)
+
+
+def sharded_rows(state: SystemState, flags: FFlags, params: RunParams,
+                 mesh, ranges, block: int = 128):
+    """``plane_rows`` of each shard's row range ``ranges[d] = (row0, R)``,
+    built on its device from a copy of the state there: the planes as
+    meshing.RowShards and the static field's rows stacked on the
+    leader."""
+    parts, fields = [], []
+    for (r0, R), dev in zip(ranges, mesh.devices):
+        with meshing.device_guard(dev):
+            planes, e = plane_rows(meshing.to_device(state, dev), flags,
+                                   params, r0, R, block)
+        parts.append(planes)
+        fields.append(e)
+    planes = [RowShards(tuple(p), tuple(r0 for r0, _ in ranges), mesh)
+              for p in zip(*parts)]
+    return planes, meshing.gather_rows(fields, mesh)
+
+
+def cache_init(state: SystemState, flags: FFlags, params: RunParams,
+               block: int = 128, mesh=None) -> PolarCache:
+    """Full O(A^2) build (chain start and every refresh;
+    polar_cache.py:108-156).  With ``mesh`` each shard builds its even
+    row range on its device (the planes are meshing.RowShards; the whole
+    planes are never built)."""
+    A = state.n_atom_slots
+    if mesh is None:
+        planes, e = plane_rows(state, flags, params, 0, A, block)
+    else:
+        planes, e = sharded_rows(state, flags, params, mesh,
+                                 meshing.even_rows(A, mesh.size), block)
     z0 = torch.zeros((0, 0), dtype=torch.float32, device=state.pos.device)
     planes = [z0, z0.clone()][:5 - len(planes)] + planes
 
@@ -187,6 +249,14 @@ def static_field(state: SystemState, flags: FFlags, params: RunParams,
     return torch.where(state.atom_alive()[:, None], E, 0.0)
 
 
+def window_rows(plane, start, S: int):
+    """Rows start..start+S-1 of a plane, whole or row-sharded (from the
+    one or two shards that hold them), as [S, A] on the leader."""
+    if isinstance(plane, RowShards):
+        return plane.window_rows(start, S)
+    return slice_rows(plane, start, S)
+
+
 def write_symmetric_rows(planes, rows_planes, start, valid, sign):
     """Commit an S-row update window into symmetric (sign=+1) or
     antisymmetric (sign=-1) [A,A] planes, in place: the row strip directly
@@ -195,9 +265,17 @@ def write_symmetric_rows(planes, rows_planes, start, valid, sign):
     for every plane or one per plane.  Rows whose ``valid`` entry is False
     re-write their current content.  Kernel K2 (or, for CPU tensors, its
     plain version) scatters the strips of ``commit_strips`` on every plane
-    in one launch."""
+    in one launch; on row-sharded planes one launch per shard writes the
+    strips' share of its rows, on its device."""
     blend, cols = commit_strips(planes, rows_planes, start, valid, sign)
-    cuda_polar.write_plane_strips(tuple(planes), blend, cols, start)
+    if not isinstance(planes[0], RowShards):
+        cuda_polar.write_plane_strips(tuple(planes), blend, cols, start)
+        return
+    for d, dev in enumerate(planes[0].mesh.devices):
+        with meshing.device_guard(dev):
+            cuda_polar.write_plane_strips(
+                tuple(p.parts[d] for p in planes), blend.to(dev),
+                cols.to(dev), start.to(dev), row0=planes[0].row0s[d])
 
 
 def commit_strips(planes, rows_planes, start, valid, sign):
@@ -207,7 +285,7 @@ def commit_strips(planes, rows_planes, start, valid, sign):
     S = rows_planes[0].shape[0]
     signs = (sign,) * len(planes) if isinstance(sign, float) else sign
     idx = start + _arange(S, start)
-    cur = torch.stack([p.index_select(0, idx) for p in planes])    # [P,S,A]
+    cur = torch.stack([window_rows(p, start, S) for p in planes])  # [P,S,A]
     vm = valid[None, :, None]
     blend = torch.where(vm, torch.stack(rows_planes), cur)
     # column start+s: sign*blend[s] where the column is valid, else its
@@ -304,7 +382,7 @@ def polar_proposal(cache: PolarCache, old_state: SystemState,
                      polar_mod.fold_outer_rows(co_n, cd_n, d_n[..., 0],
                                                d_n[..., 1], d_n[..., 2],
                                                flags))
-    rows_old = tuple(torch.where(vm, rows_of(p), 0.0)
+    rows_old = tuple(torch.where(vm, window_rows(p, start, S), 0.0)
                      for p in planes_of(cache))
     l = params.polar_damp
     # (co, cd, dx, dy, dz) of both row blocks (co None in mode 4: the

@@ -1,5 +1,5 @@
-"""Replica chains and parallel tempering on one device.
+"""Replica chains, parallel tempering and the mesh of devices.
 
-JAX twin: mpmcxx_tpu/parallel/ (replicas.py, driver.py; the mesh and the
-sharded energy are not ported).
+JAX twin: mpmcxx_tpu/parallel/ (replicas.py, driver.py, meshing.py,
+sharded_energy.py).
 """

@@ -1,9 +1,10 @@
-"""Replica simulation driver on one device.
+"""Replica simulation driver on one device or a mesh of devices.
 
 JAX twin: mpmcxx_tpu/parallel/driver.py.  The runner-level counterpart
 of the reference's MPI operation: R independent chains (optionally at a
 temperature ladder with parallel tempering) run one after the other on
-one device, each with its own carry and polarization cache; every
+one device, or replica i on device i % n of a mesh, each with its own
+carry and polarization cache; every
 corrtime the host aggregates each replica's observables into the root
 averages as rank 0 does in do_corrtime_bookkeeping
 (src/System.MonteCarlo.cpp:1954-2028), writes per-replica energy-log
@@ -13,9 +14,10 @@ and ``run`` drains the writer before it returns.
 Parallel tempering follows the reference's (disabled) design
 (src/System.MonteCarlo.cpp:1767-1897): neighbor-bath swaps every
 ``ptemp_freq`` steps exchanging temperatures, with observables collected
-from the coldest bath.  On a GPU the R caches share the card's memory
-budget (``polar_cache.max_slots(n_caches=R)``); a system too large for
-it runs every replica on the no-cache path, as ``capacity_opts`` chooses.
+from the coldest bath.  On a GPU the caches of the replicas on one card
+share its memory budget (``polar_cache.max_slots(n_caches=...)``); a
+system too large for it runs every replica on the no-cache path, as
+``capacity_opts`` chooses.
 """
 
 from __future__ import annotations
@@ -38,22 +40,32 @@ from ..mc.averages import AvgObservables, nodestats_from_counters
 from ..runner import (Simulation, _movable_np, _np, _obs_to_dict,
                       apply_state_fixups, capacity_opts)
 from ..state import build_state, grow_mol_capacity
+from . import meshing
 from . import replicas as rep
 
 
 class ReplicaSimulation:
-    """R replica chains of a standard-ensemble run on ``device``."""
+    """R replica chains of a standard-ensemble run on ``device``, or on
+    ``mesh`` (replica i on device i % n; its leader must be of
+    ``device``'s type).  Without one, a CUDA run on a host with more than
+    one card takes a mesh of min(R, cards) cards, as the twin does
+    (driver.py:48-50)."""
 
     def __init__(self, cfg: SimConfig, n_replicas: int,
                  quiet: bool = False, device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ReplicaSimulation(mesh=...): replicas across devices are "
-                "ROADMAP queue A item 3")
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("ReplicaSimulation: no CUDA device is "
                                "available; pass device='cpu'")
+        if mesh is None and device.type == "cuda" and \
+                torch.cuda.device_count() > 1:
+            mesh = rep.make_mesh(min(n_replicas, torch.cuda.device_count()))
+        if mesh is not None:
+            if mesh.leader.type != device.type:
+                raise ValueError(f"ReplicaSimulation: a mesh led by "
+                                 f"{mesh.leader} for a run on {device}")
+            device = mesh.leader
+        self.mesh = mesh
         self.base = Simulation(cfg, quiet=True, device=device)
         self.cfg = self.base.cfg
         self.device = self.base.device
@@ -62,10 +74,12 @@ class ReplicaSimulation:
         self.out = sys.stdout
 
         seed = cfg.preset_seed if cfg.preset_seed_on else 0
-        # R resident polar caches share the device's budget
-        self._set_opts(capacity_opts(self.base.opts, self.base.flags,
-                                     self.base.state, n_caches=n_replicas))
-        self.carries = self._init_carries(n_replicas, seed)
+        # the resident polar caches of the replicas on one card share its
+        # budget
+        self._set_opts(capacity_opts(
+            self.base.opts, self.base.flags, self.base.state,
+            n_caches=rep.caches_per_device(mesh, n_replicas)))
+        self.carries = self._place(self._init_carries(n_replicas, seed))
         self.base.carry = None        # its planes live on in the replicas
 
         self.tempering = cfg.parallel_tempering
@@ -119,13 +133,29 @@ class ReplicaSimulation:
 
     def _with_temperature(self, carry, t: float):
         return dataclasses.replace(carry, temperature=torch.full(
-            (), float(t), dtype=torch.float64, device=self.device))
+            (), float(t), dtype=torch.float64,
+            device=carry.temperature.device))
+
+    def _place(self, carries: list) -> list:
+        """Each replica's carry on its mesh device (as they are without a
+        mesh)."""
+        if self.mesh is None:
+            return carries
+        return [meshing.to_device(c, rep.replica_device(self.mesh, r))
+                for r, c in enumerate(carries)]
 
     def _make_engine(self) -> None:
         self.runner = rep.make_replica_runner(
-            self.base.flags, self.base.params, self.base.opts, self.chunk)
-        self.refresh = chain_mod.make_refresher(
+            self.base.flags, self.base.params, self.base.opts, self.chunk,
+            mesh=self.mesh)
+        refresh = chain_mod.make_refresher(
             self.base.flags, self.base.params, self.base.opts)
+
+        def refresh_on_device(carry):
+            with meshing.device_guard(carry.state.pos.device):
+                return refresh(carry)
+
+        self.refresh = refresh_on_device
 
     def _restart_path(self, r: int) -> str:
         """Per-replica resume search: restart-000r.pqr -> .last -> input.
@@ -283,13 +313,15 @@ class ReplicaSimulation:
             new_states.append(ns)
         # the capacity-derived options change with the atom-slot count:
         # recompute them for R caches and rebuild the runner/refresher
-        base.opts = capacity_opts(base.opts, base.flags, st0,
-                                  n_caches=self.R)
+        base.opts = capacity_opts(
+            base.opts, base.flags, st0,
+            n_caches=rep.caches_per_device(self.mesh, self.R))
         self._make_engine()
         carries = []
         for c, ns in zip(prev, new_states):
-            fresh = chain_mod.init_carry(ns, base.flags, base.params,
-                                         base.opts, 0)
+            with meshing.device_guard(ns.pos.device):
+                fresh = chain_mod.init_carry(ns, base.flags, base.params,
+                                             base.opts, 0)
             carries.append(dataclasses.replace(
                 fresh, key=c.key, step=c.step, stats=c.stats,
                 temperature=c.temperature, cavity=c.cavity))

@@ -15,12 +15,15 @@ so each replica's trajectory is that of one independent chain.
 Parallel tempering — designed but disabled in the reference
 (src/System.MonteCarlo.cpp:1767-1897 commented out) — permutes the
 replicas' temperatures over a geometric ladder; the swap is a host
-computation on R numbers.  Replicas across devices (``mesh=``) are
-ROADMAP queue A item 3 and raise NotImplementedError.
+computation on R numbers.  On a mesh (``mesh=``, parallel/meshing.py)
+replica i lives on device i % n, where the twin shards the [R] axis over
+the mesh; the replicas still take turns, so launches on different cards
+overlap.
 """
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 
@@ -31,6 +34,27 @@ from .. import random as rnd
 from ..flags import FFlags, RunParams
 from ..mc import chain as chain_mod
 from ..state import topology
+from . import meshing
+
+
+def make_mesh(n_devices: int | None = None, axis: str = "replica",
+              devices=None) -> meshing.Mesh:
+    """meshing.make_mesh with the replica axis (replicas.py:30-35)."""
+    return meshing.make_mesh(n_devices, axis, devices)
+
+
+def replica_device(mesh: meshing.Mesh, r: int) -> torch.device:
+    """The device of replica ``r`` on ``mesh``: mesh.devices[r % n]."""
+    return mesh.devices[r % mesh.size]
+
+
+def caches_per_device(mesh, n_replicas: int) -> int:
+    """The most replicas (so polar caches) that one card of ``mesh``
+    holds; all of them without a mesh."""
+    if mesh is None:
+        return n_replicas
+    return max(collections.Counter(replica_device(mesh, r)
+                                   for r in range(n_replicas)).values())
 
 
 def replicate_carry(carry: chain_mod.MCCarry, n_replicas: int,
@@ -48,16 +72,18 @@ def replicate_carry(carry: chain_mod.MCCarry, n_replicas: int,
 
 def make_replica_runner(flags: FFlags, params: RunParams,
                         opts: chain_mod.MCOptions, chunk_steps: int,
-                        mesh=None):
+                        mesh=None, axis: str | None = None):
     """``run(carries) -> (carries, [StepOut])``: one ``chunk_steps``-move
     chunk of each replica, one replica after the other
     (replicas.py:52-67).  Each replica runs with its own molecule
     topology (``state.topology``), taken from its carry at the first call:
-    a replica's slot layout is fixed between regrowths."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_replica_runner(mesh=...): replicas across devices are "
-            "ROADMAP queue A item 3")
+    a replica's slot layout is fixed between regrowths.  On a ``mesh``
+    replica r runs on ``replica_device(mesh, r)`` (its carry moved there
+    first if it lives elsewhere); ``axis``, when given, must be the
+    mesh's."""
+    if mesh is not None and axis is not None and axis != mesh.axis:
+        raise ValueError(f"make_replica_runner: the mesh's axis is "
+                         f"{mesh.axis!r}, not {axis!r}")
     runners = {}
 
     def run(carries):
@@ -67,7 +93,14 @@ def make_replica_runner(flags: FFlags, params: RunParams,
                 runners[r] = chain_mod.make_chunk_runner(
                     flags, params, opts, chunk_steps,
                     topology=topology(carry.state))
-            carry, out = runners[r](carry)
+            if mesh is None:
+                carry, out = runners[r](carry)
+            else:
+                dev = replica_device(mesh, r)
+                with meshing.device_guard(dev):
+                    if carry.state.pos.device != dev:
+                        carry = meshing.to_device(carry, dev)
+                    carry, out = runners[r](carry)
             new.append(carry)
             outs.append(out)
         return new, outs

@@ -1,9 +1,9 @@
 """Simulation controller: config -> state -> Markov chain -> outputs.
 
 JAX twin: mpmcxx_tpu/runner.py (``Simulation`` with ``apply_state_fixups``,
-``capacity_opts``, capacity regrowth and the corrtime loop; the mesh and
-plane donation have no counterpart, since the planes are written in
-place).  The front-end role of SimulationControl
+``capacity_opts``, capacity regrowth, the corrtime loop and the
+row-sharded planes of ``mesh=``; plane donation has no counterpart, since
+the planes are written in place).  The front-end role of SimulationControl
 (src/SimulationControl.cpp:37-129, runSimulation :2853-2971): parse +
 validate input, build the system, run the chain, and do the
 per-corrtime bookkeeping (averages, per-sorbate statistics, energy log,
@@ -76,16 +76,17 @@ def apply_state_fixups(state, cfg: SimConfig):
     return state
 
 
-def capacity_opts(opts, flags, state, n_caches: int = 1):
+def capacity_opts(opts, flags, state, n_caches: int = 1, mesh=None):
     """Recompute the capacity-derived MCOptions fields after a state
     rebuild: blocked_energy and the polar-cache eligibility depend on the
     atom-slot count and on the ``n_caches`` caches (one per replica) that
-    share the device (polar_cache.max_slots); the move window
-    ``max_mol_atoms`` is the largest movable species of a mixture
-    (``moves.movable_window``; the twin's is the flagship's 512-atom
-    framework)."""
+    share the device, or on the rows each card of ``mesh`` holds
+    (polar_cache.max_slots); the move window ``max_mol_atoms`` is the
+    largest movable species of a mixture (``moves.movable_window``; the
+    twin's is the flagship's 512-atom framework)."""
     polar_incremental = pcache_mod.supports(flags, state.n_atom_slots,
-                                            state.pos.device, n_caches)
+                                            state.pos.device, n_caches,
+                                            mesh)
     incremental = delta_mod.supports(flags) or polar_incremental
     blocked = state.n_atom_slots > 1024 and not dense_only(flags)
     return dataclasses.replace(
@@ -100,14 +101,31 @@ def _movable_np(state):
 
 
 class Simulation:
-    """One standard-ensemble run (NVT / uVT / NPT / NVE) on ``device``."""
+    """One standard-ensemble run (NVT / uVT / NPT / NVE) on ``device``.
+
+    ``mesh`` (parallel/meshing.Mesh, whose leader must be of ``device``'s
+    type): the polar cache's [A,A] planes row-sharded over its devices,
+    each shard building, contracting and committing its own rows, and the
+    blocked full recompute sharded (parallel/sharded_energy.py); the
+    state and the rest of the carry live on the leader (runner.py:75-83,
+    225-232).  It requires the polar-incremental cache and an atom
+    capacity that the mesh divides, at the start and after a regrowth
+    (ValueError otherwise); the sampled trajectory is the one-device
+    run's."""
 
     def __init__(self, cfg: SimConfig, quiet: bool = False,
-                 uvt_capacity_factor: float = 2.0, device="cuda"):
+                 uvt_capacity_factor: float = 2.0, device="cuda",
+                 mesh=None):
         self.cfg = validate(cfg)
         self.quiet = quiet
         self.out = sys.stdout
         self.device = torch.device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.leader.type != self.device.type:
+                raise ValueError(f"Simulation: a mesh led by {mesh.leader} "
+                                 f"for a run on {self.device}")
+            self.device = mesh.leader
 
         atoms = pqr_io.read_pqr(
             cfg.pqr_input, scale_charge=cfg.scale_charge,
@@ -201,7 +219,12 @@ class Simulation:
             # initial volume as in the twin
             cavity_darts=max(int(float(self.state.pbc.volume) * 0.1), 1)
             if cfg.cavity_bias else 0)
-        self.opts = capacity_opts(opts, self.flags, self.state)
+        self.opts = capacity_opts(opts, self.flags, self.state, mesh=mesh)
+        if mesh is not None and not self.opts.polar_incremental:
+            raise ValueError(
+                "mesh sharding requires the polar-incremental cache "
+                "(polarization + polar_mixed); this config has no "
+                "[A,A] planes to shard")
 
         self.avg = AvgObservables()
         # per-sorbate statistics when more than one movable species
@@ -212,7 +235,7 @@ class Simulation:
             self.sorbates = None
         self.seed = cfg.preset_seed if cfg.preset_seed_on else 0
         self.carry = chain_mod.init_carry(self.state, self.flags, self.params,
-                                          self.opts, self.seed)
+                                          self.opts, self.seed, mesh=mesh)
         self._make_engine()
 
     def _make_engine(self):
@@ -282,7 +305,8 @@ class Simulation:
                 f"MC: molecule capacity grown to "
                 f"{self.state.n_mol_slots} slots "
                 f"({self.state.n_atom_slots} atom slots)\n")
-        self.opts = capacity_opts(self.opts, self.flags, self.state)
+        self.opts = capacity_opts(self.opts, self.flags, self.state,
+                                  mesh=self.mesh)
         self._make_engine()
         if self.sorbates is not None:
             # species indices are stable across a regrowth: only the
@@ -290,7 +314,7 @@ class Simulation:
             self.sorbates.mol_type = _np(self.state.mol_type)
             self.sorbates.movable = _movable_np(self.state)
         fresh = chain_mod.init_carry(self.state, self.flags, self.params,
-                                     self.opts, self.seed)
+                                     self.opts, self.seed, mesh=self.mesh)
         self.carry = dataclasses.replace(
             fresh, key=base_carry.key, step=base_carry.step,
             stats=base_carry.stats, temperature=base_carry.temperature,
@@ -380,7 +404,9 @@ class Simulation:
                 self._grow_capacity(prev_carry)
                 continue
             del prev_carry
-            # full recompute every corrtime: kills Delta-E drift
+            # full recompute every corrtime: kills Delta-E drift (on a
+            # mesh each shard rebuilds its rows in place of the twin's
+            # re-shard, runner.py:455-460)
             self.carry = self.refresh(self.carry)
             step += n
 

@@ -399,8 +399,10 @@ REPLICA_STUBS = (
 REPLICA_STEPS = {
     "replicas_vs_single": (
         "state, _, flags, params, opts = co2.torch_system()\n"
-        "n = chip_smoke.check_replicas_vs_single(state, flags, params, opts)\n"
-        "assert n['contract_planes_sym'] >= 4 * 32, n\n"),
+        "n, kept = chip_smoke.check_replicas_vs_single(state, flags, params,\n"
+        "                                              opts)\n"
+        "assert n['contract_planes_sym'] >= 4 * 32, n\n"
+        "assert len(kept['reps']) == len(kept['outs']) == 2, kept\n"),
     "replicas_cli": (
         "with open(os.path.join(w, 'run.in'), 'w') as f:\n"
         "    f.write(chip_smoke.RUN_IN)\n"
@@ -444,5 +446,81 @@ def test_replica_steps_run_on_cpu(step, tmp_path):
         "import chip_smoke\n"
         f"w = {str(tmp_path)!r}\n"
         + REPLICA_STUBS + REPLICA_STEPS[step])
+    r = _run(["-c", code], ROOT)
+    assert r.returncode == 0, r.stderr[-3000:]
+
+
+MESH_STUBS = REPLICA_STUBS + (
+    # K1 and K4 counted too, the timers and the profiler stubbed; a mesh
+    # of 4 CPU entries in the card's place; step 14's fluid at 64 H2 x 8
+    # beads in a box of its density
+    "for name in ('contract_planes', 'contract_planes_tri'):\n"
+    "    setattr(cuda_polar, name, counting(getattr(cuda_polar, name)))\n"
+    "torch.cuda.memory_allocated = lambda *a, **k: 0\n"
+    "chip_smoke._time_ms = lambda fn, reps=1: (fn(), 1.0)[1]\n"
+    "chip_smoke.device_split = lambda fn, want='', count=1, **k: (\n"
+    "    fn(), {want + '_kernel': (0.01, float(count))})[1]\n"
+    "from mpmcxx_tpu_torch.parallel import meshing\n"
+    "mesh = meshing.make_mesh(devices=['cpu'] * 4)\n"
+    "from mpmcxx_tpu_torch.io.pqr import read_pqr\n"
+    "from mpmcxx_tpu_torch.state import build_state\n"
+    "def small(p, device, with_meta=False):\n"
+    "    st, meta = build_state(read_pqr(p), np.eye(3) * 18.0,\n"
+    "                           extra_mol_capacity=co2.N_MOL,\n"
+    "                           device=device)\n"
+    "    return (st, meta) if with_meta else st\n"
+    "chip_smoke.cli_flagship_state = small\n"
+    "chip_smoke.PI_H2 = dict(chip_smoke.PI_H2, n=64, L=14.0, beads=8)\n")
+MESH_STEPS = {
+    "replicas": (
+        "state, _, flags, params, opts = co2.torch_system()\n"
+        "_, rep_a = chip_smoke.check_replicas_vs_single(state, flags,\n"
+        "                                               params, opts)\n"
+        "n = chip_smoke.check_replicas_on_mesh(rep_a, flags, params, opts,\n"
+        "                                      device='cpu')\n"
+        "assert n['write_plane_strips'] == 32, n\n"),
+    "energy": (
+        "_, _, flags, params, _ = co2.torch_system()\n"
+        "chip_smoke.MESH_BLOCK = 16\n"
+        "n, k1 = chip_smoke.check_sharded_energy(pqr, flags, params, mesh,\n"
+        "                                        device='cpu')\n"
+        "assert n['contract_planes'] == 16 and k1['slices'] == [62] * 4, n\n"),
+    "chain": (
+        "stats = {'rate': 1.0, 'peak_gb': 0.0, 'base_gb': 0.0}\n"
+        "chip_smoke.MESH_CORRTIME = 4\n"
+        "n, sim, out = chip_smoke.run_mesh_chain(w, mesh, stats, 'cpu',\n"
+        "                                        device='cpu')\n"
+        "assert out['per_move']['write_plane_strips'] == 4, out\n"
+        "assert out['per_move']['contract_planes'] >= 16, out\n"
+        "k2 = chip_smoke.check_k2_row_slices(sim.carry.pcache, 'cpu')\n"
+        "assert k2['ms'] == 0.01, k2\n"),
+    "pi": (
+        "n, out = chip_smoke.run_mesh_pi(w, mesh, 4, device='cpu')\n"
+        "assert not any(n.values()) and out['rate'] > 0, n\n"),
+}
+
+
+@pytest.mark.parametrize("step", list(MESH_STEPS))
+def test_mesh_steps_run_on_cpu(step, tmp_path):
+    """Step 25 (2 replicas on a 2-shard mesh against step 24a's; the
+    sharded energy of the runner's state and the sliced K1; the flagship
+    through Simulation(mesh=...) and K2's row-slice mode; PI on the
+    mesh) on the small CO2 system and a small PI fluid, on a mesh of 4
+    CPU entries, with jax and the JAX package made unimportable and the
+    card's calls stubbed: their gates pass, the launch gates against the
+    counted plain calls."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mpmcxx_tpu'] = None\n"
+        f"sys.path.insert(0, {os.path.join(ROOT, 'tests')!r})\n"
+        "import torch\n"
+        "for f in ('synchronize', 'reset_peak_memory_stats',\n"
+        "          'max_memory_allocated', 'empty_cache',\n"
+        "          'set_sync_debug_mode'):\n"
+        "    setattr(torch.cuda, f, lambda *a, **k: 0)\n"
+        "import chip_smoke\n"
+        f"w = {str(tmp_path)!r}\n"
+        + MESH_STUBS + MESH_STEPS[step])
     r = _run(["-c", code], ROOT)
     assert r.returncode == 0, r.stderr[-3000:]

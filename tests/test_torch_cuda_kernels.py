@@ -281,6 +281,43 @@ def test_commit_kernel_strips_bit_equal_to_plain(cuda, P, S, A, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 4, 8])
+@pytest.mark.parametrize("S", [1, 3, 5])
+@pytest.mark.parametrize("A", [1024, 1000])     # 16-byte rows or not
+def test_commit_kernel_row_slices_bit_equal_to_plain(cuda, n, S, A):
+    """K2's row-slice mode: each shard's launch on its [A/n, A] slices
+    (row0 = its first row) bitwise the plain version on the same slices and
+    the full-plane plain version's rows, at window starts 0, inside one
+    shard, straddling a shard boundary and A - S, partly valid windows;
+    one launch per shard."""
+    R = A // n
+    rng = np.random.default_rng(n * S + A)
+    for start in sorted({0, R + 1, max(R - S // 2 - 1, 0), A - S}):
+        full = tuple(torch.from_numpy(rng.normal(size=(A, A)).astype(
+            np.float32)).to(cuda) for _ in range(3))
+        rows = tuple(torch.from_numpy(rng.normal(size=(S, A)).astype(
+            np.float32)).to(cuda) for _ in range(3))
+        st = torch.tensor(start, device=cuda)
+        valid = torch.from_numpy(np.arange(S) % 2 == 0).to(cuda)
+        blend, cols = polar_cache.commit_strips(full, rows, st, valid,
+                                                (1.0, -1.0, -1.0))
+        want = tuple(p.clone() for p in full)
+        cuda_polar.write_plane_strips_plain(want, blend, cols, st)
+        before = cuda_polar.write_plane_strips.launches
+        for d in range(n):
+            k = tuple(p[d * R:(d + 1) * R].clone() for p in full)
+            q = tuple(p[d * R:(d + 1) * R].clone() for p in full)
+            cuda_polar.write_plane_strips(k, blend, cols, st, row0=d * R)
+            cuda_polar.write_plane_strips_plain(q, blend, cols, st,
+                                                row0=d * R)
+            torch.cuda.synchronize()
+            for a, b, w in zip(k, q, want):
+                assert torch.equal(a, b)
+                assert torch.equal(a, w[d * R:(d + 1) * R])
+        assert cuda_polar.write_plane_strips.launches == before + n
+
+
+@pytest.mark.gpu
 def test_wrappers_reject_bad_inputs(cuda):
     A = 256
     planes = _planes(A, 3, 0, cuda)
@@ -342,6 +379,12 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         cuda_polar.write_plane_strips(planes, strip, strip.transpose(1, 2),
                                       torch.tensor(0, device=cuda))
+    rows = tuple(p[:64].contiguous() for p in planes)
+    for row0 in (-1, A - 63):                  # not a slice of A rows
+        with pytest.raises(ValueError):
+            cuda_polar.write_plane_strips(rows, strip, strip,
+                                          torch.tensor(0, device=cuda),
+                                          row0=row0)
 
 
 @pytest.mark.gpu

@@ -16,7 +16,7 @@ same seeded inputs.
   final temperatures byte for byte.
 - Replica carries share no storage; the R-replica cache budget
   (``polar_cache.max_slots(n_caches=R)``); the CLI's dispatch; what
-  raises (the mesh, a CUDA run without CUDA).
+  raises (a CUDA run without CUDA).
 
 The JAX replica runs are kept small (<= 12 molecules, <= 24 moves per
 chunk): JAX's compile is most of each test's time."""
@@ -565,20 +565,15 @@ def test_run_input_file_with_tempering_runs_one_chain(tmp_path,
 
 
 def test_mesh_and_missing_cuda_raise(tmp_path, monkeypatch):
-    """Replicas or beads across devices are ROADMAP queue A item 3 and
-    raise NotImplementedError naming it; a CUDA replica run without CUDA
-    raises instead of falling back to the CPU."""
-    from mpmcxx_tpu_torch.mc.pi import PISimulation
+    """A CUDA replica run without CUDA raises instead of falling back to
+    the CPU, with or without a mesh (the mesh runs themselves are in
+    tests/test_torch_mesh.py)."""
     monkeypatch.chdir(tmp_path)
     write_inputs(tmp_path, hist=False)
     cfg = read_t("run.in")
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        RepSim_t(cfg, 2, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        rep_t.make_replica_runner(FFlags(), RunParams(), chain_t.MCOptions(),
-                                  4, mesh=object())
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        PISimulation(cfg, P=4, mesh=object(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RepSim_t(cfg, 2, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RepSim_t(cfg, 2, device="cuda", mesh=rep_t.make_mesh(
+            devices=["cuda:0"] * 2))
