@@ -8,13 +8,13 @@ its hand-written kernels, and check the results.
    card's ``nvidia-smi`` name and power limit.
 2. Builds the kernels from ``mpmcxx_tpu_torch/csrc`` (nvcc, sm_90a) and
    prints the build time and ptxas report.
-3. The CO2 flagship (tools/flagship.py, 10,112 live atoms, 11,264 slots),
-   with the contraction-schedule variables unset (the default schedule,
-   K5): K5 ``contract_planes_sym`` against the full-plane plain PyTorch
-   version in plane modes 3, 4 and 5 on the flagship's own planes and on
-   seeded symmetric planes at A = 4,096 and 4,032 (nr = 64 and 63 row
-   tiles, where it is also held against its own schedule's plain
-   version); relative error <= 1e-5, two launches on one input bitwise
+3. The CO2 flagship (mpmcxx_tpu_torch/flagship.py, 10,112 live atoms,
+   11,264 slots), with the contraction-schedule variables unset (the
+   default schedule, K5): K5 ``contract_planes_sym`` against the
+   full-plane plain PyTorch version in plane modes 3, 4 and 5 on the
+   flagship's own planes and on seeded symmetric planes at A = 4,096
+   and 4,032 (nr = 64 and 63 row tiles, where it is also held against
+   its own schedule's plain version); relative error <= 1e-5, two launches on one input bitwise
    equal, K1's time (the call and its main kernel) and GB/s on the same
    planes beside K5's, with K1's full-plane bound.  K2
    ``write_plane_strips`` bitwise on copies of a flagship plane at window
@@ -85,7 +85,7 @@ its hand-written kernels, and check the results.
    64): initial rd and coulombic within 2e-6 of the golden, incremental
    vs each refresh within 1e-8, K1, K2, K4 and K5 never launched;
    moves/s.
-10. The monatomic flagship in NPT with its polar cache (build_flagship,
+10. The monatomic flagship in NPT with its polar cache (flagship.build,
    default schedule, volume moves as npt-argon's, 2 A displacements),
    checked as in step 3 at the final box, with K2 once per local move
    and at least one volume move proposed; the wall time of one volume
@@ -237,8 +237,21 @@ its hand-written kernels, and check the results.
    ``PISimulation(mesh=...)`` and with no mesh: positions, accepts and
    the carried potential bitwise equal, 16 restart files each, no K1-K5
    launch.
-26. Prints ``{"kernels": [...]}`` (per kernel: the sum over the main paths
-   of steps 3, 5-25 of its launches, each path counted from 0, and
+26. The port's bench module (``mpmcxx_tpu_torch/bench.py``) in-process
+   at full width, under the default schedule (K5 and K2): one segment of
+   ``bench.MEASURE_STEPS`` moves after the warm-up chunk on each flagship
+   (CO2, H2, monatomic), ``thole_solve_ms`` on the monatomic flagship's
+   planes and the PIMC argon dimer for one chunk after its warm-up.
+   Checks: every rate positive and finite; at each flagship's end the
+   carried rd and coulombic within 1e-9 and polarization within 1e-5 of
+   a blocked recompute; exactly 4 K5 launches per move plus 4 for the
+   initial energy and 1 K2 launch per move, no K1, K3 or K4; the Thole
+   solve's K5 launches 4 per solve and its energy within 1e-6 relative
+   of the same solve with the plain contraction on the same planes; the
+   PIMC carried potential within 1e-9 of a per-bead recompute, no kernel
+   launched.  Each number beside the card's name and power limit.
+27. Prints ``{"kernels": [...]}`` (per kernel: the sum over the main paths
+   of steps 3, 5-26 of its launches, each path counted from 0, and
    the count of each path; the time, plain time and bound at the shapes
    of step 4 for K2, K3 and K5, step 6 for K4 and step 7 for K1, with
    step 25's sliced K1 and row-slice K2 beside them; the worst error of
@@ -451,6 +464,10 @@ MESH_BLOCK = 256         # (a)'s row tile, sharded_breakdown's default
 MESH_CORRTIME = 32
 MESH_PEAK_REL = 0.05
 MESH_PI_MOVES = 64
+# step 26: the bench module's measurements, one segment each
+BENCH_MODELS = ("co2", "h2", "ar")
+BENCH_REPEATS = 1
+THOLE_SOLVES = 31        # thole_solve_ms: a warm-up solve, 3 x 10 timed
 SYNTH_A = 4096
 RAGGED_A = 4001          # A % 4 != 0: no TMA tensor map (16-byte rows)
 SYM_SYNTH_A = (4096, 4032)   # K5's 64-row tiles: nr = 64 (even), 63 (odd)
@@ -557,71 +574,6 @@ def _rel(got, want):
 
 GOLDEN = {"co2": "flagship_co2_singlepoint.json",
           "h2": "flagship_h2_singlepoint.json"}
-
-
-def flagship_sorbates(model):
-    """(framework, [N, S, 3] sorbate positions, site table, moleculetype,
-    dead insertion slots) of a flagship model, from tools/flagship.py's
-    numpy geometry and constants (those of its build_state_co2,
-    build_state_h2 and build_state)."""
-    import flagship
-    if model == "co2":
-        framework, mols = flagship.flagship_co2_molecules()
-        return (framework, mols, flagship.CO2_SITES, "CO2",
-                flagship.CO2_EXTRA_SLOTS)
-    if model == "h2":
-        framework, mols = flagship.flagship_h2_molecules()
-        return (framework, mols, flagship.H2_SITES, "H2",
-                flagship.H2_EXTRA_SLOTS)
-    if model != "ar":
-        raise ValueError(f"no flagship model {model!r}")
-    framework, sorbates = flagship.flagship_atoms()
-    mols = np.array([[[a["x"], a["y"], a["z"]]] for a in sorbates])
-    sites = (("Ar", flagship.SORB_MASS, 0.0, flagship.SORB_ALPHA,
-              flagship.SORB_EPS, flagship.SORB_SIG),)
-    return framework, mols, sites, "ARG", 512    # build_state's default
-
-
-def build_flagship(model, device):
-    """A flagship state and (flags, params, opts) built with the port:
-    ``model`` "co2" (3,200 3-site CO2, 11,264 slots), "h2" (2,000 5-site
-    H2, 10,752 slots) or "ar" (9,728 monatomic sorbates, 10,752 slots), as
-    tools/flagship.py's build_state_co2, build_state_h2 and build_state
-    make them for the JAX package."""
-    import flagship
-    from mpmcxx_tpu_torch import constants as const
-    from mpmcxx_tpu_torch.flags import FFlags, RunParams
-    from mpmcxx_tpu_torch.mc.chain import MCOptions
-    from mpmcxx_tpu_torch.state import AtomRecord, build_state
-
-    framework, mols, sites, moltype, extra = flagship_sorbates(model)
-    atoms = [AtomRecord(
-        "Fw", "MOF", 1, frozen=True, x=a["x"], y=a["y"], z=a["z"],
-        mass=flagship.FRAME_MASS, charge=a["q"] * const.E2REDUCED,
-        epsilon=flagship.FRAME_EPS, sigma=flagship.FRAME_SIG,
-        polarizability=flagship.FRAME_ALPHA) for a in framework]
-    for m in range(len(mols)):
-        for site, (at, mass, q, al, eps, sig) in enumerate(sites):
-            p = mols[m, site]
-            atoms.append(AtomRecord(
-                at, moltype, 100 + m, x=p[0], y=p[1], z=p[2], mass=mass,
-                charge=q * const.E2REDUCED, epsilon=eps, sigma=sig,
-                polarizability=al))
-    state, meta = build_state(atoms, np.eye(3) * flagship.L,
-                              extra_mol_capacity=extra, device=device)
-    flags = FFlags(polarization=True, polar_iterative=True, polar_ewald=True,
-                   polar_mixed=True, polar_max_iter=flagship.POLAR_MAX_ITER,
-                   damp_type=const.DAMPING_EXPONENTIAL)
-    params = RunParams(temperature=flagship.TEMPERATURE,
-                       ewald_alpha=flagship.EWALD_ALPHA,
-                       polar_ewald_alpha=flagship.EWALD_ALPHA,
-                       polar_damp=flagship.POLAR_DAMP, polar_gamma=1.0)
-    opts = MCOptions(
-        ensemble=const.ENSEMBLE_UVT, move_factor=flagship.MOVE_FACTOR,
-        insert_probability=flagship.INSERT_PROB, fugacity=flagship.FUGACITY,
-        incremental=True, polar_incremental=True, max_mol_atoms=len(sites),
-        blocked_energy=True)
-    return state, meta, flags, params, opts
 
 
 def _synthetic_planes(A, mode, seed, device):
@@ -2327,7 +2279,7 @@ def run_pairwise_terms(workdir, device="cuda"):
     a refresh; finite energies; no K1-K5 launch.  Returns (the summed
     launch counts, moves/s per setting)."""
     import torch
-    import flagship
+    from mpmcxx_tpu_torch import flagship
     from mpmcxx_tpu_torch import constants as const
     from mpmcxx_tpu_torch.flags import FFlags, RunParams
     from mpmcxx_tpu_torch.mc import chain, moves
@@ -3093,11 +3045,11 @@ def run_special_moves(root, device="cuda"):
 
 
 def write_h2_spin_input(workdir):
-    """Step 22's input in ``workdir``: tools/flagship.py's H2 flagship
+    """Step 22's input in ``workdir``: the port's H2 flagship
     PQR with its first H2_ADIABATIC molecules flagged adiabatic (A), and
     a uVT run.in with the flagship's settings, spin flips and adiabatic
     moves, 2 corrtimes of SPIN_CHUNK."""
-    import flagship
+    from mpmcxx_tpu_torch import flagship
     pqr = os.path.join(workdir, "flagship_h2.pqr")
     flagship.write_pqr_h2(pqr)
     with open(pqr) as f:
@@ -3139,7 +3091,7 @@ basis3 0 0 {L}
 
 
 def run_h2_spin(workdir, card, device="cuda"):
-    """Step 22: the H2 flagship (tools/flagship.py; its first
+    """Step 22: the H2 flagship (mpmcxx_tpu_torch/flagship.py; its first
     H2_ADIABATIC molecules adiabatic) through ``runner.Simulation`` in uVT
     with quantum rotation, spin flips and adiabatic moves on the polar
     cache under the default schedule (K5 and K2), at 10,752 slots (S = 5),
@@ -3152,7 +3104,7 @@ def run_h2_spin(workdir, card, device="cuda"):
     4 and K2 >= 1 launches per move, K1, K3 and K4 none.  Then the
     kernel launches per move over FH_PROBE more moves.  Returns (launch
     counts, second corrtime's moves/s)."""
-    import flagship
+    from mpmcxx_tpu_torch import flagship
     import torch
     from mpmcxx_tpu_torch import constants as const
     from mpmcxx_tpu_torch.config.parser import read_config
@@ -4228,6 +4180,109 @@ def check_replicas_on_mesh(rep_a, flags, params, opts, device="cuda"):
     return launches
 
 
+def run_bench_step(card, device="cuda"):
+    """Step 26: the port's bench module (mpmcxx_tpu_torch/bench.py)
+    in-process at full width: ``flagship_run(m, repeats=1)`` for each of
+    BENCH_MODELS under the default schedule, ``thole_solve_ms`` on the
+    monatomic flagship and ``pimc_run`` with one segment of one chunk,
+    every launch count 0 just before each.  Checks: each rate positive
+    and finite; at each flagship's end the carried rd and coulombic
+    within 1e-9 and polarization within 1e-5 (relative) of a blocked
+    recompute; per flagship exactly 4 K5 launches per move plus 4 for the
+    initial energy's solve and 1 K2 launch per move, no K1, K3 or K4;
+    the Thole solve's K5 launches 4 per solve, and its energy on the card
+    within 1e-6 relative of the same solve with contract_planes_plain on
+    the same planes; the PIMC carried potential within 1e-9 relative of
+    a per-bead recompute, no kernel launched.  Returns (launch counts per
+    path, the measurements)."""
+    import torch
+    from mpmcxx_tpu_torch import bench, flagship
+    from mpmcxx_tpu_torch.mc import pi
+    from mpmcxx_tpu_torch.ops import cuda_polar, polar
+    from mpmcxx_tpu_torch.ops.energy import energy_breakdown_blocked
+
+    def rate_ok(label, x):
+        if not (np.isfinite(x) and x > 0):
+            raise AssertionError(f"[{label}] rate {x}")
+
+    launches, out = {}, {}
+    moves = bench.CHUNK + BENCH_REPEATS * bench.MEASURE_STEPS
+    for model in BENCH_MODELS:
+        label = f"bench-{model}"
+        zero_launches()
+        rates, carry, (flags, params, _) = bench.flagship_run(
+            model, repeats=BENCH_REPEATS, device=device)
+        launches[label] = n = launches_now()
+        for x in rates.values():
+            rate_ok(label, x)
+        eb = energy_breakdown_blocked(carry.state, flags, params)
+        for name, full, tol in (("rd_energy", eb.rd, 1e-9),
+                                ("coulombic_energy", eb.coulombic, 1e-9),
+                                ("polarization_energy", eb.polarization,
+                                 1e-5)):
+            inc, ref = float(getattr(carry.obs, name)), float(full)
+            rel, ok = _close(inc, ref, tol)
+            _say(f"[{label}] carried {name} {inc:.9f} vs full {ref:.9f}: "
+                 f"rel {rel:.2e} (tol {tol:g})")
+            if not ok:
+                raise AssertionError(f"[{label}] {name}: carried vs full "
+                                     f"rel {rel}")
+        want = dict({k: 0 for k in n}, contract_planes_sym=4 * moves + 4,
+                    write_plane_strips=moves)
+        if n != want:
+            raise AssertionError(f"[{label}] launches {n}, want {want}")
+        _say(f"[{label}] {moves} moves, {rates['median']:.2f} moves/s on "
+             f"{card}; K5 {(n['contract_planes_sym'] - 4) / moves:.2f} and "
+             f"K2 {n['write_plane_strips'] / moves:.2f} launches per move "
+             "(+4 K5 for the initial energy)")
+        out[model] = rates["median"]
+        del carry, eb
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    state, _, flags, params, _ = flagship.build_state(device=device)
+    zero_launches()
+    out["thole_ms"] = bench.thole_solve_ms(state, flags, params)
+    launches["bench-thole"] = n = launches_now()
+    rate_ok("bench-thole", out["thole_ms"])
+    want = dict({k: 0 for k in n},
+                contract_planes_sym=THOLE_SOLVES * flags.polar_max_iter)
+    if n != want:
+        raise AssertionError(f"[bench-thole] launches {n}, want {want}")
+    coeffs, E_static = polar.mixed_field_coeffs(state, flags, params)
+    card_e = float(bench.thole_energy(state, flags, params, coeffs,
+                                      E_static))
+    plain_e = float(polar.finish_polar(
+        state, flags, params, E_static,
+        lambda m: cuda_polar.contract_planes_plain(
+            coeffs, m, params.polar_damp)).energy)
+    rel, ok = _close(card_e, plain_e, 1e-6)
+    _say(f"[bench-thole] {out['thole_ms']:.3f} ms per solve on {card}; "
+         f"energy {card_e:.9f} vs plain contraction {plain_e:.9f}: rel "
+         f"{rel:.2e} (tol 1e-06)")
+    if not ok:
+        raise AssertionError(f"[bench-thole] energy vs plain rel {rel}")
+    del state, coeffs, E_static
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    zero_launches()
+    out["pimc"], carry, sim = bench.pimc_run(device=device, segments=1,
+                                             chunks=1)
+    launches["bench-pimc"] = n = launches_now()
+    rate_ok("bench-pimc", out["pimc"])
+    comps, _ = pi.pi_potential_per_bead(pi.whole(carry.stack), sim.flags,
+                                        sim.params)
+    inc, ref = float(carry.potential_current), float(comps.mean(0).sum())
+    rel, ok = _close(inc, ref, 1e-9)
+    _say(f"[bench-pimc] {out['pimc']:.1f} bead sweeps/s on {card}; carried "
+         f"potential {inc:.9f} vs recompute {ref:.9f}: rel {rel:.2e} (tol "
+         f"1e-09); launches {n}")
+    if not ok or any(n.values()):
+        raise AssertionError(f"[bench-pimc] rel {rel}, launches {n}")
+    return launches, out
+
+
 def ptxas_report(log):
     """Per kernel of nvcc's build log: its registers, barriers and shared
     memory ("Used ...") and its stack and spills, named by the kernel's
@@ -4267,8 +4322,9 @@ def main() -> int:
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
+    # step 13 reads tools/gibbs_vle.py's constants (vle_simulation)
     sys.path.insert(0, os.path.join(root, "tools"))
-    import flagship  # noqa: F401  (numpy only at import)
+    from mpmcxx_tpu_torch import flagship
     from mpmcxx_tpu_torch import constants as const
     from mpmcxx_tpu_torch.ops import kernels
     from mpmcxx_tpu_torch.ops import polar_cache as pcache
@@ -4301,7 +4357,7 @@ def main() -> int:
     # --- 1. the CO2 flagship: K5, K2 vs plain, then its main path --------
     with schedule():
         t0 = time.time()
-        state, _, flags, params, opts = build_flagship("co2", device)
+        state, _, flags, params, opts = flagship.build("co2", device)
         _say(f"CO2 flagship: {state.n_atom_slots} atom slots, "
              f"{int(state.aalive.sum())} live atoms ({time.time() - t0:.1f} "
              "s to build)")
@@ -4336,7 +4392,7 @@ def main() -> int:
 
     # --- 3. the H2 flagship: K4 vs plain, then its path through K4 -------
     t0 = time.time()
-    state, _, flags, params, opts = build_flagship("h2", device)
+    state, _, flags, params, opts = flagship.build("h2", device)
     _say(f"H2 flagship: {state.n_atom_slots} atom slots, "
          f"{int(state.aalive.sum())} live atoms ({time.time() - t0:.1f} s "
          "to build)")
@@ -4353,7 +4409,7 @@ def main() -> int:
 
     # --- 4. the monatomic flagship through K1 on B1's schedule -----------
     t0 = time.time()
-    state, _, flags, params, opts = build_flagship("ar", device)
+    state, _, flags, params, opts = flagship.build("ar", device)
     _say(f"monatomic flagship: {state.n_atom_slots} atom slots, "
          f"{int(state.aalive.sum())} live atoms ({time.time() - t0:.1f} s "
          "to build)")
@@ -4390,7 +4446,7 @@ def main() -> int:
     flush()
 
     # --- 7. the monatomic flagship in NPT, with its polar cache ----------
-    state, _, flags, params, opts = build_flagship("ar", device)
+    state, _, flags, params, opts = flagship.build("ar", device)
     npt_params = params.replace(pressure=NPT_PRESSURE)
     npt_opts = dataclasses.replace(
         opts, ensemble=const.ENSEMBLE_NPT, move_factor=SMALL_MOVE_FACTOR,
@@ -4405,7 +4461,7 @@ def main() -> int:
     flush()
 
     # --- 8. the monatomic flagship's float64 SCF (polar_mixed off) -------
-    state, _, flags, params, opts = build_flagship("ar", device)
+    state, _, flags, params, opts = flagship.build("ar", device)
     with schedule():
         launches["ar-f64"], f64_ms = run_f64_scf(
             state, flags.replace(polar_mixed=False), params,
@@ -4439,7 +4495,7 @@ def main() -> int:
 
     # --- 15. the H2 flagship at 77 K with Feynman-Hibbs order 4 ----------
     t_terms = time.time()
-    state, _, flags, params, opts = build_flagship("h2", device)
+    state, _, flags, params, opts = flagship.build("h2", device)
     with schedule():
         launches["h2-fh4"], rates["h2-fh4"] = run_h2_fh4(
             state, flags, params, opts, root, card,
@@ -4462,7 +4518,7 @@ def main() -> int:
 
     # --- 18. precision-terminated SCF, Palmo and CG on the polar cache ---
     t_scf = time.time()
-    state, _, flags, params, opts = build_flagship("co2", device)
+    state, _, flags, params, opts = flagship.build("co2", device)
     with schedule():
         scf_launches, scf = run_scf_solvers(state, flags, params, opts, root,
                                             card)
@@ -4512,7 +4568,7 @@ def main() -> int:
 
     # --- 24. replicas: against single chains, under tempering, the codec -
     t_rep = time.time()
-    state, _, flags, params, opts = build_flagship("co2", device)
+    state, _, flags, params, opts = flagship.build("co2", device)
     co2_setup = (flags, params, opts)
     with schedule():
         launches["replicas-a"], rep_a = check_replicas_vs_single(
@@ -4558,6 +4614,15 @@ def main() -> int:
     _say(f"step 25 took {mesh_s:.1f} s (budget 90 s; PI on the mesh: one "
          f"corrtime of {MESH_PI_MOVES} moves each way)")
 
+    # --- 26. the bench module in-process, one segment of each -------------
+    t_bench = time.time()
+    with schedule():
+        bench_launches, bench_out = run_bench_step(card)
+    launches.update(bench_launches)
+    flush()
+    bench_s = time.time() - t_bench
+    _say(f"step 26 took {bench_s:.1f} s (budget 120 s)")
+
     _say(f"second-chunk moves/s on {card}: " + ", ".join(
         f"{m} {r:.2f}" for m, r in rates.items()) +
         f"; examples' chunk steps/s: " + ", ".join(
@@ -4598,6 +4663,10 @@ def main() -> int:
         f"{mesh_chain['peak_gb']:.2f} GB above the start; PI H2 "
         f"{mesh_pi['rate']:.2f} moves/s (one device "
         f"{mesh_pi['rate_one']:.2f}); step 25 {mesh_s:.1f} s"
+        + f"; bench module (one segment): " + ", ".join(
+            f"{m} {bench_out[m]:.2f} moves/s" for m in BENCH_MODELS)
+        + f", Thole {bench_out['thole_ms']:.3f} ms per solve, PIMC "
+        f"{bench_out['pimc']:.1f} bead sweeps/s; step 26 {bench_s:.1f} s"
         + f"; whole check "
         f"{time.time() - t_start:.1f} s after the card query")
     k5_all = dict(k5_cli, max_abs_err=max(k5["max_abs_err"],

@@ -307,6 +307,12 @@ def state_to_atoms_data(state, meta, wrapall: bool = True) -> dict:
     return data
 
 
+def state_bool(arr, i) -> bool:
+    """Element ``i`` of a state field (a tensor on any device, or an
+    array) as a Python bool."""
+    return bool(arr[i])
+
+
 def drain() -> None:
     """Block until every queued restart/final write is on disk."""
     native.async_drain()

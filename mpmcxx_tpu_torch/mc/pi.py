@@ -365,6 +365,15 @@ def bead_views(stack) -> list:
     return [bead(stack, s) for s in range(stack.pos.shape[0])]
 
 
+def pi_potential(stack: SystemState, flags: FFlags, params: RunParams):
+    """Bead-averaged potential components (PI_calculate_potential,
+    :752-805; pi.py:347-352): ([4] mean components, their total, whether
+    any bead's SCF failed)."""
+    comps, failed = pi_potential_per_bead(stack, flags, params)
+    mean = torch.mean(comps, dim=0)
+    return mean, torch.sum(mean), torch.any(failed)
+
+
 def pi_potential_per_bead(stack: SystemState, flags: FFlags,
                           params: RunParams, beads=None):
     """[P, 4] per-bead (rd, coul, polar, vdw) and [P] failure flags on the

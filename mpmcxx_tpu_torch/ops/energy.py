@@ -2,7 +2,7 @@
 large ones.
 
 JAX twin: mpmcxx_tpu/ops/energy.py (``EnergyBreakdown``,
-``cavity_absolute_check``, ``energy_breakdown`` and
+``cavity_absolute_check``, ``energy_breakdown``, ``total_energy`` and
 ``energy_breakdown_blocked``): the equivalent of System::energy()
 (src/System.Energy.cpp:19-171) on the dense [A,A] pairs, or by
 O(B*A)-memory row-block tiling of the dense pair triangle.  The dense
@@ -110,6 +110,15 @@ def energy_breakdown(state: SystemState, flags: FFlags,
         polarization=pol, vdw=vdw_e, three_body=tb, kinetic=kin, mu=mu,
         polarization_iterations=pol_iters, iterator_failed=failed,
         dipole_rrms=rrms, cavity_penalty=pen)
+
+
+def total_energy(state: SystemState, flags: FFlags,
+                 params: RunParams) -> torch.Tensor:
+    """Scalar potential energy with the cavity penalty, the MC accept
+    input (System::energy()'s return value, src/System.Energy.cpp:167-170;
+    energy.py:221-226)."""
+    eb = energy_breakdown(state, flags, params)
+    return eb.total + eb.cavity_penalty
 
 
 def energy_breakdown_blocked(state: SystemState, flags: FFlags,

@@ -71,6 +71,16 @@ class PolarCache:
     f2: torch.Tensor      # [K] f64 sum_j q_j sin(k.r_j)
 
 
+def empty_cache(device=None) -> PolarCache:
+    """A cache with every field empty (polar_cache.py:70-73): [0, 0]
+    planes and phases, a [0, 3] static field, [0] structure factors."""
+    z2 = torch.zeros((0, 0), dtype=torch.float32, device=device)
+    f = torch.zeros(0, dtype=torch.float64, device=device)
+    return PolarCache(z2, z2.clone(), z2.clone(), z2.clone(), z2.clone(),
+                      torch.zeros((0, 3), dtype=torch.float64, device=device),
+                      z2.clone(), z2.clone(), f, f.clone())
+
+
 def planes_of(cache: PolarCache):
     """The cache's contraction planes in contract_mixed form
     (polar_cache.py:76-85): (dx, dy, dz), (cd, sx, sy, sz) or
@@ -439,3 +449,15 @@ def cache_commit(cache: PolarCache, accept, cdata: CommitData,
                                 plane.index_select(0, idx))
             plane.index_copy_(0, idx, blend)
     return cache
+
+
+def polar_from_cache(state: SystemState, cache: PolarCache, flags: FFlags,
+                     params: RunParams) -> polar_mod.PolarResult:
+    """Polarization energy with all mu-independent work cached: the same
+    SCF as ops.polar.polar_blocked, minus the O(A^2) setup
+    (polar_cache.py:552-563)."""
+    E_static = static_field(state, flags, params, cache)
+    planes = planes_of(cache)
+    return polar_mod.finish_polar(
+        state, flags, params, E_static,
+        lambda m: polar_mod.contract_mixed(planes, m, l=params.polar_damp))

@@ -82,3 +82,17 @@ def minimum_image_disp(d, basis, reciprocal):
     img = torch.round(_mul3(d, reciprocal))
     di = d - _mul3(img, basis)
     return di, torch.sqrt(torch.sum(di * di, dim=-1))
+
+
+def wrap_positions(pos, basis, reciprocal):
+    """Positions ``pos[..., 3]`` wrapped into the central cell, centred on
+    the origin: each minimum-imaged against the origin (pbc.py:131-137)."""
+    return minimum_image_disp(pos, basis, reciprocal)[0]
+
+
+def cart_to_frac(cart, reciprocal):
+    return _mul3(cart, reciprocal)
+
+
+def frac_to_cart(frac, basis):
+    return _mul3(frac, basis)

@@ -1,7 +1,8 @@
 """Quaternion rotations on tensors.
 
 JAX twin: mpmcxx_tpu/quaternion.py (src/Quaternion.cpp semantics:
-axis-angle construction, Hamilton product, v' = q * v * q~).  Quaternions
+axis-angle construction, Hamilton product, v' = q * v * q~, the
+equivalent rotation matrix).  Quaternions
 are ``[..., 4] = [w, x, y, z]``.
 """
 
@@ -46,3 +47,19 @@ def rotate(q, v):
     """Rotate vectors ``v[..., 3]`` by quaternion ``q[..., 4]``: q v q~."""
     qv = torch.cat([torch.zeros_like(v[..., :1]), v], dim=-1)
     return multiply(q, multiply(qv, conjugate(q)))[..., 1:]
+
+
+def rotation_matrix(q):
+    """The 3x3 rotation matrix of quaternion ``q[..., 4]`` (batched); a
+    zero quaternion gives the identity."""
+    w, x, y, z = q.unbind(-1)
+    n = w * w + x * x + y * y + z * z
+    s = torch.where(n == 0.0, 0.0, 2.0 / torch.where(n == 0.0, 1.0, n))
+    wx, wy, wz = s * w * x, s * w * y, s * w * z
+    xx, xy, xz = s * x * x, s * x * y, s * x * z
+    yy, yz, zz = s * y * y, s * y * z, s * z * z
+    return torch.stack([
+        torch.stack([1.0 - (yy + zz), xy - wz, xz + wy], dim=-1),
+        torch.stack([xy + wz, 1.0 - (xx + zz), yz - wx], dim=-1),
+        torch.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], dim=-1),
+    ], dim=-2)

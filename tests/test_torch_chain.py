@@ -127,25 +127,6 @@ def test_flagship_shape_incremental_tracks_full(shaped_chains):
         float(eb.polarization), rel=2e-6)
 
 
-@pytest.mark.parametrize("model,build", [
-    ("co2", "build_state_co2"), ("h2", "build_state_h2"),
-    ("ar", "build_state")])
-def test_flagship_build_matches_jax(model, build):
-    """chip_smoke.build_flagship (numpy and the port only) builds each
-    flagship's state field for field as tools/flagship.py's JAX-side
-    build function does, and the same move window S."""
-    import flagship
-    import chip_smoke
-    sj, _, _, _, oj = getattr(flagship, build)()
-    st, _, _, _, ot = chip_smoke.build_flagship(model, "cpu")
-    fields = co2.jax_state_numpy(sj)
-    for f in dataclasses.fields(st):
-        if f.name != "pbc":
-            np.testing.assert_array_equal(getattr(st, f.name).numpy(),
-                                          fields[f.name], err_msg=f.name)
-    assert ot.max_mol_atoms == oj.max_mol_atoms
-
-
 def _cavity(system, opts_mod):
     state, meta, flags, params, opts = system
     return state, meta, flags, params, dataclasses.replace(

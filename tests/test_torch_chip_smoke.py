@@ -58,18 +58,21 @@ def test_exits_nonzero_outside_a_checkout(tmp_path):
     ("h2", ["10752", "10512", "2049", "5"]),
     ("ar", ["10752", "10240", "10241", "1"])])
 def test_builds_flagship_without_jax(model, shape):
-    """The port and chip_smoke run with jax and the JAX package made
-    unimportable; each flagship they build (CO2, H2, monatomic) has the
-    shape of tools/flagship.py's JAX-side build function: atom slots, live
+    """The port and chip_smoke run with jax, the JAX package and
+    tools/flagship.py made unimportable; each flagship the port's
+    flagship.build makes for chip_smoke (CO2, H2, monatomic) has the shape
+    of tools/flagship.py's JAX-side build function: atom slots, live
     atoms, molecule slots and the move window S."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['mpmcxx_tpu'] = None\n"
+        "sys.modules['flagship'] = None\n"
         "import chip_smoke\n"
+        "from mpmcxx_tpu_torch import flagship\n"
         "from mpmcxx_tpu_torch.mc import chain\n"
         "from mpmcxx_tpu_torch.ops import energy, kernels, polar_cache\n"
-        f"state, meta, flags, params, opts = chip_smoke.build_flagship("
+        f"state, meta, flags, params, opts = flagship.build("
         f"{model!r}, 'cpu')\n"
         "chain.require_options(flags, params, opts)\n"
         "print(state.n_atom_slots, int(state.aalive.sum()),\n"
@@ -190,7 +193,8 @@ def test_kernel_build_needs_nvcc(monkeypatch):
 ENERGY_TERM_STEPS = {
     # chip_smoke step -> the code that runs it on the CPU at a small size
     "pairwise": (
-        "import flagship, torch_co2_system as co2\n"
+        "import torch_co2_system as co2\n"
+        "from mpmcxx_tpu_torch import flagship\n"
         "flagship.write_pqr_co2 = lambda p: co2.write_pqr(\n"
         "    p, co2.records(5, 18.0, 12, 3))\n"
         "chip_smoke.PW_MOVES = 4\n"
@@ -318,7 +322,8 @@ SPECIAL_MOVE_STEPS = {
     "h2_spin": (
         # the small H2 system in the flagship's place, K5 and K2 counting
         # their plain versions' calls
-        "import flagship, torch_co2_system as co2\n"
+        "import torch_co2_system as co2\n"
+        "from mpmcxx_tpu_torch import flagship\n"
         "flagship.write_pqr_h2 = lambda p: co2.write_pqr(\n"
         "    p, co2.records(model='h2'))\n"
         "flagship.L = co2.L\n"
@@ -522,5 +527,50 @@ def test_mesh_steps_run_on_cpu(step, tmp_path):
         "import chip_smoke\n"
         f"w = {str(tmp_path)!r}\n"
         + MESH_STUBS + MESH_STEPS[step])
+    r = _run(["-c", code], ROOT)
+    assert r.returncode == 0, r.stderr[-3000:]
+
+
+def test_bench_step_runs_on_cpu(tmp_path):
+    """Step 26 (the bench module's flagships, Thole solve and PIMC) on the
+    CPU, with jax and the JAX package made unimportable and the card's
+    calls stubbed: the small CO2, H2 and monatomic systems
+    in the flagships' place (a 4-move warm-up and one 8-move segment), the
+    Thole solve on the small monatomic one, the PIMC argon dimer for one
+    chunk after its warm-up; its gates pass, the launch gates against the
+    counted plain calls."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mpmcxx_tpu'] = None\n"
+        f"sys.path.insert(0, {os.path.join(ROOT, 'tests')!r})\n"
+        "import torch\n"
+        "for f in ('synchronize', 'empty_cache'):\n"
+        "    setattr(torch.cuda, f, lambda *a, **k: 0)\n"
+        "import chip_smoke\n"
+        "from mpmcxx_tpu_torch import bench, flagship\n"
+        "from mpmcxx_tpu_torch.ops import cuda_polar, polar\n"
+        "def counting(orig):\n"
+        "    def f(*a, **k):\n"
+        "        f.launches += 1\n"
+        "        return orig(*a, **k)\n"
+        "    f.launches = 0\n"
+        "    return f\n"
+        "for name in ('contract_planes_sym', 'write_plane_strips'):\n"
+        "    setattr(cuda_polar, name, counting(getattr(cuda_polar, name)))\n"
+        "polar.use_sym = lambda shape: shape[0] == shape[1]\n"
+        "import torch_co2_system as co2\n"
+        "for name, model in (('build_state_co2', 'co2'),\n"
+        "                    ('build_state_h2', 'h2'),\n"
+        "                    ('build_state', 'ar')):\n"
+        "    setattr(flagship, name, lambda device='cuda', model=model:\n"
+        "            co2.torch_system(device, model=model))\n"
+        "bench.CHUNK, bench.MEASURE_STEPS = 4, 8\n"
+        "n, out = chip_smoke.run_bench_step('cpu', device='cpu')\n"
+        "assert set(n) == {'bench-co2', 'bench-h2', 'bench-ar',\n"
+        "                  'bench-thole', 'bench-pimc'}, n\n"
+        "assert n['bench-co2']['contract_planes_sym'] == 4 * 12 + 4, n\n"
+        "assert n['bench-thole']['contract_planes_sym'] == 31 * 4, n\n"
+        "assert all(x > 0 for x in out.values()), out\n")
     r = _run(["-c", code], ROOT)
     assert r.returncode == 0, r.stderr[-3000:]
