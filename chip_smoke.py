@@ -250,8 +250,25 @@ its hand-written kernels, and check the results.
    of the same solve with the plain contraction on the same planes; the
    PIMC carried potential within 1e-9 of a per-bead recompute, no kernel
    launched.  Each number beside the card's name and power limit.
-27. Prints ``{"kernels": [...]}`` (per kernel: the sum over the main paths
-   of steps 3, 5-26 of its launches, each path counted from 0, and
+27. The validation studies (``python -m mpmcxx_tpu_torch.validate``,
+   mpmcxx_tpu_torch/validate/) in-process at wiring length under the
+   default schedule: uvt-argon, uvt-polar, uvt-cavity and npt for 3
+   corrtimes of 50 steps through runner.Simulation, gibbs-vle at 2 x 128
+   as long, ptemp's tempering and independent runs of 100 steps (4 baths,
+   swaps every 25) and warmstart on the CO2 flagship at full width
+   (11,264 slots), one 16-move chunk per variant (cold-4, warm-2, -3,
+   -4).  Checks: every key of each study's JSON line; the carried
+   energies against each refresh (rd, coulombic 1e-8, polarization 1e-5;
+   each Gibbs box 1e-9; each tempering replica's final energy 1e-9; each
+   warm-start checkpoint's rd and coulombic 1e-9 of its truth's
+   recompute); every warm-start truth converged, the last within 1e-6 of
+   an exact float64 CG solve; launches: uvt-polar exactly 4 K1 and 1 K2
+   per move run, uvt-cavity 2 K3 per move run, warmstart K K5 per move
+   plus K for the initial energy and 1 K2 per move per variant, every
+   other count 0.  The statistics are not gated (the runs are too
+   short).
+28. Prints ``{"kernels": [...]}`` (per kernel: the sum over the main paths
+   of steps 3, 5-27 of its launches, each path counted from 0, and
    the count of each path; the time, plain time and bound at the shapes
    of step 4 for K2, K3 and K5, step 6 for K4 and step 7 for K1, with
    step 25's sliced K1 and row-slice K2 beside them; the worst error of
@@ -468,6 +485,25 @@ MESH_PI_MOVES = 64
 BENCH_MODELS = ("co2", "h2", "ar")
 BENCH_REPEATS = 1
 THOLE_SOLVES = 31        # thole_solve_ms: a warm-up solve, 3 x 10 timed
+# step 27: the validation studies at wiring length: VAL_CORRTIMES
+# corrtimes of VAL_CORRTIME steps (uVT, NPT, Gibbs at 2 x 128), tempering
+# runs of VAL_PTEMP_STEPS with a swap every VAL_PTEMP_SWAP, one chunk of
+# VAL_WARM_MOVES per warm-start variant at full width
+VAL_CORRTIME = 50
+VAL_CORRTIMES = 3
+VAL_PTEMP_STEPS = 100
+VAL_PTEMP_SWAP = 25
+VAL_WARM_MOVES = 16
+VAL_WARM_SLOTS = 11264   # the CO2 flagship with 384 insertion slots
+VAL_KEYS = {
+    "common": ("study", "steps", "wall_s", "verdict", "device", "card"),
+    "means": ("corrtime", "seed", "burn_frac", "samples", "means",
+              "truths", "sigma"),
+    "ptemp": ("swap_every", "seed", "ladder", "baths", "swap"),
+    "warmstart": ("chunks", "chunk_steps", "slots", "variants",
+                  "decision", "truths", "truth_failed"),
+}
+MEAN_KEYS = ("mean", "block_err", "tau_err", "err")
 SYNTH_A = 4096
 RAGGED_A = 4001          # A % 4 != 0: no TMA tensor map (16-byte rows)
 SYM_SYNTH_A = (4096, 4032)   # K5's 64-row tiles: nr = 64 (even), 63 (odd)
@@ -1921,19 +1957,14 @@ def vle_simulation(workdir, device="cuda", extra="", corrtimes=2,
     """Step 13's GibbsSimulation in ``workdir``/``label`` (input lines
     ``extra`` added, ``corrtimes`` corrtimes of VLE_STEPS), its shape
     checked: N = (497, 15) on 994 and 512 slots, the dense incremental
-    path."""
-    import gibbs_vle as vle
+    path.  The boxes, temperature and lever-rule split are the VLE
+    study's (mpmcxx_tpu_torch/validate/systems.py)."""
     from mpmcxx_tpu_torch.config.parser import read_config
     from mpmcxx_tpu_torch.mc.gibbs import GibbsSimulation
+    from mpmcxx_tpu_torch.validate import systems as vle
 
-    sig3 = vle.SIG ** 3
-    V_box = VLE_N_BOX / vle.RHO_TOTAL * sig3
-    L = V_box ** (1 / 3)
     # the lever rule at the literature densities (gibbs_vle.main)
-    rl, rv = vle.LIT["rho_l"][0] / sig3, vle.LIT["rho_v"][0] / sig3
-    n_total, V_total = 2 * VLE_N_BOX, 2 * V_box
-    n_a = int(round(rl * (n_total - V_total * rv) / (rl - rv)))
-    n_b = n_total - n_a
+    n_a, n_b, L = vle.vle_split(VLE_N_BOX)
     d = os.path.join(workdir, label)
     os.makedirs(d)
     vle.write_box(os.path.join(d, "boxA.pqr"), n_a, L, 4)
@@ -4283,6 +4314,234 @@ def run_bench_step(card, device="cuda"):
     return launches, out
 
 
+def _val_keys(rec, launches):
+    """Every key of a validation study's JSON line present, its launch
+    counts ``launches`` (and the line serializable)."""
+    study = rec["study"]
+    if rec.get("launches") != launches:
+        raise AssertionError(f"[validate-{study}] the line's launches "
+                             f"{rec.get('launches')}, counted {launches}")
+    group = study if study in ("ptemp", "warmstart") else "means"
+    missing = [k for k in VAL_KEYS["common"] + VAL_KEYS[group]
+               if k not in rec]
+    if group == "means":
+        missing += [f"means.{q}.{k}" for q, m in rec["means"].items()
+                    for k in MEAN_KEYS if k not in m]
+        missing += [f"sigma.{t}" for t in rec["truths"]
+                    if t not in rec["sigma"]]
+    elif group == "ptemp":
+        missing += [f"baths.{b['T']}.{side}.{k}" for b in rec["baths"]
+                    for side in ("tempering", "independent")
+                    for k in MEAN_KEYS if k not in b[side]]
+        missing += [f"swap.{k}" for k in ("measured", "analytic", "sigma")
+                    if k not in rec["swap"]]
+    if missing or rec["verdict"] not in ("agree", "disagree"):
+        raise AssertionError(f"[validate-{study}] keys missing {missing}, "
+                             f"verdict {rec['verdict']!r}")
+    return json.dumps(rec)
+
+
+def _instrument_gibbs(log):
+    """Wrap the port's Gibbs refresher (as GibbsSimulation looks it up) to
+    record each box's incremental energy beside the refresh's full
+    recompute.  Returns a function that undoes the wrapping."""
+    from mpmcxx_tpu_torch.mc import gibbs
+    orig = gibbs.make_gibbs_refresher
+
+    def make_gibbs_refresher(*a, **kw):
+        refresh = orig(*a, **kw)
+
+        def recorded(carry):
+            inc = (float(carry.energy_a), float(carry.energy_b))
+            out = refresh(carry)
+            log.append((inc, (float(out.energy_a), float(out.energy_b))))
+            return out
+        return recorded
+
+    gibbs.make_gibbs_refresher = make_gibbs_refresher
+
+    def undo():
+        gibbs.make_gibbs_refresher = orig
+    return undo
+
+
+def run_validate_step(card, device="cuda"):
+    """Step 27: the validation studies (``python -m
+    mpmcxx_tpu_torch.validate``) in-process at wiring length, each line
+    through ``validate.cli.record`` with every launch count 0 just before
+    it: uvt-argon, uvt-polar, uvt-cavity and npt for VAL_CORRTIMES
+    corrtimes of VAL_CORRTIME steps, gibbs-vle at 2 x 128 as long,
+    ptemp's two runs of VAL_PTEMP_STEPS (swaps every VAL_PTEMP_SWAP) and
+    warmstart at full width (11,264 slots) with one chunk of
+    VAL_WARM_MOVES moves per variant.  Checks: every key of each JSON
+    line; before each refresh the carried rd and coulombic within 1e-8
+    and polarization within 1e-5 of the full recompute (uVT, NPT), each
+    Gibbs box within 1e-9; each tempering replica's final energy within
+    1e-9 of a recompute; each warm-start checkpoint's carried rd and
+    coulombic within 1e-9 of the truth's recompute, every truth
+    converged and the last one within 1e-6 (relative) of an exact CG
+    solve in float64 on the same configuration; launches: uvt-polar
+    exactly 4 K1 (the XLA branch of its <= 1,024-slot dense path) and 1
+    K2 per move run, uvt-cavity 2 K3 per move run (grid and darts),
+    warmstart K K5 per move plus K for the initial energy and 1 K2 per
+    move for each variant's K (4 + 2 + 3 + 4), every other count 0.  The
+    statistics are not gated: the runs are too short.  Returns (launch
+    counts per path, {study: (wall s, verdict)})."""
+    import torch
+    from mpmcxx_tpu_torch.mc import chain
+    from mpmcxx_tpu_torch.ops.energy import energy_breakdown_blocked
+    from mpmcxx_tpu_torch.validate import cli, ptemp, systems, warmstart
+
+    def args_of(study, steps, corrtime):
+        return cli.parser().parse_args(
+            [study, "--steps", str(steps), "--corrtime", str(corrtime),
+             "--device", str(device)])
+
+    def gate(label, n, want):
+        want = dict({k: 0 for k in n}, **want)
+        if n != want:
+            raise AssertionError(f"[{label}] launches {n}, want {want}")
+
+    launches, out = {}, {}
+    steps = VAL_CORRTIME * VAL_CORRTIMES
+    for study in ("uvt-argon", "uvt-polar", "uvt-cavity", "npt"):
+        label = f"validate-{study}"
+        log = {"chunks": [], "refresh": []}
+        undo = _instrument_chain(log)
+        t0 = time.time()
+        zero_launches()
+        try:
+            rec = cli.record(study, args_of(study, steps, VAL_CORRTIME),
+                             device, card)
+        finally:
+            undo()
+        launches[label] = n = launches_now()
+        _say(_val_keys(rec, n))
+        polar = study == "uvt-polar"
+        _check_refreshes(label, log, (("rd_energy", 1e-8),
+                                      ("coulombic_energy", 1e-8)) +
+                         ((("polarization_energy", 1e-5),) if polar
+                          else ()), VAL_CORRTIMES)
+        moves = sum(len(o.movetype) for _, _, o in log["chunks"])
+        gate(label, n, {"uvt-polar": dict(contract_planes=4 * moves,
+                                          write_plane_strips=moves),
+                        "uvt-cavity": dict(occupancy=2 * moves)}.get(
+                            study, {}))
+        out[study] = (time.time() - t0, rec["verdict"])
+        _say(f"[{label}] {moves} moves run ({steps} steps, slots "
+             f"{rec.get('mol_slots')}), launches {n}; {out[study][0]:.1f} s")
+
+    label = "validate-gibbs-vle"
+    log = []
+    undo = _instrument_gibbs(log)
+    t0 = time.time()
+    zero_launches()
+    try:
+        rec = cli.record("gibbs-vle", args_of("gibbs-vle", steps,
+                                              VAL_CORRTIME), device, card)
+    finally:
+        undo()
+    launches[label] = n = launches_now()
+    _say(_val_keys(rec, n))
+    if len(log) != VAL_CORRTIMES:
+        raise AssertionError(f"[{label}] {len(log)} refreshes")
+    for c, (inc, full) in enumerate(log):
+        for box, got, want in zip("AB", inc, full):
+            rel, ok = _close(got, want, 1e-9)
+            _say(f"[{label}] corrtime {c + 1} box {box}: incremental "
+                 f"{got:.9f} vs full {want:.9f}: rel {rel:.2e} (tol 1e-09)")
+            if not ok:
+                raise AssertionError(f"[{label}] box {box}: rel {rel}")
+    gate(label, n, {})
+    out["gibbs-vle"] = (time.time() - t0, rec["verdict"])
+
+    label = "validate-ptemp"
+    finals = []
+    orig_chains = ptemp.run_chains
+
+    def run_chains(*a, **kw):
+        res = orig_chains(*a, **kw)
+        finals.append(res[2])
+        return res
+    ptemp.run_chains = run_chains
+    t0 = time.time()
+    zero_launches()
+    try:
+        rec = cli.record("ptemp", args_of("ptemp", VAL_PTEMP_STEPS,
+                                          VAL_PTEMP_SWAP), device, card)
+    finally:
+        ptemp.run_chains = orig_chains
+    launches[label] = n = launches_now()
+    _say(_val_keys(rec, n))
+    _, flags, params, opts = systems.ptemp_system(ptemp.T_MIN, device)
+    refresh = chain.make_refresher(flags, params, opts)
+    for run, carries in zip(("tempering", "independent"), finals):
+        for r, c in enumerate(carries):
+            got = float(c.obs.energy)
+            want = float(refresh(c).obs.energy)
+            rel, ok = _close(got, want, 1e-9)
+            _say(f"[{label}] {run} replica {r} at {float(c.temperature):.2f}"
+                 f" K: carried {got:.9f} vs recompute {want:.9f}: rel "
+                 f"{rel:.2e} (tol 1e-09)")
+            if not ok:
+                raise AssertionError(f"[{label}] replica {r}: rel {rel}")
+    gate(label, n, {})
+    out["ptemp"] = (time.time() - t0, rec["verdict"])
+
+    label = "validate-warmstart"
+    last = {}
+    orig_variant = warmstart.run_variant
+
+    def on_chunk(carry, fl, params, eb):
+        for name, full in (("rd_energy", eb.rd),
+                           ("coulombic_energy", eb.coulombic)):
+            got, want = float(getattr(carry.obs, name)), float(full)
+            rel, ok = _close(got, want, 1e-9)
+            _say(f"[{label}] K {fl.polar_max_iter} warm "
+                 f"{fl.polar_warm_start}: carried {name} {got:.9f} vs "
+                 f"recompute {want:.9f}: rel {rel:.2e} (tol 1e-09)")
+            if not ok:
+                raise AssertionError(f"[{label}] {name}: rel {rel}")
+        last.update(state=carry.state, truth=float(eb.polarization),
+                    flags=fl, params=params)
+
+    def run_variant(*a, **kw):
+        return orig_variant(*a, **dict(kw, on_chunk=on_chunk))
+    warmstart.run_variant = run_variant
+    t0 = time.time()
+    zero_launches()
+    try:
+        rec = cli.record("warmstart", args_of("warmstart", VAL_WARM_MOVES,
+                                              VAL_WARM_MOVES), device, card)
+    finally:
+        warmstart.run_variant = orig_variant
+    launches[label] = n = launches_now()
+    _say(_val_keys(rec, n))
+    if rec["truth_failed"] or rec["slots"] != VAL_WARM_SLOTS:
+        raise AssertionError(f"[{label}] {rec['truth_failed']} truths "
+                             f"failed; {rec['slots']} slots")
+    iters = [int(name.split("-")[1]) for name in rec["variants"]]
+    m = VAL_WARM_MOVES
+    gate(label, n, dict(contract_planes_sym=sum(k * (m + 1) for k in iters),
+                        write_plane_strips=m * len(iters)))
+    cg = energy_breakdown_blocked(
+        last["state"].replace(mu=last["state"].mu * 0.0),
+        last["flags"].replace(polar_iterative=False, polar_mixed=False,
+                              polar_warm_start=False), last["params"],
+        block=warmstart.truth_block(last["state"]))
+    rel, ok = _close(last["truth"], float(cg.polarization), 1e-6)
+    _say(f"[{label}] converged truth {last['truth']:.9f} vs CG "
+         f"{float(cg.polarization):.9f}: rel {rel:.2e} (tol 1e-06); "
+         f"decision {rec['decision']}")
+    if not ok:
+        raise AssertionError(f"[{label}] truth vs CG rel {rel}")
+    out["warmstart"] = (time.time() - t0, rec["verdict"])
+    del last, cg
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return launches, out
+
+
 def ptxas_report(log):
     """Per kernel of nvcc's build log: its registers, barriers and shared
     memory ("Used ...") and its stack and spills, named by the kernel's
@@ -4322,8 +4581,6 @@ def main() -> int:
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    # step 13 reads tools/gibbs_vle.py's constants (vle_simulation)
-    sys.path.insert(0, os.path.join(root, "tools"))
     from mpmcxx_tpu_torch import flagship
     from mpmcxx_tpu_torch import constants as const
     from mpmcxx_tpu_torch.ops import kernels
@@ -4623,6 +4880,16 @@ def main() -> int:
     bench_s = time.time() - t_bench
     _say(f"step 26 took {bench_s:.1f} s (budget 120 s)")
 
+    # --- 27. the validation studies at wiring length ---------------------
+    t_val = time.time()
+    with schedule():
+        val_launches, val_out = run_validate_step(card)
+    launches.update(val_launches)
+    flush()
+    val_s = time.time() - t_val
+    _say(f"step 27 took {val_s:.1f} s (budget 120 s): " + ", ".join(
+        f"{s} {t:.1f} s ({v})" for s, (t, v) in val_out.items()))
+
     _say(f"second-chunk moves/s on {card}: " + ", ".join(
         f"{m} {r:.2f}" for m, r in rates.items()) +
         f"; examples' chunk steps/s: " + ", ".join(
@@ -4667,6 +4934,7 @@ def main() -> int:
             f"{m} {bench_out[m]:.2f} moves/s" for m in BENCH_MODELS)
         + f", Thole {bench_out['thole_ms']:.3f} ms per solve, PIMC "
         f"{bench_out['pimc']:.1f} bead sweeps/s; step 26 {bench_s:.1f} s"
+        + f"; validation studies at wiring length {val_s:.1f} s"
         + f"; whole check "
         f"{time.time() - t_start:.1f} s after the card query")
     k5_all = dict(k5_cli, max_abs_err=max(k5["max_abs_err"],

@@ -71,9 +71,10 @@ class PolarCache:
     f2: torch.Tensor      # [K] f64 sum_j q_j sin(k.r_j)
 
 
-def empty_cache(device=None) -> PolarCache:
-    """A cache with every field empty (polar_cache.py:70-73): [0, 0]
-    planes and phases, a [0, 3] static field, [0] structure factors."""
+def empty_cache(device="cuda") -> PolarCache:
+    """A cache with every field empty (polar_cache.py:70-73) on ``device``
+    (the card unless the caller asks for another): [0, 0] planes and
+    phases, a [0, 3] static field, [0] structure factors."""
     z2 = torch.zeros((0, 0), dtype=torch.float32, device=device)
     f = torch.zeros(0, dtype=torch.float64, device=device)
     return PolarCache(z2, z2.clone(), z2.clone(), z2.clone(), z2.clone(),

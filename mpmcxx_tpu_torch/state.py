@@ -180,9 +180,9 @@ def build_state(atoms: list[AtomRecord], basis: np.ndarray,
                 extra_mol_capacity: int = 0,
                 template_moleculetype: Optional[str] = None,
                 rot_partfunc: Optional[dict] = None,
-                device=None) -> tuple[SystemState, dict]:
-    """Assemble a SystemState on ``device`` from parsed atom records
-    (state.py:190-352).  ``extra_mol_capacity`` > 0 reserves dead copies of
+                device="cuda") -> tuple[SystemState, dict]:
+    """Assemble a SystemState on ``device`` (the card unless the caller
+    asks for another) from parsed atom records (state.py:190-352).  ``extra_mol_capacity`` > 0 reserves dead copies of
     the last movable molecule for uVT insertion headroom; a dict
     ``{moleculetype: count}`` reserves per-species headroom.  Returns
     (state, meta)."""

@@ -4,7 +4,8 @@ chip_smoke imports cleanly, refuses to run without CUDA or outside a
 checkout, and builds the flagship with the port; the CLI refuses to run
 without CUDA unless given ``--device cpu``, and then runs an input to its
 end, the Gibbs and PI examples included; neither imports jax or the JAX
-package."""
+package, and chip_smoke reads nothing under tools/ (the children run
+with only the repository root on their path)."""
 
 import os
 import shutil
@@ -24,7 +25,7 @@ def _run(args, cwd, timeout=300):
     # one intra-op thread per child: the suite runs several workers at
     # once, and children that each take every core oversubscribe them
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
-               PYTHONPATH=os.pathsep.join([ROOT, os.path.join(ROOT, "tools")]))
+               PYTHONPATH=ROOT)
     return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=timeout)
 
@@ -574,3 +575,69 @@ def test_bench_step_runs_on_cpu(tmp_path):
         "assert all(x > 0 for x in out.values()), out\n")
     r = _run(["-c", code], ROOT)
     assert r.returncode == 0, r.stderr[-3000:]
+
+
+def test_vle_shape_without_tools(tmp_path):
+    """Step 13's Gibbs VLE input from the port's validate package with
+    tools/ off the path and its gibbs_vle module unimportable: the
+    lever-rule split N = (497, 15) on 994 and 512 slots, the dense
+    incremental path (vle_simulation's own gate)."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mpmcxx_tpu'] = None\n"
+        "sys.modules['gibbs_vle'] = None\n"
+        "assert not any(p.endswith('tools') for p in sys.path), sys.path\n"
+        "import chip_smoke\n"
+        f"sim = chip_smoke.vle_simulation({str(tmp_path)!r}, device='cpu')\n"
+        "print(sim.state_a.n_atom_slots, sim.state_b.n_atom_slots)\n")
+    r = _run(["-c", code], ROOT)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.split()[-2:] == ["994", "512"]
+
+
+def test_validate_step_runs_on_cpu(tmp_path):
+    """Step 27 (the validation studies at wiring length) on the CPU, with
+    jax, the JAX package and the tools' modules made unimportable and the
+    card's calls stubbed: warmstart on the mini geometry (232 slots) in
+    the flagship's place; K1, K5, K2 and K3 count their plain versions'
+    calls, K5 for square planes of at least 200 slots; every gate of the
+    step passes (JSON keys, refreshes, the launch counts, the truth
+    against CG)."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mpmcxx_tpu'] = None\n"
+        "for m in ('uvt_crosscheck', 'npt_crosscheck', 'gibbs_vle',\n"
+        "          'ptemp_validate', 'warmstart_study', 'flagship'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "for f in ('synchronize', 'empty_cache'):\n"
+        "    setattr(torch.cuda, f, lambda *a, **k: 0)\n"
+        "import chip_smoke\n"
+        "from mpmcxx_tpu_torch.ops import cuda_cavity, cuda_polar, polar\n"
+        "from mpmcxx_tpu_torch.mc import cavity\n"
+        "from mpmcxx_tpu_torch.validate import common, warmstart\n"
+        "def counting(orig):\n"
+        "    def f(*a, **k):\n"
+        "        f.launches += 1\n"
+        "        return orig(*a, **k)\n"
+        "    f.launches = 0\n"
+        "    return f\n"
+        "for name in ('contract_planes', 'contract_planes_sym',\n"
+        "             'write_plane_strips'):\n"
+        "    setattr(cuda_polar, name, counting(getattr(cuda_polar, name)))\n"
+        "cuda_cavity.occupancy = cavity.occupancy = counting(\n"
+        "    cuda_cavity.occupancy)\n"
+        "polar.use_sym = lambda shape: shape[0] == shape[1] >= 200\n"
+        "build = warmstart.build\n"
+        "warmstart.build = lambda mini, device: build(True, device)\n"
+        "chip_smoke.VAL_WARM_SLOTS = 232\n"
+        "n, out = chip_smoke.run_validate_step('cpu', device='cpu')\n"
+        "assert set(out) == {'uvt-argon', 'uvt-polar', 'uvt-cavity', 'npt',\n"
+        "                    'gibbs-vle', 'ptemp', 'warmstart'}, out\n"
+        "assert n['validate-uvt-polar']['contract_planes'] >= 4 * 150, n\n"
+        "assert n['validate-uvt-cavity']['occupancy'] >= 2 * 150, n\n"
+        "assert n['validate-warmstart']['contract_planes_sym'] == 13 * 17, n\n")
+    r = _run(["-c", code], ROOT, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:] + r.stdout[-3000:]

@@ -68,7 +68,8 @@ def _build(fix, AtomRecord, build_state, const, config_extra=None):
                             c6=c6, c8=c8, c10=c10, c9=c9)
                  for (at, mt, mid, x, y, z, mass, q, al, eps, sig, om, gw,
                       c6, c8, c10, c9) in fix["atoms"]]
-    state = build_state(atoms, np.eye(3) * fix["basis"])[0]
+    dev = {} if const is const_j else {"device": "cpu"}
+    state = build_state(atoms, np.eye(3) * fix["basis"], **dev)[0]
     if const is const_j:
         from mpmcxx_tpu.config.parser import parse_config as parse
     else:
@@ -189,7 +190,7 @@ def _blocked_pair(**flag_kw):
     sj = build_state_j([AtomRecord_j(**r) for r in recs], np.eye(3) * 28.0,
                        extra_mol_capacity=171)[0]
     st = build_state_t([AtomRecord_t(**r) for r in recs], np.eye(3) * 28.0,
-                       extra_mol_capacity=171)[0]
+                       extra_mol_capacity=171, device="cpu")[0]
     _, _, fj, pj, _ = co2.jax_system()
     _, _, ft, pt, _ = co2.torch_system()
     alpha = 3.5 / 14.0

@@ -100,7 +100,7 @@ def test_write_state_pqr_byte_equal(tmp_path, wrapall):
     sj, mj = build_state_j(pqr_j.read_pqr(MOF_CO2), basis,
                            extra_mol_capacity=4)
     st, mt = build_state_t(pqr_t.read_pqr(MOF_CO2), basis,
-                           extra_mol_capacity=4)
+                           extra_mol_capacity=4, device="cpu")
     # move one molecule out of the cell so the COM wrap has work to do
     shift = np.zeros_like(np.asarray(sj.pos))
     shift[np.asarray(sj.mol_id) == 3] = [30.0, -13.0, 0.5]

@@ -62,7 +62,7 @@ def _formats(atoms_t, atoms_j, basis, monkeypatch):
     port's Python path and the JAX package's native codec, each with
     long_output off and on."""
     assert native_t.get_lib() is not None and native_j.get_lib() is not None
-    st, mt = build_t(atoms_t, basis)
+    st, mt = build_t(atoms_t, basis, device="cpu")
     sj, mj = build_j(atoms_j, basis)
     out = {"codec": [], "python": [], "jax": []}
     for long_output in (False, True):
@@ -177,7 +177,7 @@ def test_without_gxx_python_path_writes_same_bytes(tmp_path, monkeypatch,
     disk equal the codec's."""
     src = os.path.join(REPO, "examples", "gcmc-mof-co2", "mof_co2.pqr")
     st, meta = build_t(pqr_t.read_pqr(src), np.eye(3) * 24.0,
-                       extra_mol_capacity=4)
+                       extra_mol_capacity=4, device="cpu")
     with_codec = tmp_path / "codec.pqr"
     pqr_t.write_state_pqr(str(with_codec), st, meta)
     pqr_t.drain()

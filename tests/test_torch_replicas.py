@@ -278,7 +278,8 @@ def _argon_box(n, L, extra=8):
                         "Ar", "Ar", len(atoms) + 1, x=(i + .5) * s - L / 2,
                         y=(j + .5) * s - L / 2, z=(k + .5) * s - L / 2,
                         mass=39.948, epsilon=119.8, sigma=3.405))
-    return build_state(atoms, np.eye(3) * L, extra_mol_capacity=extra)
+    return build_state(atoms, np.eye(3) * L, extra_mol_capacity=extra,
+                       device="cpu")
 
 
 def test_replicated_chains_diverge():
