@@ -7,6 +7,10 @@ signal-safe shutdown (SIGTERM/SIGUSR1/SIGUSR2 print and exit, as in
 src/args_etc.h:306-347), ``--replicas R`` and ``--device`` (default
 ``cuda``).  Without a CUDA device the default exits non-zero; ``--device
 cpu`` runs the plain PyTorch versions of the kernels on the CPU.
+``--trace FILE`` runs the program's tracer (``tracing.py``) from before
+the set-up to the run's end, then writes its ``snapshot()`` to FILE as
+JSON: per span its count and total, self and longest ns, the counters
+(``host_sync`` by span on a CUDA device), the moves and K1-K5's launches.
 
 The dispatch is the twin's (cli.py:57-71): a pi_nvt input runs
 ``PISimulation`` and a Gibbs input ``GibbsSimulation``, both ignoring
@@ -15,16 +19,18 @@ R replica chains (at least 2 under tempering) through
 ``parallel.driver.ReplicaSimulation``; anything else ``Simulation``.
 
 Usage: python -m mpmcxx_tpu_torch.cli [--device cpu] [-P 8]
-       [-xyz frames.xyz] [--replicas 4] input.in
+       [-xyz frames.xyz] [--replicas 4] [--trace spans.json] input.in
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import signal
 import sys
 
 from . import constants as const
+from . import tracing
 
 
 def _install_signal_handlers():
@@ -69,6 +75,9 @@ def run(argv=None):
                              "one after the other on the device")
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on (default: cuda)")
+    parser.add_argument("--trace", default="", metavar="FILE",
+                        help="trace the run's spans and host syncs and "
+                             "write their totals to FILE as JSON")
     parser.add_argument("input", help="simulation input file")
     args = parser.parse_args(argv)
 
@@ -80,7 +89,18 @@ def run(argv=None):
         return 2, None
 
     _install_signal_handlers()
+    if not args.trace:
+        return _run(args, device)
+    tracing.enable()
+    try:
+        return _run(args, device)
+    finally:
+        tracing.disable()
+        with open(args.trace, "w") as f:
+            json.dump(tracing.snapshot(), f, indent=1, sort_keys=True)
 
+
+def _run(args, device):
     from .config.parser import read_config
     cfg = read_config(args.input)
     if not args.quiet:

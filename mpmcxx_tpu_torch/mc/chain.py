@@ -48,6 +48,7 @@ import torch
 
 from .. import constants as const
 from .. import random as rnd
+from .. import tracing
 from ..flags import FFlags, RunParams, require_supported
 from ..ops import delta as delta_mod
 from ..ops import polar_cache as pcache_mod
@@ -561,22 +562,25 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
         state = carry.state
         params = params_at(carry.temperature)
         if volume or not opts.incremental:
-            eb, sf, recip, fresh = _full_recompute(
-                new_state, flags, params, opts,
-                meshing.mesh_of(carry.pcache))
+            with tracing.span("step.full_recompute"):
+                eb, sf, recip, fresh = _full_recompute(
+                    new_state, flags, params, opts,
+                    meshing.mesh_of(carry.pcache))
             if flags.polarization:
                 # converged dipoles ride on the state (dipole/field logs)
                 new_state = new_state.replace(mu=eb.mu)
             return eb, new_state, sf, recip, fresh
-        dres = delta_mod.delta_energy(state, new_state, rows, carry.sf,
-                                      flags, params, recip_old=carry.recip_e)
-        rd = carry.obs.rd_energy + dres.d_rd
-        coul = carry.obs.coulombic_energy + dres.d_coul
-        z = torch.zeros_like(rd)
-        # the penalty of the moved rows' pairs (chain.py:460-466, 528)
-        pen = cavity_absolute_check(
-            new_state, build_pairs_rect(new_state, flags, rows), params) \
-            if flags.cavity_autoreject_absolute else z
+        with tracing.span("step.delta_e"):
+            dres = delta_mod.delta_energy(state, new_state, rows, carry.sf,
+                                          flags, params,
+                                          recip_old=carry.recip_e)
+            rd = carry.obs.rd_energy + dres.d_rd
+            coul = carry.obs.coulombic_energy + dres.d_coul
+            z = torch.zeros_like(rd)
+            # the penalty of the moved rows' pairs (chain.py:460-466, 528)
+            pen = cavity_absolute_check(
+                new_state, build_pairs_rect(new_state, flags, rows),
+                params) if flags.cavity_autoreject_absolute else z
         if not with_cache:
             eb = EnergyBreakdown(
                 total=rd + coul, rd=rd, coulombic=coul, polarization=z,
@@ -587,9 +591,10 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
             return eb, new_state, dres.sf_new, dres.recip_new, None
         # matrix-free proposal: the cached planes stay read-only here; the
         # commit writes them in place after the decision
-        pres, pcommit = pcache_mod.polar_proposal(
-            carry.pcache, state, new_state, rows, flags, params,
-            with_commit=True)
+        with tracing.span("step.polar"):
+            pres, pcommit = pcache_mod.polar_proposal(
+                carry.pcache, state, new_state, rows, flags, params,
+                with_commit=True)
         eb = EnergyBreakdown(
             total=rd + coul + pres.energy, rd=rd, coulombic=coul,
             polarization=pres.energy, vdw=z, three_body=z, kinetic=z,
@@ -602,123 +607,133 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
     def step(carry: MCCarry, d, dart_u=None, volume=False, wide=None):
         state = carry.state
         T = carry.temperature
-        target, N_movable = moves.pick_random_movable(state, d[_U_TARGET])
-        n_adiabatic = torch.sum(state.mol_alive & state.mol_adiabatic)
-        movetype = _pick_movetype(opts, d[_R_MOVE:_R_MOVE + 4], N_movable,
-                                  n_adiabatic, volume)
-        if uvt and any_adiabatic(state):
-            # ADIABATIC moves target the k-th live adiabatic molecule
-            # (src/System.MonteCarlo.cpp:405-410; chain.py:365-371)
-            ka = torch.floor(d[_U_ADIA] * torch.clamp(n_adiabatic, min=1))
-            adia_target = moves.pick_kth_true(
-                state.mol_alive & state.mol_adiabatic, ka.to(torch.int64))
-            target = torch.where(movetype == const.MOVETYPE_ADIABATIC,
-                                 adia_target, target)
-        is_ins = movetype == const.MOVETYPE_INSERT
-        is_rem = movetype == const.MOVETYPE_REMOVE
+        with tracing.span("step.target"):
+            target, N_movable = moves.pick_random_movable(state,
+                                                          d[_U_TARGET])
+            n_adiabatic = torch.sum(state.mol_alive & state.mol_adiabatic)
+            movetype = _pick_movetype(opts, d[_R_MOVE:_R_MOVE + 4],
+                                      N_movable, n_adiabatic, volume)
+            if uvt and any_adiabatic(state):
+                # ADIABATIC moves target the k-th live adiabatic molecule
+                # (src/System.MonteCarlo.cpp:405-410; chain.py:365-371)
+                ka = torch.floor(d[_U_ADIA] *
+                                 torch.clamp(n_adiabatic, min=1))
+                adia_target = moves.pick_kth_true(
+                    state.mol_alive & state.mol_adiabatic,
+                    ka.to(torch.int64))
+                target = torch.where(movetype == const.MOVETYPE_ADIABATIC,
+                                     adia_target, target)
+            is_ins = movetype == const.MOVETYPE_INSERT
+            is_rem = movetype == const.MOVETYPE_REMOVE
         if opts.cavity_bias:
-            cavity, biased, cavity_prior, insert_com = cavity_branch(
-                carry, d, dart_u, is_ins, is_rem)
+            with tracing.span("step.cavity"):
+                cavity, biased, cavity_prior, insert_com = cavity_branch(
+                    carry, d, dart_u, is_ins, is_rem)
         else:
             cavity, cavity_prior, insert_com = carry.cavity, 0.0, None
             biased = torch.zeros_like(movetype, dtype=torch.bool)
-        if volume:
-            new_state = moves.volume_change(state, d[_U_VOL],
-                                            opts.volume_change_factor)
-            valid, rows, insert_slot = True, None, None
-        else:
-            new_state, valid, target, rows, insert_slot = local_move(
-                carry, d, wide, movetype, target, insert_com)
+        with tracing.span("step.move"):
+            if volume:
+                new_state = moves.volume_change(state, d[_U_VOL],
+                                                opts.volume_change_factor)
+                valid, rows, insert_slot = True, None, None
+            else:
+                new_state, valid, target, rows, insert_slot = local_move(
+                    carry, d, wide, movetype, target, insert_com)
         eb, new_state, sf_new, recip_new, pnew = evaluate(
             carry, new_state, rows, volume)
+        with tracing.span("step.accept"):
+            final_energy = eb.total + eb.cavity_penalty
+            obs_after = observables_from_breakdown(new_state, eb, flags,
+                                                   base_params, opts.ensemble)
+            delta = final_energy - carry.obs.energy
+            t1 = target.reshape(1)
+            # the spin flip's ratio of rotational partition functions: NaN
+            # while they are 0, as the twin leaves them (fault kept)
+            pr = metropolis.spin_partfunc_ratio(
+                new_state.nuclear_spin.index_select(0, t1)[0],
+                state.rot_partfunc_g.index_select(0, t1)[0],
+                state.rot_partfunc_u.index_select(0, t1)[0]) \
+                if opts.ensemble in (const.ENSEMBLE_UVT, const.ENSEMBLE_NVT) \
+                else None
+            if uvt:
+                fug = opts.fugacity
+                if species_fug:
+                    # INSERT's target is the slot of the drawn species,
+                    # REMOVE's the removed molecule (chain.py:596-605)
+                    tf = on(state.pos.device)[2]
+                    mt = state.mol_type.index_select(0, t1).clamp(
+                        0, len(opts.type_fugacities) - 1)
+                    fug = tf.index_select(0, mt)[0]
+                bf = metropolis.uvt_factor(
+                    movetype, delta, T, state.pbc.volume, fug, obs_after.N,
+                    float(opts.sorbate_count), biased, cavity[1], cavity_prior,
+                    pr)
+            elif opts.ensemble == const.ENSEMBLE_NPT:
+                bf = metropolis.npt_factor(movetype, delta, T,
+                                           base_params.pressure,
+                                           state.pbc.volume,
+                                           new_state.pbc.volume, obs_after.N)
+            elif opts.ensemble == const.ENSEMBLE_NVE:
+                bf = metropolis.nve_factor(base_params.total_energy,
+                                           carry.obs.energy,
+                                           final_energy, obs_after.N)
+            else:
+                bf = metropolis.nvt_factor(movetype, delta, T, pr)
+            bf = torch.where(torch.isfinite(final_energy) & valid, bf, 0.0)
+            accept = (d[_U_ACC] < bf) & ~eb.iterator_failed
 
-        final_energy = eb.total + eb.cavity_penalty
-        obs_after = observables_from_breakdown(new_state, eb, flags,
-                                               base_params, opts.ensemble)
-        delta = final_energy - carry.obs.energy
-        t1 = target.reshape(1)
-        # the spin flip's ratio of rotational partition functions: NaN
-        # while they are 0, as the twin leaves them (fault kept)
-        pr = metropolis.spin_partfunc_ratio(
-            new_state.nuclear_spin.index_select(0, t1)[0],
-            state.rot_partfunc_g.index_select(0, t1)[0],
-            state.rot_partfunc_u.index_select(0, t1)[0]) \
-            if opts.ensemble in (const.ENSEMBLE_UVT, const.ENSEMBLE_NVT) \
-            else None
-        if uvt:
-            fug = opts.fugacity
-            if species_fug:
-                # INSERT's target is the slot of the drawn species,
-                # REMOVE's the removed molecule (chain.py:596-605)
-                tf = on(state.pos.device)[2]
-                mt = state.mol_type.index_select(0, t1).clamp(
-                    0, len(opts.type_fugacities) - 1)
-                fug = tf.index_select(0, mt)[0]
-            bf = metropolis.uvt_factor(
-                movetype, delta, T, state.pbc.volume, fug, obs_after.N,
-                float(opts.sorbate_count), biased, cavity[1], cavity_prior,
-                pr)
-        elif opts.ensemble == const.ENSEMBLE_NPT:
-            bf = metropolis.npt_factor(movetype, delta, T,
-                                       base_params.pressure,
-                                       state.pbc.volume,
-                                       new_state.pbc.volume, obs_after.N)
-        elif opts.ensemble == const.ENSEMBLE_NVE:
-            bf = metropolis.nve_factor(base_params.total_energy,
-                                       carry.obs.energy,
-                                       final_energy, obs_after.N)
-        else:
-            bf = metropolis.nvt_factor(movetype, delta, T, pr)
-        bf = torch.where(torch.isfinite(final_energy) & valid, bf, 0.0)
-        accept = (d[_U_ACC] < bf) & ~eb.iterator_failed
+            def sel(a, b):
+                return torch.where(accept, a, b)
 
-        def sel(a, b):
-            return torch.where(accept, a, b)
-
-        changed = ("pos",) + (("mu",) if flags.polarization else ()) + \
-            moved_fields
-        state_out = state.replace(**{
-            f: sel(getattr(new_state, f), getattr(state, f))
-            for f in changed})
-        if opts.spectre:
-            # a rejected SPECTRE move keeps the renormalization shift it
-            # gave the other SPECTRE sites (the reference's restore,
-            # src/System.MonteCarlo.cpp:1559-1582; chain.py:627-635)
-            state_out.charge = sel(new_state.charge,
-                                   moves.spectre_reject_restore(
-                                       state, new_state, target))
-        if volume:
-            state_out.pbc = PBC(**{
-                f.name: sel(getattr(new_state.pbc, f.name),
-                            getattr(state.pbc, f.name))
-                for f in dataclasses.fields(PBC)})
-        obs_out = Observables(**{
-            f.name: sel(getattr(obs_after, f.name), getattr(carry.obs, f.name))
-            for f in dataclasses.fields(Observables)})
-        sf_out = delta_mod.SFCache(sel(sf_new.re, carry.sf.re),
-                                   sel(sf_new.im, carry.sf.im))
+            changed = ("pos",) + (("mu",) if flags.polarization else ()) + \
+                moved_fields
+            state_out = state.replace(**{
+                f: sel(getattr(new_state, f), getattr(state, f))
+                for f in changed})
+            if opts.spectre:
+                # a rejected SPECTRE move keeps the renormalization shift it
+                # gave the other SPECTRE sites (the reference's restore,
+                # src/System.MonteCarlo.cpp:1559-1582; chain.py:627-635)
+                state_out.charge = sel(new_state.charge,
+                                       moves.spectre_reject_restore(
+                                           state, new_state, target))
+            if volume:
+                state_out.pbc = PBC(**{
+                    f.name: sel(getattr(new_state.pbc, f.name),
+                                getattr(state.pbc, f.name))
+                    for f in dataclasses.fields(PBC)})
+            obs_out = Observables(**{
+                f.name: sel(getattr(obs_after, f.name),
+                            getattr(carry.obs, f.name))
+                for f in dataclasses.fields(Observables)})
+            sf_out = delta_mod.SFCache(sel(sf_new.re, carry.sf.re),
+                                       sel(sf_new.im, carry.sf.im))
+            if uvt and not volume:
+                capacity_reject = is_ins & (insert_slot < 0)
+            else:
+                capacity_reject = torch.zeros_like(accept)
+            if opts.simulated_annealing:
+                T = sel(annealed_temperature(opts, T, carry.step), T)
+            out = StepOut(boltzmann_factor=bf, accepted=accept,
+                          movetype=movetype,
+                          polarization_iterations=eb.polarization_iterations,
+                          capacity_reject=capacity_reject, biased=biased)
+            recip_out = sel(recip_new, carry.recip_e)
         pcache = carry.pcache
-        if with_cache and volume:
-            pcache = _select_cache(pcache, accept, pnew)
-        elif with_cache:
-            # geometry-free commit from the proposal's own tables: on
-            # reject every write re-writes current content
-            pcache = pcache_mod.cache_commit(pcache, accept, pnew, flags)
-        if uvt and not volume:
-            capacity_reject = is_ins & (insert_slot < 0)
-        else:
-            capacity_reject = torch.zeros_like(accept)
-        if opts.simulated_annealing:
-            T = sel(annealed_temperature(opts, T, carry.step), T)
-        out = StepOut(boltzmann_factor=bf, accepted=accept,
-                      movetype=movetype,
-                      polarization_iterations=eb.polarization_iterations,
-                      capacity_reject=capacity_reject, biased=biased)
+        if with_cache:
+            with tracing.span("step.commit"):
+                if volume:
+                    pcache = _select_cache(pcache, accept, pnew)
+                else:
+                    # geometry-free commit from the proposal's own tables:
+                    # on reject every write re-writes current content
+                    pcache = pcache_mod.cache_commit(pcache, accept, pnew,
+                                                     flags)
         return dataclasses.replace(
             carry, state=state_out, obs=obs_out, temperature=T,
-            step=carry.step + 1,
-            cavity=cavity, sf=sf_out, recip_e=sel(recip_new, carry.recip_e),
-            pcache=pcache), out
+            step=carry.step + 1, cavity=cavity, sf=sf_out,
+            recip_e=recip_out, pcache=pcache), out
 
     step.any_adiabatic = any_adiabatic
     return step
@@ -742,54 +757,69 @@ def make_chunk_runner(flags: FFlags, params: RunParams, opts: MCOptions,
 
     def run_chunk(carry: MCCarry):
         dev = carry.state.pos.device
-        special = opts.rd_anharmonic or opts.spectre or opts.gwp or (
-            opts.ensemble == const.ENSEMBLE_UVT and
-            step.any_adiabatic(carry.state))
-        key, draws, k_grid = chunk_draws(carry.key, chunk_steps, special)
-        volume = volume_steps(opts, draws, carry.state)
-        draws = draws.to(dev)
-        darts = wide = [None] * chunk_steps
-        if opts.cavity_bias:
-            # the twin's uniform(k_grid, (n_darts, 3)) of every step, made
-            # on the device in one call (update_grid's 256 when unset)
-            n_darts = opts.cavity_darts if opts.cavity_darts > 0 else 256
-            darts = rnd.uniform(k_grid.to(dev), (n_darts, 3))
-        if opts.spectre or opts.gwp:
-            wide = wide_draws(carry.key, chunk_steps,
-                              carry.state.n_atom_slots).to(dev)
+        with tracing.span("draws"):
+            special = opts.rd_anharmonic or opts.spectre or opts.gwp or (
+                opts.ensemble == const.ENSEMBLE_UVT and
+                step.any_adiabatic(carry.state))
+            key, draws, k_grid = chunk_draws(carry.key, chunk_steps, special)
+            volume = volume_steps(opts, draws, carry.state)
+            draws = draws.to(dev)
+            darts = wide = [None] * chunk_steps
+            if opts.cavity_bias:
+                # the twin's uniform(k_grid, (n_darts, 3)) of every step,
+                # made on the device in one call (update_grid's 256 when
+                # unset)
+                n_darts = opts.cavity_darts if opts.cavity_darts > 0 else 256
+                darts = rnd.uniform(k_grid.to(dev), (n_darts, 3))
+            if opts.spectre or opts.gwp:
+                wide = wide_draws(carry.key, chunk_steps,
+                                  carry.state.n_atom_slots).to(dev)
         outs = []
         for i in range(chunk_steps):
-            carry, out = step(carry, draws[i], darts[i], volume[i], wide[i])
+            with tracing.span("step", move=True):
+                carry, out = step(carry, draws[i], darts[i], volume[i],
+                                  wide[i])
             outs.append(out)
-        outs = StepOut(*(torch.stack(col) for col in zip(*outs)))
-        carry = dataclasses.replace(
-            carry, key=key, stats=accumulate_stats(carry.stats, outs))
+        with tracing.span("stats"):
+            outs = StepOut(*(torch.stack(col) for col in zip(*outs)))
+            carry = dataclasses.replace(
+                carry, key=key, stats=accumulate_stats(carry.stats, outs))
         return carry, outs
 
     return run_chunk
 
 
+# the refresh's spans of its three parts (_full_recompute's ``spans``)
+_REFRESH_SPANS = ("refresh.energy", "refresh.sf", "refresh.polar_cache")
+
+
 def _full_recompute(state: SystemState, flags: FFlags, params: RunParams,
-                    opts: MCOptions, mesh=None):
+                    opts: MCOptions, mesh=None, spans=None):
     """(energy breakdown, SF cache, k-space energy, polar cache) of a full
     recompute of ``state``, with the caches the options carry
     (chain.py:789-851).  On a ``mesh`` the cache's planes are built row
     sharded, and the blocked energy is the sharded one
-    (parallel/sharded_energy.py): no device builds the whole planes."""
-    if mesh is not None and opts.blocked_energy:
-        eb = sharded_breakdown(state, flags, params, mesh)
-    else:
-        full_energy = (energy_breakdown_blocked if opts.blocked_energy
-                       else energy_breakdown)
-        eb = full_energy(state, flags, params)
-    if opts.incremental and delta_mod.uses_recip(flags):
-        sf = delta_mod.sf_compute(state, flags, params)
-        recip_e = delta_mod.recip_energy(sf, state, flags, params)
-    else:
-        sf = delta_mod.empty_sf(state.pos.device)
-        recip_e = torch.zeros_like(eb.total)
-    pcache = (pcache_mod.cache_init(state, flags, params, mesh=mesh)
-              if opts.incremental and opts.polar_incremental else None)
+    (parallel/sharded_energy.py): no device builds the whole planes.
+    ``spans`` names a span for each of the three parts."""
+    energy_span, sf_span, cache_span = (
+        (tracing.NOOP,) * 3 if spans is None else map(tracing.span, spans))
+    with energy_span:
+        if mesh is not None and opts.blocked_energy:
+            eb = sharded_breakdown(state, flags, params, mesh)
+        else:
+            full_energy = (energy_breakdown_blocked if opts.blocked_energy
+                           else energy_breakdown)
+            eb = full_energy(state, flags, params)
+    with sf_span:
+        if opts.incremental and delta_mod.uses_recip(flags):
+            sf = delta_mod.sf_compute(state, flags, params)
+            recip_e = delta_mod.recip_energy(sf, state, flags, params)
+        else:
+            sf = delta_mod.empty_sf(state.pos.device)
+            recip_e = torch.zeros_like(eb.total)
+    with cache_span:
+        pcache = (pcache_mod.cache_init(state, flags, params, mesh=mesh)
+                  if opts.incremental and opts.polar_incremental else None)
     return eb, sf, recip_e, pcache
 
 
@@ -801,9 +831,11 @@ def init_carry(state: SystemState, flags: FFlags, params: RunParams,
     building its own rows."""
     require_options(flags, params, opts)
     dev = state.pos.device
-    eb, sf, recip_e, pcache = _full_recompute(state, flags, params, opts,
-                                              mesh)
-    obs = observables_from_breakdown(state, eb, flags, params, opts.ensemble)
+    with tracing.span("setup.init_carry"):
+        eb, sf, recip_e, pcache = _full_recompute(state, flags, params,
+                                                  opts, mesh)
+        obs = observables_from_breakdown(state, eb, flags, params,
+                                         opts.ensemble)
     obs = dataclasses.replace(obs, energy=torch.where(
         torch.isfinite(obs.energy), obs.energy, const.MAXVALUE))
     zeros7 = torch.zeros(7, dtype=torch.int64, device=dev)
@@ -828,21 +860,23 @@ def make_refresher(flags: FFlags, base_params: RunParams, opts: MCOptions):
     params_at = _params_at(flags, base_params, opts)
 
     def refresh(carry: MCCarry) -> MCCarry:
-        state = carry.state
-        params = params_at(carry.temperature)
-        eb, sf, recip_e, pcache = _full_recompute(
-            state, flags, params, opts, meshing.mesh_of(carry.pcache))
-        cavity = carry.cavity
-        if opts.cavity_bias:
-            # the corrtime tier the REMOVE flag reads: with one rank
-            # update_root_nodestats runs at m=1, so avg_observables is a
-            # snapshot of the per-step mean (chain.py:852-863)
-            c = carry.cavity
-            cavity = torch.stack([c[0], c[1], c[0], c[3] + 1.0])
-        return dataclasses.replace(
-            carry,
-            obs=observables_from_breakdown(state, eb, flags, params,
-                                           opts.ensemble),
-            sf=sf, recip_e=recip_e, pcache=pcache, cavity=cavity)
+        with tracing.span("refresh"):
+            state = carry.state
+            params = params_at(carry.temperature)
+            eb, sf, recip_e, pcache = _full_recompute(
+                state, flags, params, opts, meshing.mesh_of(carry.pcache),
+                spans=_REFRESH_SPANS)
+            cavity = carry.cavity
+            if opts.cavity_bias:
+                # the corrtime tier the REMOVE flag reads: with one rank
+                # update_root_nodestats runs at m=1, so avg_observables is
+                # a snapshot of the per-step mean (chain.py:852-863)
+                c = carry.cavity
+                cavity = torch.stack([c[0], c[1], c[0], c[3] + 1.0])
+            return dataclasses.replace(
+                carry,
+                obs=observables_from_breakdown(state, eb, flags, params,
+                                               opts.ensemble),
+                sf=sf, recip_e=recip_e, pcache=pcache, cavity=cavity)
 
     return refresh

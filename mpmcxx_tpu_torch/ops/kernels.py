@@ -20,6 +20,8 @@ import shutil
 import subprocess
 import threading
 
+from .. import tracing
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
@@ -93,7 +95,8 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
+            with tracing.span("setup.library"):
+                lib = ctypes.CDLL(build())
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.mpmcxx_contract_planes.argtypes = [
                 ctypes.POINTER(vp), ci, vp, ctypes.c_float, vp, ci, vp, ci,
@@ -117,5 +120,7 @@ def load() -> ctypes.CDLL:
             lib.mpmcxx_occupancy.argtypes = [
                 vp, vp, vp, ctypes.c_double, ci, ci, vp, vp]
             lib.mpmcxx_occupancy.restype = ci
+            lib.mpmcxx_span_mark.argtypes = [vp, ci]
+            lib.mpmcxx_span_mark.restype = ci
             _lib = lib
         return _lib

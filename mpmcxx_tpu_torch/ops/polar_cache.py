@@ -43,6 +43,7 @@ from typing import NamedTuple
 import torch
 
 from .. import constants as const
+from .. import tracing
 from ..flags import FFlags, RunParams, dense_only
 from ..parallel import meshing
 from ..parallel.meshing import RowShards
@@ -416,8 +417,9 @@ def polar_proposal(cache: PolarCache, old_state: SystemState,
         row_ef = -polar_mod.plane_sums(new_b, m32, 1).to(torch.float64)
         return update_rows(ef, start, row_ef, valid)
 
-    res = polar_mod.finish_polar(new_state, flags, params, E_static,
-                                 contract_fn)
+    with tracing.span("step.polar.scf"):
+        res = polar_mod.finish_polar(new_state, flags, params, E_static,
+                                     contract_fn)
     if not with_commit:
         return res
     return res, CommitData(start=start, valid=valid, e_pair=e_pair_new,

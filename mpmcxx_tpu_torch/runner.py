@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from . import constants as const
+from . import tracing
 from .config.parser import read_config
 from .config.schema import SimConfig
 from .config.validate import validate
@@ -127,32 +128,8 @@ class Simulation:
                                  f"for a run on {self.device}")
             self.device = mesh.leader
 
-        atoms = pqr_io.read_pqr(
-            cfg.pqr_input, scale_charge=cfg.scale_charge,
-            cdvdw_sig_repulsion=cfg.cdvdw_sig_repulsion,
-            polarvdw=cfg.polarvdw,
-            cdvdw_exp_repulsion=cfg.cdvdw_exp_repulsion)
-
-        basis = self._resolve_basis(cfg)
-        extra = 0
-        if cfg.ensemble == const.ENSEMBLE_UVT:
-            mov_by_species: dict = {}
-            for a in atoms:
-                if not a.frozen and not a.adiabatic and not a.target:
-                    mov_by_species.setdefault(a.moleculetype,
-                                              set()).add(a.molecule_id)
-            if len(mov_by_species) > 1:
-                # mixture: per-species dead-slot headroom
-                extra = {mt: max(int(len(ids) * (uvt_capacity_factor - 1.0)),
-                                 32)
-                         for mt, ids in mov_by_species.items()}
-            else:
-                n_mov = len({a.molecule_id for a in atoms if not a.frozen})
-                extra = max(int(n_mov * (uvt_capacity_factor - 1.0)), 32)
-
-        self.state, self.meta = build_state(
-            atoms, basis, extra_mol_capacity=extra, device=self.device)
-        self.state = apply_state_fixups(self.state, cfg)
+        with tracing.span("setup.build_state"):
+            self._build(cfg, uvt_capacity_factor)
 
         # ewald alpha defaults to 3.5/cutoff unless user-set
         # (src/System.cpp:871-874)
@@ -238,6 +215,35 @@ class Simulation:
                                           self.opts, self.seed, mesh=mesh)
         self._make_engine()
 
+    def _build(self, cfg: SimConfig, uvt_capacity_factor: float):
+        """The state of the PQR input, with the uVT insertion headroom."""
+        atoms = pqr_io.read_pqr(
+            cfg.pqr_input, scale_charge=cfg.scale_charge,
+            cdvdw_sig_repulsion=cfg.cdvdw_sig_repulsion,
+            polarvdw=cfg.polarvdw,
+            cdvdw_exp_repulsion=cfg.cdvdw_exp_repulsion)
+
+        basis = self._resolve_basis(cfg)
+        extra = 0
+        if cfg.ensemble == const.ENSEMBLE_UVT:
+            mov_by_species: dict = {}
+            for a in atoms:
+                if not a.frozen and not a.adiabatic and not a.target:
+                    mov_by_species.setdefault(a.moleculetype,
+                                              set()).add(a.molecule_id)
+            if len(mov_by_species) > 1:
+                # mixture: per-species dead-slot headroom
+                extra = {mt: max(int(len(ids) * (uvt_capacity_factor - 1.0)),
+                                 32)
+                         for mt, ids in mov_by_species.items()}
+            else:
+                n_mov = len({a.molecule_id for a in atoms if not a.frozen})
+                extra = max(int(n_mov * (uvt_capacity_factor - 1.0)), 32)
+
+        self.state, self.meta = build_state(
+            atoms, basis, extra_mol_capacity=extra, device=self.device)
+        self.state = apply_state_fixups(self.state, cfg)
+
     def _make_engine(self):
         self.topology = topology(self.state)
         self.run_chunk = chain_mod.make_chunk_runner(
@@ -290,63 +296,65 @@ class Simulation:
         """Rebuild state and engine with more insertion slots, continuing
         the chain from ``base_carry`` (key, step, stats, temperature and
         cavity statistics carry over; energies and caches are rebuilt)."""
-        st = base_carry.state
-        name_of = {i: n for n, i in self.meta["species"].items()}
-        mt = _np(st.mol_type)
-        live = _np(st.mol_alive) & _movable_np(st)
-        extra = {name_of[t]: max(int((live & (mt == t)).sum()),
-                                 int(self.cfg.corrtime), 64)
-                 for t in self._insert_types}
-        self.state, self.meta = grow_mol_capacity(
-            st, self.meta, extra, ensure_species=tuple(extra),
-            pad_atoms_multiple=512 if self.flags.polar_mixed else 0)
-        if not self.quiet:
-            self.out.write(
-                f"MC: molecule capacity grown to "
-                f"{self.state.n_mol_slots} slots "
-                f"({self.state.n_atom_slots} atom slots)\n")
-        self.opts = capacity_opts(self.opts, self.flags, self.state,
-                                  mesh=self.mesh)
-        self._make_engine()
-        if self.sorbates is not None:
-            # species indices are stable across a regrowth: only the
-            # per-slot masks change; the statistics carry over
-            self.sorbates.mol_type = _np(self.state.mol_type)
-            self.sorbates.movable = _movable_np(self.state)
-        fresh = chain_mod.init_carry(self.state, self.flags, self.params,
-                                     self.opts, self.seed, mesh=self.mesh)
-        self.carry = dataclasses.replace(
-            fresh, key=base_carry.key, step=base_carry.step,
-            stats=base_carry.stats, temperature=base_carry.temperature,
-            cavity=base_carry.cavity)
+        with tracing.span("grow_capacity"):
+            st = base_carry.state
+            name_of = {i: n for n, i in self.meta["species"].items()}
+            mt = _np(st.mol_type)
+            live = _np(st.mol_alive) & _movable_np(st)
+            extra = {name_of[t]: max(int((live & (mt == t)).sum()),
+                                     int(self.cfg.corrtime), 64)
+                     for t in self._insert_types}
+            self.state, self.meta = grow_mol_capacity(
+                st, self.meta, extra, ensure_species=tuple(extra),
+                pad_atoms_multiple=512 if self.flags.polar_mixed else 0)
+            if not self.quiet:
+                self.out.write(
+                    f"MC: molecule capacity grown to "
+                    f"{self.state.n_mol_slots} slots "
+                    f"({self.state.n_atom_slots} atom slots)\n")
+            self.opts = capacity_opts(self.opts, self.flags, self.state,
+                                      mesh=self.mesh)
+            self._make_engine()
+            if self.sorbates is not None:
+                # species indices are stable across a regrowth: only the
+                # per-slot masks change; the statistics carry over
+                self.sorbates.mol_type = _np(self.state.mol_type)
+                self.sorbates.movable = _movable_np(self.state)
+            fresh = chain_mod.init_carry(self.state, self.flags, self.params,
+                                         self.opts, self.seed, mesh=self.mesh)
+            self.carry = dataclasses.replace(
+                fresh, key=base_carry.key, step=base_carry.step,
+                stats=base_carry.stats, temperature=base_carry.temperature,
+                cavity=base_carry.cavity)
 
     def _corrtime_io(self, step: int):
-        obs = _obs_to_dict(self.carry.obs)
-        T = float(self.carry.temperature)
-        self.avg.update(obs, ensemble=self.cfg.ensemble,
-                        temperature=self.cfg.temperature,
-                        volume=float(self.carry.state.pbc.volume),
-                        particle_mass=self._particle_mass(),
-                        free_volume=self.cfg.free_volume,
-                        fugacity=(self.cfg.fugacities[0]
-                                  if self.cfg.fugacities else None),
-                        pressure=self.cfg.pressure)
-        if self.sorbates is not None:
-            self.sorbates.update(
-                _np(self.carry.state.mol_alive),
-                volume=float(self.carry.state.pbc.volume),
-                frozen_mass=obs["frozen_mass"],
-                total_mass=obs["total_mass"],
-                free_volume=self.cfg.free_volume,
-                pressure_or_fugacity=(self.cfg.fugacities[0]
-                                      if self.cfg.fugacities
-                                      else self.cfg.pressure),
-                temperature=self.cfg.temperature)
-        if self.fp_energy:
-            out_io.write_observables(self.fp_energy, step, obs, T)
-        if self.fp_energy_csv:
-            out_io.write_observables(self.fp_energy_csv, step, obs, T,
-                                     csv=True)
+        with tracing.span("corrtime_io"):
+            obs = _obs_to_dict(self.carry.obs)
+            T = float(self.carry.temperature)
+            self.avg.update(obs, ensemble=self.cfg.ensemble,
+                            temperature=self.cfg.temperature,
+                            volume=float(self.carry.state.pbc.volume),
+                            particle_mass=self._particle_mass(),
+                            free_volume=self.cfg.free_volume,
+                            fugacity=(self.cfg.fugacities[0]
+                                      if self.cfg.fugacities else None),
+                            pressure=self.cfg.pressure)
+            if self.sorbates is not None:
+                self.sorbates.update(
+                    _np(self.carry.state.mol_alive),
+                    volume=float(self.carry.state.pbc.volume),
+                    frozen_mass=obs["frozen_mass"],
+                    total_mass=obs["total_mass"],
+                    free_volume=self.cfg.free_volume,
+                    pressure_or_fugacity=(self.cfg.fugacities[0]
+                                          if self.cfg.fugacities
+                                          else self.cfg.pressure),
+                    temperature=self.cfg.temperature)
+            if self.fp_energy:
+                out_io.write_observables(self.fp_energy, step, obs, T)
+            if self.fp_energy_csv:
+                out_io.write_observables(self.fp_energy_csv, step, obs, T,
+                                         csv=True)
 
     def run(self) -> AvgObservables:
         cfg = self.cfg
@@ -420,31 +428,31 @@ class Simulation:
             self.avg.update_nodestats(ns)
 
             self._corrtime_io(step)
-            if cfg.pqr_restart != "/dev/null":
-                pqr_io.write_state_pqr(cfg.pqr_restart, self.carry.state,
-                                       self.meta, wrapall=cfg.wrapall,
-                                       long_output=cfg.long_output)
-            if _live(cfg.traj_output):
-                traj_io.append_traj_frame(cfg.traj_output, self.carry.state,
-                                          self.meta, step,
-                                          wrapall=cfg.wrapall,
-                                          long_output=cfg.long_output,
-                                          first=first_frame)
-                first_frame = False
-            if hist is not None:
-                st = self.carry.state
-                hist.zero()
-                hist.accumulate(_np(st.mol_com()), _np(st.mol_frozen) |
-                                ~_np(st.mol_alive))
-                hist.update_root()
-                if _live(cfg.histogram_output):
-                    with open(cfg.histogram_output, "w") as f:
-                        hist.write_dx(f)
-            if cfg.polarization:
-                traj_io.write_dipoles(cfg.dipole_output, self.carry.state,
-                                      first=(step <= cfg.corrtime))
-                if _live(cfg.field_output):
-                    self._write_field(step)
+            with tracing.span("output"):
+                if cfg.pqr_restart != "/dev/null":
+                    pqr_io.write_state_pqr(cfg.pqr_restart, self.carry.state,
+                                           self.meta, wrapall=cfg.wrapall,
+                                           long_output=cfg.long_output)
+                if _live(cfg.traj_output):
+                    traj_io.append_traj_frame(
+                        cfg.traj_output, self.carry.state, self.meta, step,
+                        wrapall=cfg.wrapall, long_output=cfg.long_output,
+                        first=first_frame)
+                    first_frame = False
+                if hist is not None:
+                    st = self.carry.state
+                    hist.zero()
+                    hist.accumulate(_np(st.mol_com()), _np(st.mol_frozen) |
+                                    ~_np(st.mol_alive))
+                    hist.update_root()
+                    if _live(cfg.histogram_output):
+                        with open(cfg.histogram_output, "w") as f:
+                            hist.write_dx(f)
+                if cfg.polarization:
+                    traj_io.write_dipoles(cfg.dipole_output, self.carry.state,
+                                          first=(step <= cfg.corrtime))
+                    if _live(cfg.field_output):
+                        self._write_field(step)
             if not self.quiet:
                 perf.report(step, self.out)
                 self._display()
