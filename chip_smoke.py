@@ -42,9 +42,11 @@ its hand-written kernels, and check the results.
    recompute as in step 3; 0 < cavity mean < 1 and two checkpoints; the
    energy log's rows 0, 64, 128; the restart PQR holding 512 + 3 N atoms;
    K5 >= 4, K2 >= 1 and K3 >= 2 launches per move, K1 and K4 none.  Then
-   one more 16-move chunk of the run's chain under torch.profiler: its
-   device time per move, split by kernel, beside the wall time per move
-   of an unprofiled 16-move chunk.
+   one more 16-move chunk of the run's chain under torch.profiler, every
+   move a CUDA graph replay: its device kernels of K1-K5, by name, equal
+   to the launches the wrappers counted; its device time per move, split
+   by kernel, beside the wall time per move of an unprofiled 16-move
+   chunk.
 6. The H2 flagship (2,000 5-site H2, 10,752 slots): K4
    ``contract_planes_tri`` against the plain version in modes 3, 4 and 5
    on its planes and on seeded symmetric planes at the ragged A = 4,000
@@ -186,7 +188,10 @@ its hand-written kernels, and check the results.
    rotational partition functions stay 0, as in the JAX package), the
    carried energies against each refresh as in step 5, every committed
    plane within 1e-6 of a rebuild, K5 >= 4 and K2 >= 1 launches per
-   move; moves/s and launches per move.
+   move; moves/s and launches per move, all of the run as the CLI runs
+   it (its moves replayed as a CUDA graph).  Its first 2 x SPIN_CHUNK
+   moves run again eager with a hook that reads each adiabatic move's
+   target: the first corrtime bitwise equal to the run's.
 23. Steps 13's Gibbs VLE and 14's PI-NVT with quantum rotation and
    spinflip_probability 0.2, one corrtime each: the spin flips counted
    as a host replay of the move draws counts them, every one rejected,
@@ -586,12 +591,10 @@ def schedule(**env):
 
 
 def _wrappers():
-    from mpmcxx_tpu_torch.ops import cuda_cavity, cuda_polar
-    return {"contract_planes": cuda_polar.contract_planes,
-            "contract_planes_sym": cuda_polar.contract_planes_sym,
-            "contract_planes_tri": cuda_polar.contract_planes_tri,
-            "write_plane_strips": cuda_polar.write_plane_strips,
-            "occupancy": cuda_cavity.occupancy}
+    """K1-K5's wrappers by function name (tracing.kernel_wrappers)."""
+    from mpmcxx_tpu_torch import tracing
+    return {name.split()[1]: fn
+            for name, fn in tracing.kernel_wrappers().items()}
 
 
 def zero_launches():
@@ -1325,23 +1328,70 @@ KERNEL_GROUPS = (("contract_sym_kernel", "K5 contract_planes_sym"),
                  ("Memcpy", "memsets and copies"))
 
 
-def profile_chunk(sim, moves=PROFILE_MOVES):
+def replayed_kernels(split, delta):
+    """Per kernel-name fragment of K1-K5 (KERNEL_GROUPS): (device kernels
+    of that name in ``split``, launches its wrapper counted in ``delta``).
+    Each launch of a wrapper runs each kernel of its group once."""
+    return {frag: (round(sum(n for k, (_, n) in split.items() if frag in k)),
+                   delta[group.split()[1]])
+            for frag, group in KERNEL_GROUPS if group.startswith("K")}
+
+
+def profile_chunk(sim, moves=PROFILE_MOVES, tries=8):
     """After the CLI run: one ``moves``-move chunk of its chain under
-    torch.profiler (after a warm-up chunk), whose device time per move is
+    torch.profiler (after a warm-up chunk, so that every move of it is a
+    replay of the move's CUDA graph), whose device time per move is
     printed split by kernel (ours by name, every other kernel as "torch
     kernels"), beside the wall time per move of one more, unprofiled
-    chunk.  Kernels of one stream do not overlap, so their times add."""
+    chunk.  Kernels of one stream do not overlap, so their times add.
+    Gate: the device kernels of each of K1-K5 the profiler saw in the
+    replayed chunk equal the launches its wrapper counted there (a
+    session that saw fewer is profiled again, up to ``tries``)."""
     import torch
+    from mpmcxx_tpu_torch import tracing
     from mpmcxx_tpu_torch.mc import chain
 
+    if not chain.graphs_apply(sim.carry.state.pos.device, sim.flags,
+                              sim.params, sim.opts, sim.carry.pcache):
+        raise AssertionError("the CLI run's chain is not graphed")
     run = chain.make_chunk_runner(sim.flags, sim.params, sim.opts, moves,
                                   topology=sim.topology)
     carry = [sim.carry]
+    deltas = []
 
     def chunk():
+        before = launches_now()
         carry[0], _ = run(carry[0])
+        deltas.append({k: n - before[k] for k, n in launches_now().items()})
 
-    split = device_split(chunk, reps=1)
+    tracing.reset()
+    tracing.enable()
+    try:
+        for session in range(1, tries + 1):
+            split = device_split(chunk, reps=1)
+            seen = replayed_kernels(split, deltas[-1])
+            if all(got == want for got, want in seen.values()):
+                break
+        counters = {k: v.get("step", 0) for k, v in
+                    tracing.snapshot()["counters"].items()
+                    if k.startswith("graph_")}
+    finally:
+        tracing.disable()
+        tracing.reset()
+    _say(f"CLI profiled chunk replayed (moves of this runner: {counters}): "
+         f"device kernels seen vs wrapper launches counted, by kernel: "
+         + ", ".join(f"{frag} {got}/{want}"
+                     for frag, (got, want) in seen.items())
+         + f" (profiler session {session})")
+    # one eager move and one capture, in the first chunk: every later
+    # chunk replayed every move
+    if counters.get("graph_eager") != 1 or \
+            counters.get("graph_capture") != 1:
+        raise AssertionError(f"the profiled chunk was not replayed: "
+                             f"{counters}")
+    if any(got != want for got, want in seen.values()) or \
+            not any(want for _, want in seen.values()):
+        raise AssertionError(f"replayed kernels {seen} in {tries} sessions")
     torch.cuda.synchronize()
     t0 = time.time()
     chunk()
@@ -1774,11 +1824,13 @@ def count_launches(fn, tries=8):
     """(fn(), its kernel launches, its device ms, what was counted) under
     torch.profiler with CUDA activity only (recording every op on the
     host too costs about a second per Gibbs step): the runtime's launch
-    calls, or where the session recorded none of them the device kernels
-    it recorded, and the summed duration of the device events (one
-    stream: they do not overlap).  A session that records no device
-    event (see device_split) is run again, up to ``tries`` sessions;
-    ``fn`` must give the same result each time it is called."""
+    calls, or where the session recorded none of them or replayed a CUDA
+    graph (whose kernels no launch call shows, while its capture's calls
+    ran nothing) the device kernels it recorded, and the summed duration
+    of the device events (one stream: they do not overlap).  A session
+    that records no device event (see device_split) is run again, up to
+    ``tries`` sessions; ``fn`` must give the same result each time it is
+    called."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1793,11 +1845,13 @@ def count_launches(fn, tries=8):
         if device_ms > 0.0:
             break
     calls = sum("LaunchKernel" in e.name for e in events)
-    if calls:
+    replayed = any("GraphLaunch" in e.name for e in events)
+    if calls and not replayed:
         return out, calls, device_ms, "launch calls"
     kernels = sum(not re.search("memcpy|memset", e.name, re.I)
                   for e in device)
-    return out, kernels, device_ms, "device kernels recorded"
+    return out, kernels, device_ms, "device kernels recorded" + (
+        ", CUDA graph replayed" if replayed else "")
 
 
 def _energy_logs(sim, workdir):
@@ -2578,6 +2632,20 @@ def scf_launch_gate(label, carry, runner, due, tries=4):
 
 
 @contextlib.contextmanager
+def eager_moves():
+    """Every chunk runner runs its moves eager while the block runs (no
+    CUDA graph replay: a hook on a function of the step sees only the
+    moves whose Python runs)."""
+    from mpmcxx_tpu_torch.mc import chain
+    rule = chain.graphs_apply
+    chain.graphs_apply = lambda *a, **k: False
+    try:
+        yield
+    finally:
+        chain.graphs_apply = rule
+
+
+@contextlib.contextmanager
 def record_cg_steps(steps):
     """Append each ``polar.cg_solve``'s step count (a 0-d device tensor)
     to ``steps`` while the block runs."""
@@ -3126,15 +3194,18 @@ def run_h2_spin(workdir, card, device="cuda"):
     H2_ADIABATIC molecules adiabatic) through ``runner.Simulation`` in uVT
     with quantum rotation, spin flips and adiabatic moves on the polar
     cache under the default schedule (K5 and K2), at 10,752 slots (S = 5),
-    2 corrtimes of SPIN_CHUNK moves.  Checks: a spin flip and an
-    adiabatic move proposed, every adiabatic move on a flagged molecule;
-    every flip rejected and the spins unchanged (the rotational partition
-    functions stay 0: NaN factor); before each refresh the carried rd and
-    coulombic within 1e-8 and polarization within 1e-5 of its full
-    recompute, and every committed plane within 1e-6 of a rebuild; K5 >=
-    4 and K2 >= 1 launches per move, K1, K3 and K4 none.  Then the
-    kernel launches per move over FH_PROBE more moves.  Returns (launch
-    counts, second corrtime's moves/s)."""
+    2 corrtimes of SPIN_CHUNK moves, as the CLI runs them (replayed as a
+    CUDA graph where chain.graphs_apply).  Checks: a spin flip and an
+    adiabatic move proposed; every flip rejected and the spins unchanged
+    (the rotational partition functions stay 0: NaN factor); before each
+    refresh the carried rd and coulombic within 1e-8 and polarization
+    within 1e-5 of its full recompute, and every committed plane within
+    1e-6 of a rebuild; K5 >= 4 and K2 >= 1 launches per move, K1, K3 and
+    K4 none.  Then 2 x SPIN_CHUNK moves from the run's start again, eager
+    with a hook on moves.displace: every adiabatic move on a flagged
+    molecule, and the first corrtime bitwise the run's.  Then the kernel
+    launches per move over FH_PROBE more moves.  Returns (launch counts,
+    second corrtime's moves/s)."""
     from mpmcxx_tpu_torch import flagship
     import torch
     from mpmcxx_tpu_torch import constants as const
@@ -3165,11 +3236,15 @@ def run_h2_spin(workdir, card, device="cuda"):
         run_chunk, refresh = sim.run_chunk, sim.refresh
 
         def timed(carry):
+            if not log["chunks"]:
+                log["start"] = copy.deepcopy(carry)
             torch.cuda.synchronize()
             t0 = time.time()
             carry, outs = run_chunk(carry)
             torch.cuda.synchronize()
             log["chunks"].append((time.time() - t0, outs))
+            if len(log["chunks"]) == 1:
+                log["first"] = [t.clone() for t in _spin_carry(carry)]
             return carry, outs
 
         def checked(carry):
@@ -3190,12 +3265,24 @@ def run_h2_spin(workdir, card, device="cuda"):
             targets.append(mol.clone())
             return displace(state, dice, axis, u_angle, mol, *a)
 
+        # the run as the CLI runs it (graphed where graphs_apply holds)
         sim.run_chunk, sim.refresh = timed, checked
-        moves.displace = recorded
         zero_launches()
         sim.run()
         torch.cuda.synchronize()
         launches = launches_now()
+        graphed = chain.graphs_apply(st0.pos.device, sim.flags, sim.params,
+                                     sim.opts, sim.carry.pcache)
+        # its first 2 chunks' moves again, eager (no refresh between), with
+        # each move's adiabatic target read in Python
+        moves.displace = recorded
+        with eager_moves():
+            eager = chain.make_chunk_runner(sim.flags, sim.params, sim.opts,
+                                            SPIN_CHUNK, topology=sim.topology)
+            c_e, o_first = eager(log.pop("start"))
+            first = [t.clone() for t in _spin_carry(c_e)]
+            c_e, o_second = eager(c_e)
+        del c_e
     finally:
         moves.displace = displace
         os.chdir(cwd)
@@ -3208,21 +3295,34 @@ def run_h2_spin(workdir, card, device="cuda"):
     if not max(log["planes"]) <= 1e-6:
         raise AssertionError("[h2-spin] a plane drifted from a rebuild")
     outs = [o for _, o in log["chunks"]]
+    for name, a, b in (("movetype", outs[0].movetype, o_first.movetype),
+                       ("accepted", outs[0].accepted, o_first.accepted),
+                       *zip(("pos", "mu", "energy"), log["first"], first)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"[h2-spin] the run's first corrtime and "
+                                 f"its eager rerun differ in {name}")
+    path = "graphed" if graphed else "eager"
+    _say(f"[h2-spin] the run's first corrtime ({path}) and its eager "
+         f"rerun: movetypes, accepts, positions, dipoles and energy "
+         f"bitwise equal")
     mt = torch.cat([o.movetype for o in outs])
     acc = torch.cat([o.accepted for o in outs])
     spin = mt == const.MOVETYPE_SPINFLIP
     adia = mt == const.MOVETYPE_ADIABATIC
     if len(targets) != n_moves:
         raise AssertionError(f"[h2-spin] {len(targets)} adiabatic "
-                             f"proposals for {n_moves} moves")
-    hit = st0.mol_adiabatic[torch.stack(targets)[adia]]
+                             f"proposals for {n_moves} eager moves")
+    hit = st0.mol_adiabatic[torch.stack(targets)[torch.cat(
+        [o_first.movetype, o_second.movetype]) == const.MOVETYPE_ADIABATIC]]
     carry = sim.carry
     _say(f"[h2-spin] {int(spin.sum())} spin flips ({int((spin & acc).sum())}"
          f" accepted), {int(adia.sum())} adiabatic moves "
-         f"({int((adia & acc).sum())} accepted, every one on a flagged "
-         f"molecule: {bool(torch.all(hit))}), {int(acc.sum())} of {n_moves} "
-         f"moves accepted; N = {int(carry.obs.N)}")
-    if not spin.any() or not adia.any() or not bool(torch.all(hit)):
+         f"({int((adia & acc).sum())} accepted), {int(acc.sum())} of "
+         f"{n_moves} moves accepted; N = {int(carry.obs.N)}; the eager "
+         f"rerun's {int(hit.numel())} adiabatic moves every one on a "
+         f"flagged molecule: {bool(torch.all(hit))}")
+    if not spin.any() or not adia.any() or not hit.numel() or \
+            not bool(torch.all(hit)):
         raise AssertionError("[h2-spin] no spin flip, no adiabatic move or "
                              "one off the flagged molecules")
     if bool((spin & acc).any()) or not torch.equal(
@@ -3239,7 +3339,7 @@ def run_h2_spin(workdir, card, device="cuda"):
                                     FH_PROBE, topology=sim.topology)
     _, n_launch, _, what = count_launches(lambda: probe(carry))
     dt = log["chunks"][-1][0]
-    _say(f"[h2-spin] second corrtime: {SPIN_CHUNK} moves in {dt:.3f} s = "
+    _say(f"[h2-spin] second corrtime ({path}): {SPIN_CHUNK} moves in {dt:.3f} s = "
          f"{SPIN_CHUNK / dt:.2f} moves/s on {card}; K5 "
          f"{per_move['contract_planes_sym']:.2f} and K2 "
          f"{per_move['write_plane_strips']:.2f} launches per move (the "
@@ -3247,6 +3347,11 @@ def run_h2_spin(workdir, card, device="cuda"):
          f"{FH_PROBE} moves): {n_launch / FH_PROBE:.1f}; launches "
          f"{launches}")
     return launches, SPIN_CHUNK / dt
+
+
+def _spin_carry(carry):
+    """What step 22 compares of a carry: positions, dipoles, energy."""
+    return carry.state.pos, carry.state.mu, carry.obs.energy
 
 
 def _flips_rejected(label, outs, replayed):

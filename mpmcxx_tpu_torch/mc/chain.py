@@ -31,7 +31,9 @@ choice made on the host is NPT's volume pick: N is constant in NPT, so
 the twin's pick reads only the draws and a count taken once per chunk,
 and a volume move (a full O(A^2) recompute) runs only where it is picked.
 In uVT the step reads once per state layout whether any molecule is
-adiabatic, and proposes the adiabatic move only if one is.
+adiabatic, and proposes the adiabatic move only if one is.  Where a move
+is a fixed sequence of device work with no host read (``graphs_apply``),
+the runner captures one move as a CUDA graph and replays it once a move.
 
 Two faults of the twin are kept, each for want of a feature it lacks:
 no spin flip is ever accepted (the rotational partition functions stay
@@ -748,12 +750,268 @@ def accumulate_stats(stats: NodeStats, outs: StepOut) -> NodeStats:
                      boltzmann_factor=outs.boltzmann_factor[-1])
 
 
+def graphs_apply(device, flags: FFlags, params: RunParams,
+                 opts: MCOptions, pcache, marking: bool = False) -> bool:
+    """Whether make_chunk_runner replays a move of this chain as a CUDA
+    graph: where a move is a fixed sequence of device work with no host
+    read.  That is on a CUDA ``device``, with the incremental energy (a
+    full recompute may read the host), a polar cache ``pcache`` that is
+    not row-sharded over a mesh, fixed SCF sweeps (a precision-ended SCF
+    reads the host once a sweep, and the exact solve's CG once a step),
+    no NPT volume move and no [A]-wide draws (SPECTRE, GWP), which the
+    host picks or makes for each move, and without the tracer's device
+    ``marking``, whose markers label each eager launch by its span."""
+    fixed_sweeps = not flags.polarization or (
+        flags.polar_iterative and params.polar_precision == 0.0)
+    return (torch.device(device).type == "cuda" and not marking and
+            opts.incremental and meshing.mesh_of(pcache) is None and
+            fixed_sweeps and opts.ensemble != const.ENSEMBLE_NPT and
+            not (opts.spectre or opts.gwp))
+
+
+_STATE_FIELDS = tuple(f.name for f in dataclasses.fields(SystemState)
+                      if f.name != "pbc")
+_PBC_FIELDS = tuple(f.name for f in dataclasses.fields(PBC))
+_OBS_FIELDS = tuple(f.name for f in dataclasses.fields(Observables))
+# the state's leaves come first in _leaves
+_N_STATE = len(_STATE_FIELDS) + len(_PBC_FIELDS)
+
+
+def _leaves(carry: MCCarry) -> list:
+    """The carry's tensors a move reads or replaces, in a fixed order: the
+    state's (its box's included), the observables, the temperature, the
+    step, the cavity statistics, the structure factors and the k-space
+    energy; not the key, the statistics or the polar cache."""
+    st, obs = carry.state, carry.obs
+    return ([getattr(st, n) for n in _STATE_FIELDS] +
+            [getattr(st.pbc, n) for n in _PBC_FIELDS] +
+            [getattr(obs, n) for n in _OBS_FIELDS] +
+            [carry.temperature, carry.step, carry.cavity, carry.sf.re,
+             carry.sf.im, carry.recip_e])
+
+
+def _with_leaves(carry: MCCarry, leaves) -> MCCarry:
+    """``carry`` with the tensors of ``leaves`` (in _leaves order)."""
+    it = iter(leaves)
+    state = carry.state.replace(
+        **{n: next(it) for n in _STATE_FIELDS},
+        pbc=PBC(**{n: next(it) for n in _PBC_FIELDS}))
+    obs = Observables(**{n: next(it) for n in _OBS_FIELDS})
+    T, step, cavity, re, im, recip_e = it
+    return dataclasses.replace(carry, state=state, obs=obs, temperature=T,
+                               step=step, cavity=cavity,
+                               sf=delta_mod.SFCache(re, im),
+                               recip_e=recip_e)
+
+
+def _cache_tensors(pcache) -> dict:
+    return {} if pcache is None else {
+        f.name: getattr(pcache, f.name) for f in dataclasses.fields(pcache)}
+
+
+def _where(tensors: dict) -> tuple:
+    """Where each tensor lies: (address, shape, strides)."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.stride())
+                 for t in tensors.values())
+
+
+# device -> the side stream every capture runs on: one a device, so that
+# what the libraries keep per stream (cuBLAS's workspace) is made once
+_CAPTURE_STREAMS = {}
+
+
+def _capture_stream(dev: torch.device):
+    if dev not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
+    return _CAPTURE_STREAMS[dev]
+
+
+class _MoveGraph:
+    """One move of a chunk runner as a CUDA graph, replayed once a move.
+
+    The graph reads its move's row of the chunk's draws and darts at a
+    row index it holds on the device and advances, writes the move's
+    StepOut into that row of its [chunk] columns, and at its end copies
+    the carry it made into its inputs.  Its inputs are buffers of its own
+    for each carry tensor a move replaces and for each carry tensor
+    outside the state, filled at a chunk's start, so that no carry's
+    tensor is written; the state's other tensors, read where they lie
+    (the layout: held here, and a carry that holds others is a new
+    layout, since the step reads its host decisions of a layout, such as
+    whether any molecule is adiabatic, once per such tensor, and the
+    capture bakes them in); and the polar cache's tensors, read and
+    written in place, as an eager move writes the planes (not held here:
+    a cache whose tensors lie elsewhere, as after a refresh's cache_init,
+    is captured anew).
+
+    The first move of a layout runs eager: it does the lazy set-up
+    (library load, launch configurations, the step's host tables) and
+    shows which carry tensors a move replaces.  The next move is
+    captured, and it and every later move replayed.  A replay adds to
+    each kernel wrapper's ``.launches`` what its capture recorded."""
+
+    def __init__(self, step, n: int):
+        self.step, self.n = step, n
+        self.graph = None
+        self.layout = None     # per leaf: the tensor read in place, or None
+        self.bufs = None       # per leaf: its buffer, or None
+        self.written = None    # the leaves a move replaces
+        self.cache = None      # _where of the polar cache at the capture
+        self.cols = self.draws = self.darts = self.row = self.pool = None
+        self.launches = {}     # kernel wrapper -> launches in one replay
+
+    def _same_layout(self, leaves) -> bool:
+        return self.layout is not None and all(
+            (x is t) if t is not None else
+            (x.shape == b.shape and x.dtype == b.dtype)
+            for x, t, b in zip(leaves, self.layout, self.bufs))
+
+    def _adopt(self, before, after, out, draws, darts):
+        """Take a new layout from its first move: ``before`` and ``after``
+        are that move's leaves, ``out`` its StepOut."""
+        dev = after[0].device
+        self.written = {j for j, (x, y) in enumerate(zip(before, after))
+                        if x is not y}
+        self.bufs = [torch.empty_like(x)
+                     if j in self.written or j >= _N_STATE else None
+                     for j, x in enumerate(after)]
+        self.layout = [x if b is None else None
+                       for x, b in zip(after, self.bufs)]
+        self.cols = [torch.empty(self.n, dtype=v.dtype, device=dev)
+                     for v in out]
+        self.draws = torch.empty_like(draws)
+        self.darts = torch.empty_like(darts) \
+            if isinstance(darts, torch.Tensor) else None
+        self.row = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.pool = torch.cuda.graph_pool_handle()
+
+    def _capture(self, carry: MCCarry):
+        """Capture one move of ``carry``'s layout and polar cache."""
+        dev = carry.state.pos.device
+        ins = [x if b is None else b for x, b in zip(_leaves(carry),
+                                                      self.bufs)]
+        pc = carry.pcache
+        cache = _cache_tensors(pc)
+        kernels = list(tracing.kernel_wrappers().values())
+        before = [fn.launches for fn in kernels]
+        graph = torch.cuda.CUDAGraph()
+        stream = _capture_stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        try:
+            with torch.cuda.stream(stream):
+                graph.capture_begin(self.pool)
+                try:
+                    self._move(_with_leaves(carry, ins), ins, cache)
+                finally:
+                    graph.capture_end()
+        finally:
+            # the commit re-pointed some of the cache's fields at tensors
+            # of the capture; the graph writes the originals
+            for name, t in cache.items():
+                setattr(pc, name, t)
+            self.launches = {fn: fn.launches - k
+                             for fn, k in zip(kernels, before)
+                             if fn.launches != k}
+            for fn, k in zip(kernels, before):
+                fn.launches = k
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        self.graph, self.cache = graph, _where(cache)
+
+    def _move(self, carry: MCCarry, ins, cache):
+        """The work of the graph: the move of ``carry`` (whose leaves are
+        ``ins``) at the row index, then the copies of what it made into
+        ``ins``, the polar cache's tensors ``cache`` and the StepOut
+        columns, and the row index advanced."""
+        row = self.row
+        new, out = self.step(carry, self.draws.index_select(0, row)[0],
+                             None if self.darts is None else
+                             self.darts.index_select(0, row)[0])
+        for j, (x, y) in enumerate(zip(ins, _leaves(new))):
+            if y is not x:
+                if self.bufs[j] is None:
+                    raise RuntimeError("a graphed move replaced a state "
+                                       "tensor its layout's first move kept")
+                x.copy_(y)
+        for name, t in cache.items():
+            y = getattr(new.pcache, name)
+            if y is not t:
+                t.copy_(y)
+        for col, v in zip(self.cols, out):
+            col.index_copy_(0, row, v.reshape(1))
+        row.add_(1)
+
+    def run(self, carry: MCCarry, draws, darts):
+        """The chunk's moves from ``carry``, with the chunk's draws
+        ``draws`` ([n, C] on the device) and darts (``[None] * n`` or
+        [n, darts, 3]): (carry, the StepOut of the moves run eager).  The
+        carry's leaves that a move replaces are this graph's buffers until
+        ``collect``."""
+        leaves = _leaves(carry)
+        eager = []
+        if not self._same_layout(leaves):
+            self.graph = None
+            with tracing.span("step", move=True):
+                tracing.count("graph_eager")
+                new, out = self.step(carry, draws[0], darts[0])
+            self._adopt(leaves, _leaves(new), out, draws, darts)
+            carry, leaves, eager = new, _leaves(new), [out]
+        # a graph whose polar cache moved is captured anew into the same
+        # memory pool, and only then let go, so that the pool stays held
+        capture = self.graph is None or \
+            self.cache != _where(_cache_tensors(carry.pcache))
+        for i in range(len(eager), self.n):
+            with tracing.span("step", move=True):
+                if i == len(eager):
+                    self._feed(leaves, draws, darts, eager)
+                if capture:
+                    tracing.count("graph_capture")
+                    self._capture(carry)
+                    capture = False
+                tracing.count("graph_replay")
+                self.graph.replay()
+                for fn, k in self.launches.items():
+                    fn.launches += k
+        return carry, eager
+
+    def _feed(self, leaves, draws, darts, eager):
+        """Fill the buffers for the chunk's first replay."""
+        for b, x in zip(self.bufs, leaves):
+            if b is not None:
+                b.copy_(x)
+        self.draws.copy_(draws)
+        if self.darts is not None:
+            self.darts.copy_(darts)
+        self.row.fill_(len(eager))
+        for col, v in zip(self.cols, eager[0] if eager else ()):
+            col[0] = v
+
+    def collect(self, carry: MCCarry, eager):
+        """(carry, StepOut of [n] columns) after ``run``: copies of what
+        the buffers hold, so that no later replay writes what the caller
+        keeps."""
+        if len(eager) == self.n:
+            return carry, _stack(eager)
+        leaves = [b.clone() if j in self.written else x
+                  for j, (x, b) in enumerate(zip(_leaves(carry), self.bufs))]
+        return _with_leaves(carry, leaves), \
+            StepOut(*(c.clone() for c in self.cols))
+
+
+def _stack(outs) -> StepOut:
+    return StepOut(*(torch.stack(col) for col in zip(*outs)))
+
+
 def make_chunk_runner(flags: FFlags, params: RunParams, opts: MCOptions,
                       chunk_steps: int, topology=None):
     """``run_chunk(carry) -> (carry, StepOut of [chunk_steps] tensors)``:
-    a host loop over ``chunk_steps`` steps.  The carry's polarization
-    planes are updated in place; the carry passed in must not be reused."""
+    a host loop over ``chunk_steps`` steps, or where ``graphs_apply``, a
+    replay of one move's CUDA graph (_MoveGraph) per move after a
+    layout's first, with the same kernels in the same order.  The carry's
+    polarization cache is updated in place; the carry passed in must not
+    be reused.  The carry and StepOut returned are the caller's: no later
+    chunk writes them."""
     step = make_step_fn(flags, params, opts, topology=topology)
+    graph = _MoveGraph(step, chunk_steps)
 
     def run_chunk(carry: MCCarry):
         dev = carry.state.pos.device
@@ -774,14 +1032,23 @@ def make_chunk_runner(flags: FFlags, params: RunParams, opts: MCOptions,
             if opts.spectre or opts.gwp:
                 wide = wide_draws(carry.key, chunk_steps,
                                   carry.state.n_atom_slots).to(dev)
-        outs = []
-        for i in range(chunk_steps):
-            with tracing.span("step", move=True):
-                carry, out = step(carry, draws[i], darts[i], volume[i],
-                                  wide[i])
-            outs.append(out)
+        graphed = graphs_apply(dev, flags, params, opts, carry.pcache,
+                               tracing.marking())
+        if graphed:
+            carry, outs = graph.run(carry, draws, darts)
+        else:
+            outs = []
+            for i in range(chunk_steps):
+                with tracing.span("step", move=True):
+                    tracing.count("graph_eager")
+                    carry, out = step(carry, draws[i], darts[i], volume[i],
+                                      wide[i])
+                outs.append(out)
         with tracing.span("stats"):
-            outs = StepOut(*(torch.stack(col) for col in zip(*outs)))
+            if graphed:
+                carry, outs = graph.collect(carry, outs)
+            else:
+                outs = _stack(outs)
             carry = dataclasses.replace(
                 carry, key=key, stats=accumulate_stats(carry.stats, outs))
         return carry, outs

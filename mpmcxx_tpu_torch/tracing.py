@@ -26,7 +26,16 @@ Without CUDA marking is a no-op.
 No span synchronises the device or changes what the chain computes.
 ``snapshot()`` returns the aggregates, the counters, the moves counted
 by the chunk runner and the launches of K1-K5 since the last ``reset``
-(read from the kernel wrappers' ``.launches``, their one store).
+(read from the kernel wrappers' ``.launches``, their one store; a
+replayed CUDA graph adds the launches its capture recorded).
+
+Where the chunk runner replays a move as a CUDA graph (mc/chain.py), the
+move's ``step`` span opens as always, but the ``step.*`` spans inside it
+fire only where the move is captured or runs eager: a replay runs no
+Python of the step.  The counters ``graph_capture``, ``graph_replay``
+and ``graph_eager``, on the ``step`` span, say which: a captured move is
+also replayed, so ``graph_replay`` over the moves is the share of moves
+the graph ran.  With device marking on, the runner runs every move eager.
 
 The spans and counters, and what reads each (PERF.md section 3):
 ``draws``, ``step``, ``step.target``, ``step.cavity``, ``step.move``,
@@ -36,7 +45,8 @@ The spans and counters, and what reads each (PERF.md section 3):
 ``refresh.polar_cache`` (mc/chain.py); ``corrtime_io``,
 ``grow_capacity``, ``setup.build_state``, ``output`` (runner.py);
 ``setup.init_carry`` (mc/chain.py); ``setup.library`` (ops/kernels.py);
-the counter ``host_sync``.
+the counter ``host_sync``; the counters ``graph_capture``,
+``graph_replay``, ``graph_eager`` (mc/chain.py).
 """
 
 from __future__ import annotations
@@ -164,18 +174,29 @@ def _show(message, category, filename, lineno, file=None, line=None):
     _T.show(message, category, filename, lineno, file, line)
 
 
+def kernel_wrappers() -> dict:
+    """K1-K5's wrappers by name; each counts its launches in
+    ``.launches``."""
+    from .ops import cuda_cavity, cuda_polar
+    return {"K1 contract_planes": cuda_polar.contract_planes,
+            "K2 write_plane_strips": cuda_polar.write_plane_strips,
+            "K3 occupancy": cuda_cavity.occupancy,
+            "K4 contract_planes_tri": cuda_polar.contract_planes_tri,
+            "K5 contract_planes_sym": cuda_polar.contract_planes_sym}
+
+
 def _launches() -> dict:
     """K1-K5's launches, from each wrapper's ``.launches``."""
-    from .ops import cuda_cavity, cuda_polar
-    return {"K1 contract_planes": cuda_polar.contract_planes.launches,
-            "K2 write_plane_strips": cuda_polar.write_plane_strips.launches,
-            "K3 occupancy": cuda_cavity.occupancy.launches,
-            "K4 contract_planes_tri": cuda_polar.contract_planes_tri.launches,
-            "K5 contract_planes_sym": cuda_polar.contract_planes_sym.launches}
+    return {k: fn.launches for k, fn in kernel_wrappers().items()}
 
 
 def enabled() -> bool:
     return _T.on
+
+
+def marking() -> bool:
+    """Whether span boundaries are marked on the device."""
+    return _T.marking
 
 
 def enable(mark_device: bool = False) -> None:

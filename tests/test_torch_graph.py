@@ -1,0 +1,272 @@
+"""The chunk runner's CUDA graph of a move (mpmcxx_tpu_torch/mc/chain.py,
+``graphs_apply`` and ``_MoveGraph``).
+
+On the CPU: the rule that picks the graph or the eager loop, case by
+case; a runner on the CPU counts every move ``graph_eager``; and the
+carry's tensors come apart and back together whole.
+
+The ``gpu`` tests run on the card (``python -m pytest
+tests/test_torch_graph.py -m gpu --noconftest``; this file imports no
+jax): a CLI ``Simulation`` whose chunks replay the graph runs the same
+chain as its eager loop over ``make_step_fn``'s step, seed for seed,
+through corrtime refreshes (new planes) and a capacity regrowth (a new
+layout), on a polarizable H2 uVT system with Feynman-Hibbs, cavity bias
+and fixed sweeps, and on a CO2 LJ + Ewald uVT system."""
+
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import torch_co2_system as co2  # noqa: E402
+from mpmcxx_tpu_torch import constants as const  # noqa: E402
+from mpmcxx_tpu_torch import flags as fl  # noqa: E402
+from mpmcxx_tpu_torch import tracing  # noqa: E402
+from mpmcxx_tpu_torch.config.parser import read_config  # noqa: E402
+from mpmcxx_tpu_torch.mc import chain  # noqa: E402
+from mpmcxx_tpu_torch.ops import polar_cache as pcache_mod  # noqa: E402
+from mpmcxx_tpu_torch.parallel import meshing  # noqa: E402
+from mpmcxx_tpu_torch.runner import Simulation  # noqa: E402
+from mpmcxx_tpu_torch.state import topology  # noqa: E402
+
+CHUNK = 4
+
+
+@pytest.fixture(autouse=True)
+def tracer_off():
+    tracing.disable()
+    tracing.reset()
+    yield
+    tracing.disable()
+    tracing.reset()
+
+
+def _polar():
+    """(flags, params, opts, cache) of the flagship's polarizable uVT
+    chain with fixed sweeps: a move the graph takes."""
+    flags, params, opts = co2.config(fl, const, chain.MCOptions)
+    return flags, params, opts, pcache_mod.empty_cache("cpu")
+
+
+def _sharded(cache):
+    mesh = meshing.make_mesh(devices=["cpu"] * 2)
+    return dataclasses.replace(cache, dx=meshing.RowShards(
+        (cache.dx, cache.dx), (0, 0), mesh))
+
+
+# case -> (device, change of (flags, params, opts, cache), marking, graph)
+RULE = {
+    "cuda-fixed-sweeps": ("cuda", None, False, True),
+    "cuda-lj-ewald": ("cuda", lambda f, p, o, c: (
+        f.replace(polarization=False, polar_iterative=False,
+                  polar_ewald=False, polar_mixed=False), p,
+        dataclasses.replace(o, polar_incremental=False), None), False, True),
+    "cpu": ("cpu", None, False, False),
+    "precision-ended-scf": ("cuda", lambda f, p, o, c: (
+        f, p.replace(polar_precision=1e-5), o, c), False, False),
+    "exact-solve": ("cuda", lambda f, p, o, c: (
+        f.replace(polar_iterative=False), p, o, c), False, False),
+    "row-sharded-cache": ("cuda", lambda f, p, o, c: (
+        f, p, o, _sharded(c)), False, False),
+    "full-recompute": ("cuda", lambda f, p, o, c: (
+        f, p, dataclasses.replace(o, incremental=False), c), False, False),
+    "npt": ("cuda", lambda f, p, o, c: (
+        f, p, dataclasses.replace(o, ensemble=const.ENSEMBLE_NPT), c),
+        False, False),
+    "spectre": ("cuda", lambda f, p, o, c: (
+        f, p, dataclasses.replace(o, spectre=True), c), False, False),
+    "gwp": ("cuda", lambda f, p, o, c: (
+        f, p, dataclasses.replace(o, gwp=True), c), False, False),
+    "tracer-marking": ("cuda", None, True, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RULE))
+def test_graph_rule(case):
+    device, change, marking, want = RULE[case]
+    flags, params, opts, cache = _polar()
+    if change is not None:
+        flags, params, opts, cache = change(flags, params, opts, cache)
+    assert chain.graphs_apply(torch.device(device), flags, params, opts,
+                              cache, marking) is want
+
+
+SYSTEMS = {"co2": co2.torch_co2_lj_ewald, "h2": co2.torch_h2_cavity}
+
+
+def test_runner_on_the_cpu_runs_every_move_eager():
+    state, flags, params, opts = co2.torch_co2_lj_ewald()
+    carry = chain.init_carry(state, flags, params, opts, seed=5)
+    run = chain.make_chunk_runner(flags, params, opts, CHUNK,
+                                  topology=topology(state))
+    tracing.enable()
+    for _ in range(2):
+        carry, _ = run(carry)
+    snap = tracing.snapshot()
+    assert snap["moves"] == 2 * CHUNK
+    assert snap["counters"]["graph_eager"] == {"step": 2 * CHUNK}
+    assert not snap["counters"].get("graph_capture")
+    assert not snap["counters"].get("graph_replay")
+
+
+@pytest.mark.parametrize("system", sorted(SYSTEMS))
+def test_carry_comes_apart_and_back_whole(system):
+    state, flags, params, opts = SYSTEMS[system]()
+    carry = chain.init_carry(state, flags, params, opts, seed=1)
+    leaves = chain._leaves(carry)
+    assert all(isinstance(t, torch.Tensor) for t in leaves)
+    back = chain._with_leaves(carry, leaves)
+    assert all(a is b for a, b in zip(chain._leaves(back), leaves))
+    assert back.pcache is carry.pcache and back.key is carry.key and \
+        back.stats is carry.stats
+    # a move replaces state tensors, observables and caches, and keeps
+    # the layout's static tensors
+    run = chain.make_step_fn(flags, params, opts, topology=topology(state))
+    _, draws, _ = chain.chunk_draws(carry.key, 1)
+    darts = torch.rand((opts.cavity_darts, 3), dtype=torch.float64) \
+        if opts.cavity_bias else None
+    new, _ = run(carry, draws[0], darts)
+    kept = {j for j, (a, b) in enumerate(zip(leaves, chain._leaves(new)))
+            if a is b}
+    names = chain._STATE_FIELDS
+    assert {names.index(n) for n in ("mol_id", "mass", "sigma")} <= kept
+    assert names.index("pos") not in kept
+
+
+# -- on the card ------------------------------------------------------------
+
+RUN_IN = {
+    "h2": """job_name gr
+ensemble uvt
+temperature 77.0
+pressure 20.0
+insert_probability 0.3
+move_factor 0.1
+numsteps 1000
+corrtime {n}
+seed {seed}
+feynman_hibbs on
+feynman_hibbs_order 4
+polarization on
+polar_iterative on
+polar_ewald on
+polar_mixed on
+polar_max_iter 4
+polar_damp_type exponential
+polar_damp 2.1304
+cavity_bias on
+cavity_grid 5
+cavity_radius 2.6
+pqr_input sys.pqr
+basis1 {L} 0 0
+basis2 0 {L} 0
+basis3 0 0 {L}
+""",
+    "co2": """job_name gr
+ensemble uvt
+temperature 298.0
+pressure 30.0
+insert_probability 0.3
+move_factor 0.1
+numsteps 1000
+corrtime {n}
+seed {seed}
+pqr_input sys.pqr
+basis1 {L} 0 0
+basis2 0 {L} 0
+basis3 0 0 {L}
+""",
+}
+CORRTIME, CORRTIMES, GROW_AFTER = 8, 4, 1
+CONTRACTIONS = ("K1 contract_planes", "K4 contract_planes_tri",
+                "K5 contract_planes_sym")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _drive(path, graphed: bool):
+    """CORRTIMES corrtimes of a CLI Simulation a chunk each, each chunk
+    followed by the refresh, and the capacity grown after chunk
+    GROW_AFTER; with ``graphed`` off the runner's eager loop runs every
+    move.  Returns (the moves' movetype and accepted, the final carry,
+    the tracer's snapshot, [a returned carry, its leaves as returned, and
+    after the next chunk])."""
+    with pytest.MonkeyPatch.context() as mp:
+        if not graphed:
+            mp.setattr(chain, "graphs_apply", lambda *a, **k: False)
+        sim = Simulation(read_config(path), quiet=True, device="cuda")
+        tracing.reset()
+        tracing.enable()
+        movetype, accepted, kept = [], [], []
+        slots = sim.state.n_atom_slots
+        for k in range(CORRTIMES):
+            sim.carry, outs = sim.run_chunk(sim.carry)
+            if kept:
+                kept[-1].append([t.clone() for t in
+                                 chain._leaves(kept[-1][0])])
+            kept.append([sim.carry, [t.clone() for t in
+                                     chain._leaves(sim.carry)]])
+            movetype += outs.movetype.tolist()
+            accepted += outs.accepted.tolist()
+            sim.carry = sim.refresh(sim.carry)
+            if k == GROW_AFTER:
+                sim._grow_capacity(sim.carry)
+        torch.cuda.synchronize()
+        snap = tracing.snapshot()
+        tracing.disable()
+    assert sim.state.n_atom_slots > slots
+    return movetype, accepted, sim.carry, snap, kept[:-1]
+
+
+def _rel(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    scale = torch.clamp(b.abs().max(), min=1e-300)
+    return float((a - b).abs().max() / scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("system", ["h2", "co2"])
+def test_graphed_chain_is_the_eager_chain(cuda, system, tmp_path,
+                                          monkeypatch):
+    co2.write_pqr(str(tmp_path / "sys.pqr"), co2.records(model=system))
+    (tmp_path / "run.in").write_text(RUN_IN[system].format(
+        n=CORRTIME, seed=2147483649, L=co2.L))
+    monkeypatch.chdir(tmp_path)
+    path = str(tmp_path / "run.in")
+    m_e, a_e, c_e, s_e, _ = _drive(path, False)
+    m_g, a_g, c_g, s_g, kept = _drive(path, True)
+    moves = CORRTIMES * CORRTIME
+    assert len(m_g) == moves and m_g == m_e and a_g == a_e
+    assert sum(a_g) > 0 and const.MOVETYPE_INSERT in m_g
+    for a, b in ((c_g.state.pos, c_e.state.pos), (c_g.state.mu, c_e.state.mu),
+                 (c_g.obs.rd_energy, c_e.obs.rd_energy),
+                 (c_g.obs.coulombic_energy, c_e.obs.coulombic_energy),
+                 (c_g.obs.polarization_energy, c_e.obs.polarization_energy),
+                 (c_g.recip_e, c_e.recip_e)):
+        assert _rel(a, b) <= 1e-12
+    # the graph's launches are counted as the eager loop's
+    assert s_g["launches"] == s_e["launches"]
+    if system == "h2":
+        got = s_g["launches"]
+        assert got["K2 write_plane_strips"] > 0 and got["K3 occupancy"] > 0
+        assert sum(got[k] for k in CONTRACTIONS) >= 4 * moves
+    # one eager move per layout, a capture per layout and per refreshed
+    # plane set (the refresh leaves a chain without polarization none),
+    # every other move replayed
+    layouts = 2
+    assert s_e["counters"]["graph_eager"] == {"step": moves}
+    assert s_g["counters"]["graph_eager"] == {"step": layouts}
+    assert s_g["counters"]["graph_capture"] == {
+        "step": CORRTIMES if system == "h2" else layouts}
+    assert s_g["counters"]["graph_replay"] == {"step": moves - layouts}
+    # no later chunk wrote a carry the runner returned
+    for _, returned, later in kept:
+        for a, b in zip(returned, later):
+            assert torch.equal(a, b)

@@ -49,22 +49,7 @@ def tracer_off():
     tracing.reset()
 
 
-def _h2(device="cpu"):
-    state, _, flags, params, opts = co2.torch_system(device, model="h2")
-    return state, flags, params, dataclasses.replace(
-        opts, cavity_bias=True, cavity_grid_size=5, cavity_radius=2.6,
-        cavity_darts=int(co2.L ** 3 * 0.1))
-
-
-def _co2(incremental=True):
-    state, _, flags, params, opts = co2.torch_system("cpu", model="co2")
-    flags = dataclasses.replace(flags, polarization=False,
-                                polar_iterative=False, polar_ewald=False,
-                                polar_mixed=False)
-    return state, flags, params, dataclasses.replace(
-        opts, polar_incremental=False, incremental=incremental)
-
-
+_h2, _co2 = co2.torch_h2_cavity, co2.torch_co2_lj_ewald
 CUTS = {"h2": (_h2, H2_SPANS), "co2": (_co2, CO2_SPANS),
         "co2-full": (lambda: _co2(incremental=False), FULL_SPANS)}
 
@@ -285,21 +270,24 @@ def test_cli_trace_writes_the_snapshot(tmp_path, monkeypatch):
 
 
 def test_every_span_of_the_program_is_documented():
-    """The tracer's docstring lists every span the program opens (PERF.md
-    section 3 says what reads each)."""
+    """The tracer's docstring lists every span the program opens and
+    every counter it counts (PERF.md section 3 says what reads each)."""
     import pathlib
     import re
     root = pathlib.Path(tracing.__file__).parent
-    opened = set()
+    opened, counted = set(), set()
     for path in root.rglob("*.py"):
-        opened |= set(re.findall(r'tracing\.span\("([\w.]+)"',
-                                 path.read_text()))
+        text = path.read_text()
+        opened |= set(re.findall(r'tracing\.span\("([\w.]+)"', text))
+        counted |= set(re.findall(r'tracing\.count\("([\w.]+)"', text))
     opened |= set(REFRESH_SPANS[1:])
     doc = set(re.findall(r"``([\w.]+)``", tracing.__doc__))
     assert opened and opened <= doc
     assert opened == set(H2_SPANS + FULL_SPANS + REFRESH_SPANS) | {
         "draws", "stats", "corrtime_io", "grow_capacity",
         "setup.build_state", "setup.init_carry", "setup.library", "output"}
+    assert counted | {tracing.SYNC} <= doc
+    assert counted == {"graph_capture", "graph_replay", "graph_eager"}
 
 
 # -- on the card ------------------------------------------------------------

@@ -118,6 +118,29 @@ def torch_system(device="cpu", model: str = "co2"):
                                   max_mol_atoms=len(sites))
 
 
+def torch_h2_cavity(device="cpu"):
+    """(state, flags, params, opts) of the polarizable H2 system with
+    cavity-biased insertion."""
+    import dataclasses
+    state, _, flags, params, opts = torch_system(device, model="h2")
+    return state, flags, params, dataclasses.replace(
+        opts, cavity_bias=True, cavity_grid_size=5, cavity_radius=2.6,
+        cavity_darts=int(L ** 3 * 0.1))
+
+
+def torch_co2_lj_ewald(incremental=True):
+    """(state, flags, params, opts) of the CO2 system without
+    polarization (LJ + Ewald) on the CPU, on the incremental or the
+    full-recompute branch."""
+    import dataclasses
+    state, _, flags, params, opts = torch_system("cpu", model="co2")
+    flags = dataclasses.replace(flags, polarization=False,
+                                polar_iterative=False, polar_ewald=False,
+                                polar_mixed=False)
+    return state, flags, params, dataclasses.replace(
+        opts, polar_incremental=False, incremental=incremental)
+
+
 def jax_state_numpy(state):
     """A JAX SystemState as the field -> numpy mapping of
     mpmcxx_tpu_torch.state.state_from_jax."""
