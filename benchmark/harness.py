@@ -28,6 +28,15 @@ window's accepted moves against the molecules they changed.  Each number
 is the worse of the two states; ``correct`` is every number within its
 limit (``limits/<workload>.json``).
 
+A run finds its chain by the configuration's ensemble, by name:
+``ensembles/<physics.ensemble>.py`` (``Manifest.ensemble``).  Where
+that file exists, it supplies the four parts this module supplies for
+the uVT chain of ``runner.Simulation``: ``build`` (the simulation from
+the ``run.in``, with its ``carry``), ``Chain`` (the loop a chunk at a
+time, with ``marks``, ``moved``, ``iterations`` and ``slots``),
+``snapshot`` and ``judge``.  Set-up timing, the window, the traced stretch, the
+metrics and the result stay here, shared by every ensemble.
+
 With ``trace``, a run of its own: the refreshes are timed between two
 synchronisations, and one stretch around a corrtime boundary (the last
 ``profile_chunks`` chunks, the refresh, the host reads) is profiled with
@@ -183,6 +192,31 @@ class Chain:
                 self.kept += self.pending
             self.pending, self.since = [], 0
 
+    def marks(self) -> dict:
+        """On the host, what ``moved`` compares the window's end with."""
+        st = self.sim.carry.state
+        return {"pos": st.pos.detach().cpu().numpy(),
+                "alive": st.mol_alive.cpu().numpy(),
+                "accepted": int(self.sim.carry.stats.accept.sum())}
+
+    def moved(self, marks: dict, end: dict):
+        """The window's accepted moves, and the numbers that hold them
+        to the state at its end (``end``: the final state's
+        ``on_host(snapshot)``): ``unmoved``, their ``moved_share``."""
+        accepted = int(self.sim.carry.stats.accept.sum()) - \
+            marks["accepted"]
+        return accepted, {"unmoved": moved_share(
+            marks["pos"], marks["alive"], end["pos"], end["mol_alive"],
+            end["mol_id"], end["mol_frozen"], accepted)}
+
+    @staticmethod
+    def iterations(outs):
+        """The SCF iterations of each move of one chunk's output."""
+        return outs.polarization_iterations
+
+    def slots(self) -> int:
+        return self.sim.carry.state.n_atom_slots
+
 
 def snapshot(carry) -> dict:
     """Device copies of what the judge reads of a carry: the layout, the
@@ -264,12 +298,44 @@ def gaps(carried: dict, ref: dict, n_ref: int) -> dict:
     }
 
 
-def compare(judged: list, unmoved, limits: dict):
+def build(path: str, config, traffic, dev):
+    """The CLI's simulation of the ``run.in`` at ``path``, its atom slots
+    held to the configuration's."""
+    from mpmcxx_tpu_torch import cli
+    from mpmcxx_tpu_torch.config.parser import read_config
+    sim = cli.dispatch(read_config(path), 1, quiet=True, device=dev)
+    if config.get("slots") and sim.state.n_atom_slots != config["slots"]:
+        raise ValueError(f"{sim.state.n_atom_slots} atom slots, the "
+                         f"configuration states {config['slots']}")
+    return sim
+
+
+def judge(st: dict, config, traffic, dev, control: bool):
+    """One judged state (``on_host(snapshot)``) against the float64
+    reference: (its gaps, the control's gaps or None, the reference's
+    terms).  Raises ValueError where the state contradicts the inputs."""
+    import torch
+    atoms, n_ref = judge_inputs(st, config)
+    phys = ref_physics.physics(config, traffic)
+    box = config["geometry"]["box"]
+    ta = _to_torch(atoms, dev)
+    ref = energy_terms(ta, phys, box)
+    low = None
+    if control:
+        low = energy_terms(ta, phys, box, dtype=torch.float32,
+                           plane_dtype=torch.bfloat16)
+        low["N"] = float(n_ref)
+        low = gaps(low, ref, n_ref)
+    return gaps(st, ref, n_ref), low, ref
+
+
+def compare(judged: list, moved: dict, limits: dict):
     """The numbers compared, each beside its limit, and ``correct``:
     ``judged`` holds the gaps of each judged state, and each number is
-    the worst of them."""
+    the worst of them; ``moved`` the numbers of the window's moves
+    (``Chain.moved``)."""
     nums = {k: max(g[k] for g in judged) for k in judged[0]}
-    nums["unmoved"] = unmoved
+    nums.update(moved)
     checks = {k: {"value": v, "limit": limits[k]} for k, v in nums.items()}
     # ``unmoved`` is None only where a regrowth changed the slot layout
     correct = all(v is None or (np.isfinite(v) and v <= limits[k])
@@ -333,16 +399,14 @@ def _run(man, cell, config, traffic, limits, seed, seconds, trace_on, dev,
     with open(path, "w") as f:
         f.write(run_in(config, traffic, seed, pqr))
 
-    from mpmcxx_tpu_torch import cli
-    from mpmcxx_tpu_torch.config.parser import read_config
-    sim = cli.dispatch(read_config(path), 1, quiet=True, device=dev)
-    if config.get("slots") and sim.state.n_atom_slots != config["slots"]:
-        raise ValueError(f"{sim.state.n_atom_slots} atom slots, the "
-                         f"configuration states {config['slots']}")
+    # the configuration's ensemble file, else this module's uVT chain
+    ens = man.ensemble(config["physics"]["ensemble"]) or \
+        sys.modules[__name__]
+    sim = ens.build(path, config, traffic, dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     spans = trace.Spans(timing=trace_on, cuda=dev.type == "cuda")
-    ch = Chain(sim, traffic, spans)
+    ch = ens.Chain(sim, traffic, spans)
     # warm-up: one chunk and one refresh with its host reads
     ch.advance()
     ch.since = ch.corrtime
@@ -352,10 +416,7 @@ def _run(man, cell, config, traffic, limits, seed, seconds, trace_on, dev,
     _sync(dev)
     setup_s = time.perf_counter() - t_start
 
-    c0 = sim.carry
-    pos0 = c0.state.pos.detach().cpu().numpy()
-    alive0 = c0.state.mol_alive.cpu().numpy()
-    acc0 = int(c0.stats.accept.sum())
+    marks = ch.marks()
     per_corrtime = traffic["corrtime"] // traffic["chunk"]
     pro_at = max(per_corrtime - traffic["profile_chunks"], 0)
     stretch, profiled, profile = None, [], None
@@ -393,49 +454,37 @@ def _run(man, cell, config, traffic, limits, seed, seconds, trace_on, dev,
 
     peak = int(torch.cuda.max_memory_allocated(dev)) \
         if dev.type == "cuda" else 0
-    c = sim.carry
-    states = [on_host(snapshot(c))]
+    states = [on_host(ens.snapshot(sim.carry))]
     if ch.before_refresh is not None:
         states.insert(0, on_host(ch.before_refresh))
-    end = states[-1]
-    accepted = int(c.stats.accept.sum()) - acc0
-    unmoved = moved_share(pos0, alive0, end["pos"], end["mol_alive"],
-                          end["mol_id"], end["mol_frozen"], accepted)
-    iters = torch.cat([o.polarization_iterations for o in ch.kept]).cpu() \
+    accepted, moved = ch.moved(marks, states[-1])
+    iters = torch.cat([ch.iterations(o) for o in ch.kept]).cpu() \
         .numpy() if ch.kept else np.zeros(0)
-    slots = c.state.n_atom_slots
     discarded = ch.discarded
     record = None
     if trace_on:
         record = _trace_record(man, config, traffic, spans, profile, iters,
-                               slots, dev)
-    del c, c0, sim, ch, stretch, profiled, profile
+                               ch, dev)
+    del sim, ch, stretch, profiled, profile
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
     phys = ref_physics.physics(config, traffic)
-    box = config["geometry"]["box"]
     t_ref = time.perf_counter()
     judged, ctl, refs, fault = [], [], [], None
     for st in states:
         try:
-            atoms, n_ref = judge_inputs(st, config)
+            got, low, ref = ens.judge(st, config, traffic, dev, control)
         except ValueError as e:
             fault = str(e)
             break
-        ta = _to_torch(atoms, dev)
-        ref = energy_terms(ta, phys, box)
         refs.append(ref)
-        judged.append(gaps(st, ref, n_ref))
+        judged.append(got)
         if control:
-            low = energy_terms(ta, phys, box, dtype=torch.float32,
-                               plane_dtype=torch.bfloat16)
-            low["N"] = float(n_ref)
-            ctl.append(gaps(low, ref, n_ref))
-        del ta
+            ctl.append(low)
     if fault is None:
-        checks, correct = compare(judged, unmoved, limits)
+        checks, correct = compare(judged, moved, limits)
     else:
         checks = {"layout": {"value": fault, "limit": None}}
         correct = False
@@ -462,7 +511,7 @@ def _run(man, cell, config, traffic, limits, seed, seconds, trace_on, dev,
         result["breakdown"] = record["breakdown"]
     if control and fault is None:
         result["control"], result["control_correct"] = compare(
-            ctl, 0.0, limits)
+            ctl, dict.fromkeys(moved, 0.0), limits)
         result["reference"] = refs
     result["window"] = {"seconds": window_s, "moves": moves,
                         "accepted": accepted, "seed": seed,
@@ -498,13 +547,14 @@ def _device(dev, cell, peak, record) -> dict:
     return out
 
 
-def _trace_record(man, config, traffic, spans, profile, iters, slots, dev):
+def _trace_record(man, config, traffic, spans, profile, iters, ch, dev):
     """What the per-layer readers read: refresh times, SCF iterations per
-    move, and the profiled stretch's device ops by span."""
+    move (``ch.iterations``), and the profiled stretch's device ops by
+    span."""
     import torch
     rec = {"refresh_s": spans.times.get("refresh", []),
            "iterations": [float(x) for x in iters],
-           "slots": slots, "planes": config["scf"]["planes"],
+           "slots": ch.slots(), "planes": config["scf"]["planes"],
            "palmo": ref_physics.physics(config, traffic)["polar_palmo"],
            "kernels": man.kernels(), "ops": None, "segments": None,
            "chunk_iterations": None, "peak": None}
@@ -516,7 +566,7 @@ def _trace_record(man, config, traffic, spans, profile, iters, slots, dev):
     (ops, segs), outs = profile
     rec["ops"], rec["segments"] = ops, segs
     rec["chunk_iterations"] = [float(x) for x in torch.cat(
-        [o.polarization_iterations for o in outs]).cpu().numpy()]
+        [ch.iterations(o) for o in outs]).cpu().numpy()]
     whole = [s for s in segs if s[0] == "stretch"]
     if whole:
         _, w0, w1 = whole[0]

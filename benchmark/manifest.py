@@ -4,8 +4,10 @@ A configuration is ``configs/<name>.json`` (its manifest entry's
 ``file``), a traffic mix ``traffic/<name>.json``, the correctness limits
 of a cell ``limits/<workload>.json``, a per-layer metric
 ``metrics/<name>.py`` (a ``read(record)`` function), a kernel mapping
-``kernels/<name>.json``; a later change adds a cell, a metric or a
-kernel by adding files and manifest entries only.
+``kernels/<name>.json``, the chain of an ensemble other than uVT
+``ensembles/<physics.ensemble>.py``; a later change adds a cell, a
+metric, a kernel or an ensemble by adding files and manifest entries
+only.
 """
 
 from __future__ import annotations
@@ -62,15 +64,27 @@ class Manifest:
                 if (workload in m["workloads"] if "workloads" in m
                     else m["moves"] in e2e)]
 
-    def reader(self, metric: str):
-        """``metrics/<metric>.py``'s ``read``."""
-        path = os.path.join(self.here, "metrics", f"{metric}.py")
-        safe = metric.replace(".", "_").replace("-", "_")
+    def _module(self, sub: str, name: str):
+        """The module ``<sub>/<name>.py``, or None where it is not there."""
+        path = os.path.join(self.here, sub, f"{name}.py")
+        if not os.path.exists(path):
+            return None
+        safe = name.replace(".", "_").replace("-", "_")
         spec = importlib.util.spec_from_file_location(
-            f"{__package__}.metrics.{safe}", path)
+            f"{__package__}.{sub}.{safe}", path)
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
-        return mod.read
+        return mod
+
+    def reader(self, metric: str):
+        """``metrics/<metric>.py``'s ``read``."""
+        return self._module("metrics", metric).read
+
+    def ensemble(self, name: str):
+        """``ensembles/<name>.py`` (its ``build``, ``Chain``,
+        ``snapshot`` and ``judge``), or None: the harness's own uVT
+        chain."""
+        return self._module("ensembles", name)
 
     def kernels(self) -> list:
         """Every kernel mapping: {name, label, work, fragments}."""

@@ -63,7 +63,8 @@ def test_a_run_loads_no_jax():
     code = ("import sys; sys.path[0] = %r\n"
             "from benchmark import harness\n"
             "from mpmcxx_tpu_torch import cli\n"
-            "from mpmcxx_tpu_torch.mc import chain, averages\n"
+            "from mpmcxx_tpu_torch.mc import chain, averages, pi\n"
+            "from benchmark.ensembles import pi_nvt\n"
             "from mpmcxx_tpu_torch.config import parser\n"
             "print(harness.forbidden_modules())\n" % ROOT)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -21,6 +21,11 @@ import time
 
 MARK_CYCLES = 64
 MARKER = "spin_kernel"
+# host seconds between the profiler's start or stop and the stretch's
+# outer markers: the profiler drops device events that its clock places
+# outside its window, and on some H100 hosts every try of a run lost
+# markers, which the stretch's edges hold
+EDGE_S = 0.1
 _HEAD = re.compile(r"(?:void\s+)?([\w:]+)")
 _WHAT = re.compile(r"\w+(?:Functor|_kernel_cuda|_kernel_impl)\b")
 
@@ -82,11 +87,14 @@ class Stretch:
 
     def __init__(self, spans: Spans):
         """Start profiling, and marking the spans' boundaries."""
+        import torch
         from torch.profiler import ProfilerActivity, profile
         self.spans = spans
         spans.bounds = []
         self.prof = profile(activities=[ProfilerActivity.CUDA])
         self.prof.start()
+        torch.cuda.synchronize()
+        time.sleep(EDGE_S)
         spans.marking = True
         spans._mark("start", "stretch")
 
@@ -95,6 +103,7 @@ class Stretch:
         self.spans._mark("end", "stretch")
         self.spans.marking = False
         torch.cuda.synchronize()
+        time.sleep(EDGE_S)
         self.prof.stop()
 
     def device_ops(self):
