@@ -46,7 +46,14 @@ The spans and counters, and what reads each (PERF.md section 3):
 ``grow_capacity``, ``setup.build_state``, ``output`` (runner.py);
 ``setup.init_carry`` (mc/chain.py); ``setup.library`` (ops/kernels.py);
 the counter ``host_sync``; the counters ``graph_capture``,
-``graph_replay``, ``graph_eager`` (mc/chain.py).
+``graph_replay``, ``graph_eager`` (mc/chain.py).  The two-box Gibbs
+chain (mc/gibbs.py): ``gibbs.draws``, ``gibbs.step`` (opens a move),
+``gibbs.step.move``, ``gibbs.step.delta_e``, ``gibbs.step.accept``,
+``gibbs.stats``; ``gibbs.refresh``, ``gibbs.refresh.energy``,
+``gibbs.refresh.sf``; the counters ``gibbs_displace``,
+``gibbs_transfer``, ``gibbs_volume``, ``gibbs_spin`` (the host's pick
+of each move, on ``gibbs.step``); its set-up opens ``setup.build_state``
+and ``setup.init_carry``, its corrtime ``corrtime_io``.
 """
 
 from __future__ import annotations

@@ -24,6 +24,7 @@ torch.set_num_threads(1)
 
 import torch_co2_system as co2  # noqa: E402
 from mpmcxx_tpu_torch import cli, tracing  # noqa: E402
+from mpmcxx_tpu_torch import constants as const  # noqa: E402
 from mpmcxx_tpu_torch.mc import chain  # noqa: E402
 from mpmcxx_tpu_torch.ops import cuda_cavity, cuda_polar  # noqa: E402
 from mpmcxx_tpu_torch.state import topology  # noqa: E402
@@ -269,6 +270,132 @@ def test_cli_trace_writes_the_snapshot(tmp_path, monkeypatch):
     assert got["setup.init_carry"]["count"] == 1
 
 
+GIBBS_MOVE_SPANS = ("gibbs.step", "gibbs.step.move", "gibbs.step.delta_e",
+                    "gibbs.step.accept")
+GIBBS_REFRESH_SPANS = ("gibbs.refresh", "gibbs.refresh.energy",
+                       "gibbs.refresh.sf")
+
+
+def _gibbs(tmp_path, corrtime=8):
+    """The CLI's GibbsSimulation of two small boxes of TraPPE CO2 (the
+    benchmark's model and lattice generator; 8 and 4 molecules in 20 A
+    boxes, transfers and volume exchanges frequent), on the incremental
+    path."""
+    from benchmark.inputs import geometry
+    from benchmark.manifest import Manifest
+    from mpmcxx_tpu_torch.config.parser import read_config
+    model = Manifest().config("co2-trappe-vle-250k")["model"]
+    for name, n, seed in (("a.pqr", 8, 3), ("b.pqr", 4, 4)):
+        geometry.write_pqr(str(tmp_path / name), model, geometry.molecules(
+            model, {"seed": seed, "box": 20.0, "molecules": n,
+                    "jitter": 0.3}))
+    (tmp_path / "run.in").write_text(GIBBS_RUN_IN.format(
+        L=20.0, corrtime=corrtime, d=tmp_path))
+    sim = cli.dispatch(read_config(str(tmp_path / "run.in")), 1,
+                       quiet=True, device="cpu")
+    assert sim.opts.incremental
+    return sim
+
+
+GIBBS_RUN_IN = """job_name gb
+ensemble nvt_gibbs
+temperature 250.0
+transfer_probability 0.4
+volume_probability 0.3
+volume_change_factor 0.1
+move_factor 0.1
+numsteps 16
+corrtime {corrtime}
+seed 4
+pqr_input {d}/a.pqr
+pqr_input_B {d}/b.pqr
+energy_output off
+pqr_output /dev/null
+pqr_restart off
+basis1 {L} 0 0
+basis2 0 {L} 0
+basis3 0 0 {L}
+"""
+
+
+def test_gibbs_chunk_spans_and_counters(tmp_path):
+    """A Gibbs chunk with the tracer on opens each of its spans, once a
+    move for the step's, and counts each move under its host pick; the
+    carry is bitwise the one with the tracer off, which records
+    nothing."""
+    from mpmcxx_tpu_torch.mc import gibbs
+    n = 12
+
+    def chunk():
+        sim = _gibbs(tmp_path)
+        carry = gibbs.init_gibbs_carry(
+            sim.state_a, sim.state_b, sim.flags, sim.params, sim.opts,
+            sim.seed, sim.cfg.temperature)
+        run = gibbs.make_gibbs_chunk_runner(sim.flags, sim.params,
+                                            sim.opts, n, sim.topologies)
+        carry, outs = run(carry)
+        refresh = gibbs.make_gibbs_refresher(sim.flags, sim.params,
+                                             sim.opts)
+        return refresh(carry), outs
+
+    off, outs_off = chunk()
+    snap = tracing.snapshot()
+    assert snap["spans"] == {} and snap["moves"] == 0
+    assert all(not v for v in snap["counters"].values())
+    tracing.enable()
+    on, outs_on = chunk()
+    snap = tracing.snapshot()
+    tracing.disable()
+    _assert_bitwise(on, off)
+    _assert_bitwise(outs_on, outs_off)
+    got = snap["spans"]
+    assert snap["moves"] == n
+    for name in GIBBS_MOVE_SPANS:
+        assert got[name]["count"] == n, name
+    assert got["gibbs.draws"]["count"] == got["gibbs.stats"]["count"] == 1
+    for name in GIBBS_REFRESH_SPANS:
+        assert got[name]["count"] == 1, name
+    assert got["setup.build_state"]["count"] == 1
+    assert got["setup.init_carry"]["count"] == 1
+    inner = sum(got[k]["total_ns"] for k in GIBBS_MOVE_SPANS[1:])
+    assert inner <= got["gibbs.step"]["total_ns"]
+    parts = sum(got[k]["total_ns"] for k in GIBBS_REFRESH_SPANS[1:])
+    assert got["gibbs.refresh"]["self_ns"] == \
+        got["gibbs.refresh"]["total_ns"] - parts
+    # one count a move, on the move's span, by the host's pick
+    picks = {k: v for k, v in snap["counters"].items()
+             if k in gibbs.COUNTERS.values()}
+    assert sum(c["gibbs.step"] for c in picks.values()) == n
+    assert all(set(c) == {"gibbs.step"} for c in picks.values())
+    moves = [int(m) for m in outs_on.movetype]
+    assert picks.get("gibbs_volume", {}).get("gibbs.step", 0) == \
+        moves.count(const.MOVETYPE_VOLUME) > 0
+    assert picks["gibbs_transfer"]["gibbs.step"] > 0
+
+
+def test_cli_trace_of_a_gibbs_run(tmp_path, monkeypatch):
+    """``--trace FILE`` on a Gibbs input writes every Gibbs span and
+    counter: 16 moves in two corrtimes of 8."""
+    _gibbs(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    rc, sim = cli.run(["--device", "cpu", "--quiet", "--trace",
+                       "spans.json", "run.in"])
+    assert rc == 0 and not tracing.enabled()
+    snap = json.loads((tmp_path / "spans.json").read_text())
+    got = snap["spans"]
+    assert snap["moves"] == 16
+    for name in GIBBS_MOVE_SPANS:
+        assert got[name]["count"] == 16, name
+    for name in GIBBS_REFRESH_SPANS + ("gibbs.draws", "gibbs.stats"):
+        assert got[name]["count"] == 2, name
+    assert got["corrtime_io"]["count"] == 3
+    assert got["setup.build_state"]["count"] == 1
+    assert got["setup.init_carry"]["count"] == 1
+    counted = {k for k, v in snap["counters"].items() if v}
+    assert counted >= {"gibbs_displace", "gibbs_transfer"}
+    assert sum(snap["counters"][k]["gibbs.step"] for k in counted) == 16
+
+
 def test_every_span_of_the_program_is_documented():
     """The tracer's docstring lists every span the program opens and
     every counter it counts (PERF.md section 3 says what reads each)."""
@@ -285,9 +412,15 @@ def test_every_span_of_the_program_is_documented():
     assert opened and opened <= doc
     assert opened == set(H2_SPANS + FULL_SPANS + REFRESH_SPANS) | {
         "draws", "stats", "corrtime_io", "grow_capacity",
-        "setup.build_state", "setup.init_carry", "setup.library", "output"}
+        "setup.build_state", "setup.init_carry", "setup.library",
+        "output"} | set(GIBBS_MOVE_SPANS + GIBBS_REFRESH_SPANS) | {
+        "gibbs.draws", "gibbs.stats"}
+    from mpmcxx_tpu_torch.mc import gibbs
+    counted |= set(gibbs.COUNTERS.values())
     assert counted | {tracing.SYNC} <= doc
-    assert counted == {"graph_capture", "graph_replay", "graph_eager"}
+    assert counted == {"graph_capture", "graph_replay", "graph_eager",
+                       "gibbs_displace", "gibbs_transfer", "gibbs_volume",
+                       "gibbs_spin"}
 
 
 # -- on the card ------------------------------------------------------------
