@@ -44,7 +44,7 @@ well's quantum correction (ops/pair_potentials.anharmonic).
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -777,14 +777,25 @@ _OBS_FIELDS = tuple(f.name for f in dataclasses.fields(Observables))
 _N_STATE = len(_STATE_FIELDS) + len(_PBC_FIELDS)
 
 
+def _state_leaves(st: SystemState) -> list:
+    """A state's tensors, its box's included, in a fixed order."""
+    return ([getattr(st, n) for n in _STATE_FIELDS] +
+            [getattr(st.pbc, n) for n in _PBC_FIELDS])
+
+
+def _with_state_leaves(st: SystemState, it) -> SystemState:
+    """``st`` with the next _N_STATE tensors of the iterator ``it``."""
+    return st.replace(**{n: next(it) for n in _STATE_FIELDS},
+                      pbc=PBC(**{n: next(it) for n in _PBC_FIELDS}))
+
+
 def _leaves(carry: MCCarry) -> list:
     """The carry's tensors a move reads or replaces, in a fixed order: the
     state's (its box's included), the observables, the temperature, the
     step, the cavity statistics, the structure factors and the k-space
     energy; not the key, the statistics or the polar cache."""
-    st, obs = carry.state, carry.obs
-    return ([getattr(st, n) for n in _STATE_FIELDS] +
-            [getattr(st.pbc, n) for n in _PBC_FIELDS] +
+    obs = carry.obs
+    return (_state_leaves(carry.state) +
             [getattr(obs, n) for n in _OBS_FIELDS] +
             [carry.temperature, carry.step, carry.cavity, carry.sf.re,
              carry.sf.im, carry.recip_e])
@@ -793,15 +804,29 @@ def _leaves(carry: MCCarry) -> list:
 def _with_leaves(carry: MCCarry, leaves) -> MCCarry:
     """``carry`` with the tensors of ``leaves`` (in _leaves order)."""
     it = iter(leaves)
-    state = carry.state.replace(
-        **{n: next(it) for n in _STATE_FIELDS},
-        pbc=PBC(**{n: next(it) for n in _PBC_FIELDS}))
+    state = _with_state_leaves(carry.state, it)
     obs = Observables(**{n: next(it) for n in _OBS_FIELDS})
     T, step, cavity, re, im, recip_e = it
     return dataclasses.replace(carry, state=state, obs=obs, temperature=T,
                                step=step, cavity=cavity,
                                sf=delta_mod.SFCache(re, im),
                                recip_e=recip_e)
+
+
+class CarryLeaves(NamedTuple):
+    """How _MoveGraph takes a runner's carry apart: ``leaves(carry)``, the
+    carry's tensors a move reads or replaces in a fixed order, the
+    state's ``n_state`` first; ``with_leaves(carry, leaves)``, the carry
+    with those tensors; ``cache(carry)``, the dataclass whose tensors a
+    move reads and writes in place (the polar cache), or None."""
+    leaves: Callable
+    with_leaves: Callable
+    n_state: int
+    cache: Callable
+
+
+_MC_LEAVES = CarryLeaves(_leaves, _with_leaves, _N_STATE,
+                         lambda carry: carry.pcache)
 
 
 def _cache_tensors(pcache) -> dict:
@@ -826,39 +851,53 @@ def _capture_stream(dev: torch.device):
     return _CAPTURE_STREAMS[dev]
 
 
-class _MoveGraph:
-    """One move of a chunk runner as a CUDA graph, replayed once a move.
+class _Captured(NamedTuple):
+    graph: object          # torch.cuda.CUDAGraph
+    cache: tuple           # _where of the carry's cache at the capture
+    launches: dict         # kernel wrapper -> launches in one replay
 
-    The graph reads its move's row of the chunk's draws and darts at a
-    row index it holds on the device and advances, writes the move's
-    StepOut into that row of its [chunk] columns, and at its end copies
-    the carry it made into its inputs.  Its inputs are buffers of its own
-    for each carry tensor a move replaces and for each carry tensor
-    outside the state, filled at a chunk's start, so that no carry's
-    tensor is written; the state's other tensors, read where they lie
-    (the layout: held here, and a carry that holds others is a new
-    layout, since the step reads its host decisions of a layout, such as
-    whether any molecule is adiabatic, once per such tensor, and the
-    capture bakes them in); and the polar cache's tensors, read and
-    written in place, as an eager move writes the planes (not held here:
-    a cache whose tensors lie elsewhere, as after a refresh's cache_init,
-    is captured anew).
+
+class _MoveGraph:
+    """One move of a chunk runner as a CUDA graph, replayed once a move:
+    one graph for each graph key the host gives a move (PI's move type;
+    the uVT runner's single key), all sharing one memory pool, the
+    buffers and the row index.
+
+    ``move(carry, key, *rows) -> (carry, out)`` is one move of ``key`` on
+    its rows of the chunk's device inputs (the draws, ...); ``out`` a
+    tuple of device scalars.  ``parts`` (CarryLeaves) takes the carry
+    apart; ``span`` names the span each move opens.
+
+    A graph reads its move's row of each input at a row index it holds on
+    the device and advances, writes the move's ``out`` into that row of
+    [n] columns, and at its end copies the carry it made into its inputs.
+    Its inputs are buffers for each carry tensor a move replaces and for
+    each carry tensor outside the state, filled at a chunk's start, so
+    that no carry's tensor is written; the state's other tensors, read
+    where they lie (the layout: held here, and a carry that holds others
+    is a new layout, since the step reads its host decisions of a layout,
+    such as whether any molecule is adiabatic, once per such tensor, and
+    the capture bakes them in); and the cache's tensors, read and written
+    in place, as an eager move writes the planes (not held here: a cache
+    whose tensors lie elsewhere, as after a refresh's cache_init, is
+    captured anew).
 
     The first move of a layout runs eager: it does the lazy set-up
     (library load, launch configurations, the step's host tables) and
-    shows which carry tensors a move replaces.  The next move is
-    captured, and it and every later move replayed.  A replay adds to
-    each kernel wrapper's ``.launches`` what its capture recorded."""
+    shows which carry tensors a move replaces.  So does the first move of
+    each other key in the layout, on the buffers.  A key's next move is
+    captured, and it and every later move of that key replayed.  A replay
+    adds to each kernel wrapper's ``.launches`` what its capture
+    recorded."""
 
-    def __init__(self, step, n: int):
-        self.step, self.n = step, n
-        self.graph = None
+    def __init__(self, move, n: int, parts: CarryLeaves, span: str):
+        self.move, self.n, self.parts, self.span = move, n, parts, span
+        self.graphs = {}       # key -> _Captured
+        self.ran = set()       # the keys whose eager move ran in the layout
         self.layout = None     # per leaf: the tensor read in place, or None
         self.bufs = None       # per leaf: its buffer, or None
         self.written = None    # the leaves a move replaces
-        self.cache = None      # _where of the polar cache at the capture
-        self.cols = self.draws = self.darts = self.row = self.pool = None
-        self.launches = {}     # kernel wrapper -> launches in one replay
+        self.cols = self.inputs = self.row = self.pool = None
 
     def _same_layout(self, leaves) -> bool:
         return self.layout is not None and all(
@@ -866,31 +905,34 @@ class _MoveGraph:
             (x.shape == b.shape and x.dtype == b.dtype)
             for x, t, b in zip(leaves, self.layout, self.bufs))
 
-    def _adopt(self, before, after, out, draws, darts):
-        """Take a new layout from its first move: ``before`` and ``after``
-        are that move's leaves, ``out`` its StepOut."""
+    def _adopt(self, before, after, out, inputs, key):
+        """Take a new layout from its first move, of ``key``: ``before``
+        and ``after`` are that move's leaves, ``out`` its output."""
         dev = after[0].device
         self.written = {j for j, (x, y) in enumerate(zip(before, after))
                         if x is not y}
         self.bufs = [torch.empty_like(x)
-                     if j in self.written or j >= _N_STATE else None
-                     for j, x in enumerate(after)]
+                     if j in self.written or j >= self.parts.n_state
+                     else None for j, x in enumerate(after)]
         self.layout = [x if b is None else None
                        for x, b in zip(after, self.bufs)]
         self.cols = [torch.empty(self.n, dtype=v.dtype, device=dev)
                      for v in out]
-        self.draws = torch.empty_like(draws)
-        self.darts = torch.empty_like(darts) \
-            if isinstance(darts, torch.Tensor) else None
+        self.inputs = [torch.empty_like(x) if isinstance(x, torch.Tensor)
+                       else None for x in inputs]
         self.row = torch.zeros(1, dtype=torch.int64, device=dev)
         self.pool = torch.cuda.graph_pool_handle()
+        self.ran = {key}
 
-    def _capture(self, carry: MCCarry):
-        """Capture one move of ``carry``'s layout and polar cache."""
-        dev = carry.state.pos.device
-        ins = [x if b is None else b for x, b in zip(_leaves(carry),
-                                                      self.bufs)]
-        pc = carry.pcache
+    def _ins(self, carry) -> list:
+        """The leaves a graph reads: the buffers, and the rest in place."""
+        return [x if b is None else b
+                for x, b in zip(self.parts.leaves(carry), self.bufs)]
+
+    def _capture(self, carry, key) -> _Captured:
+        """Capture one move of ``key`` on ``carry``'s layout and cache."""
+        dev = self.row.device
+        pc = self.parts.cache(carry)
         cache = _cache_tensors(pc)
         kernels = list(tracing.kernel_wrappers().values())
         before = [fn.launches for fn in kernels]
@@ -901,100 +943,125 @@ class _MoveGraph:
             with torch.cuda.stream(stream):
                 graph.capture_begin(self.pool)
                 try:
-                    self._move(_with_leaves(carry, ins), ins, cache)
+                    self._move(carry, key, cache)
                 finally:
                     graph.capture_end()
         finally:
-            # the commit re-pointed some of the cache's fields at tensors
-            # of the capture; the graph writes the originals
-            for name, t in cache.items():
-                setattr(pc, name, t)
-            self.launches = {fn: fn.launches - k
-                             for fn, k in zip(kernels, before)
-                             if fn.launches != k}
+            _restore(pc, cache)
+            launches = {fn: fn.launches - k
+                        for fn, k in zip(kernels, before)
+                        if fn.launches != k}
             for fn, k in zip(kernels, before):
                 fn.launches = k
         torch.cuda.current_stream(dev).wait_stream(stream)
-        self.graph, self.cache = graph, _where(cache)
+        return _Captured(graph, _where(cache), launches)
 
-    def _move(self, carry: MCCarry, ins, cache):
-        """The work of the graph: the move of ``carry`` (whose leaves are
-        ``ins``) at the row index, then the copies of what it made into
-        ``ins``, the polar cache's tensors ``cache`` and the StepOut
-        columns, and the row index advanced."""
+    def _eager(self, carry, key):
+        """Run one move of ``key`` eager on the buffers, as a graph
+        would."""
+        pc = self.parts.cache(carry)
+        cache = _cache_tensors(pc)
+        try:
+            self._move(carry, key, cache)
+        finally:
+            _restore(pc, cache)
+
+    def _move(self, carry, key, cache):
+        """The work of a graph: the move of ``key`` on ``carry``'s leaves
+        as the graph reads them, at the row index, then the copies of
+        what it made into the buffers, the cache's tensors ``cache`` and
+        the output columns, and the row index advanced."""
         row = self.row
-        new, out = self.step(carry, self.draws.index_select(0, row)[0],
-                             None if self.darts is None else
-                             self.darts.index_select(0, row)[0])
-        for j, (x, y) in enumerate(zip(ins, _leaves(new))):
+        ins = self._ins(carry)
+        new, out = self.move(
+            self.parts.with_leaves(carry, ins), key,
+            *(None if b is None else b.index_select(0, row)[0]
+              for b in self.inputs))
+        for j, (x, y) in enumerate(zip(ins, self.parts.leaves(new))):
             if y is not x:
                 if self.bufs[j] is None:
                     raise RuntimeError("a graphed move replaced a state "
                                        "tensor its layout's first move kept")
                 x.copy_(y)
+                self.written.add(j)
+        fresh = self.parts.cache(new)
         for name, t in cache.items():
-            y = getattr(new.pcache, name)
+            y = getattr(fresh, name)
             if y is not t:
                 t.copy_(y)
         for col, v in zip(self.cols, out):
             col.index_copy_(0, row, v.reshape(1))
         row.add_(1)
 
-    def run(self, carry: MCCarry, draws, darts):
-        """The chunk's moves from ``carry``, with the chunk's draws
-        ``draws`` ([n, C] on the device) and darts (``[None] * n`` or
-        [n, darts, 3]): (carry, the StepOut of the moves run eager).  The
-        carry's leaves that a move replaces are this graph's buffers until
-        ``collect``."""
-        leaves = _leaves(carry)
+    def run(self, carry, inputs, keys):
+        """The chunk's moves from ``carry``, with the chunk's device
+        ``inputs`` (each [n, ...], or ``[None] * n``) and the host's graph
+        key of each move: (carry, the outputs of the moves run eager on
+        the carry itself).  The carry's leaves that a move replaces are
+        this graph's buffers until ``collect``."""
+        parts = self.parts
+        leaves = parts.leaves(carry)
         eager = []
         if not self._same_layout(leaves):
-            self.graph = None
-            with tracing.span("step", move=True):
+            self.graphs = {}
+            with tracing.span(self.span, move=True):
                 tracing.count("graph_eager")
-                new, out = self.step(carry, draws[0], darts[0])
-            self._adopt(leaves, _leaves(new), out, draws, darts)
-            carry, leaves, eager = new, _leaves(new), [out]
-        # a graph whose polar cache moved is captured anew into the same
-        # memory pool, and only then let go, so that the pool stays held
-        capture = self.graph is None or \
-            self.cache != _where(_cache_tensors(carry.pcache))
+                new, out = self.move(carry, keys[0], *(x[0] for x in inputs))
+            self._adopt(leaves, parts.leaves(new), out, inputs, keys[0])
+            carry, leaves, eager = new, parts.leaves(new), [out]
+        # a graph whose cache moved is captured anew into the same memory
+        # pool, and only then let go, so that the pool stays held
+        where = _where(_cache_tensors(parts.cache(carry)))
         for i in range(len(eager), self.n):
-            with tracing.span("step", move=True):
+            key = keys[i]
+            with tracing.span(self.span, move=True):
                 if i == len(eager):
-                    self._feed(leaves, draws, darts, eager)
-                if capture:
+                    self._feed(leaves, inputs, eager)
+                if key not in self.ran:
+                    tracing.count("graph_eager")
+                    self._eager(carry, key)
+                    self.ran.add(key)
+                    continue
+                g = self.graphs.get(key)
+                if g is None or g.cache != where:
                     tracing.count("graph_capture")
-                    self._capture(carry)
-                    capture = False
+                    g = self.graphs[key] = self._capture(carry, key)
                 tracing.count("graph_replay")
-                self.graph.replay()
-                for fn, k in self.launches.items():
+                g.graph.replay()
+                for fn, k in g.launches.items():
                     fn.launches += k
         return carry, eager
 
-    def _feed(self, leaves, draws, darts, eager):
-        """Fill the buffers for the chunk's first replay."""
+    def _feed(self, leaves, inputs, eager):
+        """Fill the buffers for the chunk's first move on them."""
         for b, x in zip(self.bufs, leaves):
             if b is not None:
                 b.copy_(x)
-        self.draws.copy_(draws)
-        if self.darts is not None:
-            self.darts.copy_(darts)
+        for b, x in zip(self.inputs, inputs):
+            if b is not None:
+                b.copy_(x)
         self.row.fill_(len(eager))
         for col, v in zip(self.cols, eager[0] if eager else ()):
             col[0] = v
 
-    def collect(self, carry: MCCarry, eager):
-        """(carry, StepOut of [n] columns) after ``run``: copies of what
-        the buffers hold, so that no later replay writes what the caller
+    def collect(self, carry, eager) -> tuple:
+        """(carry, [n] output columns) after ``run``: copies of what the
+        buffers hold, so that no later replay writes what the caller
         keeps."""
         if len(eager) == self.n:
-            return carry, _stack(eager)
+            return carry, tuple(torch.stack(col) for col in zip(*eager))
         leaves = [b.clone() if j in self.written else x
-                  for j, (x, b) in enumerate(zip(_leaves(carry), self.bufs))]
-        return _with_leaves(carry, leaves), \
-            StepOut(*(c.clone() for c in self.cols))
+                  for j, (x, b) in enumerate(zip(self.parts.leaves(carry),
+                                                 self.bufs))]
+        return self.parts.with_leaves(carry, leaves), \
+            tuple(c.clone() for c in self.cols)
+
+
+def _restore(cache, tensors: dict):
+    """Point ``cache``'s fields back at ``tensors``: a move's commit may
+    re-point some at tensors of its own; a graph writes the originals."""
+    for name, t in tensors.items():
+        setattr(cache, name, t)
 
 
 def _stack(outs) -> StepOut:
@@ -1011,7 +1078,12 @@ def make_chunk_runner(flags: FFlags, params: RunParams, opts: MCOptions,
     be reused.  The carry and StepOut returned are the caller's: no later
     chunk writes them."""
     step = make_step_fn(flags, params, opts, topology=topology)
-    graph = _MoveGraph(step, chunk_steps)
+
+    def move(carry, _key, d, dart):
+        return step(carry, d, dart)
+
+    graph = _MoveGraph(move, chunk_steps, _MC_LEAVES, "step")
+    keys = (None,) * chunk_steps
 
     def run_chunk(carry: MCCarry):
         dev = carry.state.pos.device
@@ -1035,7 +1107,7 @@ def make_chunk_runner(flags: FFlags, params: RunParams, opts: MCOptions,
         graphed = graphs_apply(dev, flags, params, opts, carry.pcache,
                                tracing.marking())
         if graphed:
-            carry, outs = graph.run(carry, draws, darts)
+            carry, outs = graph.run(carry, (draws, darts), keys)
         else:
             outs = []
             for i in range(chunk_steps):
@@ -1046,7 +1118,8 @@ def make_chunk_runner(flags: FFlags, params: RunParams, opts: MCOptions,
                 outs.append(out)
         with tracing.span("stats"):
             if graphed:
-                carry, outs = graph.collect(carry, outs)
+                carry, cols = graph.collect(carry, outs)
+                outs = StepOut(*cols)
             else:
                 outs = _stack(outs)
             carry = dataclasses.replace(

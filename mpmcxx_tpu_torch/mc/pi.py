@@ -34,7 +34,11 @@ The chunk is a host loop that never waits on the device: every draw of
 a step, Coker's per-bead normals and the bisection sampler's included,
 is a function of the carried key, so the chunk's draws are made on the
 host up front (``pi_draws``), and with them the move pick
-(``move_picks``) and the rotating Coker anchor.
+(``move_picks``) and the rotating Coker anchor.  So a move is a fixed
+sequence of device work once the host has picked its type: where
+``graphs_apply`` holds, the runner replays one CUDA graph a move type
+(chain._MoveGraph), which reads the move's draws and Coker anchor from
+the chunk's device columns.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ import torch
 from .. import constants as const
 from .. import quaternion as quat
 from .. import random as rnd
+from .. import tracing
 from ..config.schema import SimConfig
 from ..config.validate import validate
 from ..flags import FFlags, RunParams, require_supported
@@ -64,8 +69,9 @@ from ..runner import _live
 from ..state import SystemState, build_state, topology
 from . import metropolis, moves
 from .averages import AvgObservables, nodestats_from_counters
-from .chain import (NodeStats, _params_at, accumulate_stats,
-                    annealed_temperature, step_keys)
+from .chain import (_N_STATE, CarryLeaves, NodeStats, _MoveGraph,
+                    _params_at, _state_leaves, _with_state_leaves,
+                    accumulate_stats, annealed_temperature, step_keys)
 
 
 # ---------------------------------------------------------------------------
@@ -202,15 +208,32 @@ def pi_displace(stack: SystemState, dice, axis, u_angle, mol, move_factor,
     return stack.replace(pos=torch.where(sel, rotated, pos))
 
 
-def coker_stage_coms(coms, normals, n: int, starter: int, mass_amu,
+def coker_stage_coms(coms, normals, n: int, starter, mass_amu,
                      temperature, P: int):
     """Coker staging of P-bead COM rings ``coms`` [..., P, 3]: perturb n
     beads starting after the rotating anchor ``starter``, then shift to
     preserve each ring's COM (PI_perturb_bead_COMs, :1453-1554).
     ``normals`` [..., n, 3] are the twin's normal(split(key, n)[j], (3,));
-    ``mass_amu`` broadcasts against the leading dimensions."""
+    ``mass_amu`` broadcasts against the leading dimensions.  ``starter``
+    is a host int or a 0-d int64 device index (a CUDA graph's input),
+    whose bead indices are then made modulo P on the device; both do the
+    same floating-point operations in the same order."""
     chain_com = torch.mean(coms, dim=-2)
     coms = coms.clone()
+    if isinstance(starter, torch.Tensor):
+        ax = coms.dim() - 2
+
+        def take(i):
+            return coms.index_select(ax, i.reshape(1)).squeeze(ax)
+
+        def put(i, v):
+            coms.index_copy_(ax, i.reshape(1), v.unsqueeze(ax))
+    else:
+        def take(i):
+            return coms[..., i, :]
+
+        def put(i, v):
+            coms[..., i, :] = v
     prev = starter
     final_idx = (starter + n + 1) % P
     for j in range(n):
@@ -219,9 +242,9 @@ def coker_stage_coms(coms, normals, n: int, starter: int, mass_amu,
         sigma = torch.sqrt(torch.as_tensor(
             _C_SIGMA * init_f / (temperature * P * mass_amu),
             dtype=torch.float64))
-        coms[..., bead_idx, :] = (init_f * coms[..., prev, :] +
-                                  (1.0 - init_f) * coms[..., final_idx, :] +
-                                  sigma[..., None] * normals[..., j, :])
+        put(bead_idx, init_f * take(prev) +
+            (1.0 - init_f) * take(final_idx) +
+            sigma[..., None] * normals[..., j, :])
         prev = bead_idx
     # COM-preserving shift (:1541-1549)
     return coms - (torch.mean(coms, dim=-2) - chain_com)[..., None, :]
@@ -318,10 +341,11 @@ class PerturbSpec(NamedTuple):
 
 
 def pi_perturb_beads(stack: SystemState, mol, coker_normals, n_chain: int,
-                     starter: int, temperature, orient=None):
+                     starter, temperature, orient=None):
     """Bead-perturbation move: orientation staging, then COM staging
     (PI_perturb_beads, :1392-1397; the twin's step, pi.py:456-486).
-    ``orient`` is None without orientation data, else (gate, site atom,
+    ``starter`` is the Coker anchor (coker_stage_coms).  ``orient`` is
+    None without orientation data, else (gate, site atom,
     bond length, reduced mass, v0, u_c, u_b): ``gate`` a device bool that
     keeps the orientation staging, the rest sample_orientations' inputs
     and draws."""
@@ -515,9 +539,11 @@ def make_pi_step(flags: FFlags, base_params: RunParams, opts: PIOptions,
                  perturb_specs: PerturbSpec, trial_chain_len: int,
                  topology_pair, incremental: bool = False,
                  max_mol_atoms: int = 1, any_orientation: bool = True):
-    """Build ``step(carry, d, movetype) -> (carry, PIStepOut)`` (the
-    twin's make_pi_step, pi.py:385-573); ``d`` is one row of pi_draws on
-    the stack's device, ``movetype`` the host's move pick (move_picks).
+    """Build ``step(carry, d, movetype, anchor=None) -> (carry,
+    PIStepOut)`` (the twin's make_pi_step, pi.py:385-573); ``d`` is one
+    row of pi_draws on the stack's device, ``movetype`` the host's move
+    pick (move_picks), ``anchor`` the Coker anchor as a 0-d device index
+    (a CUDA graph's input; None: the carry's ``starter_bead``).
     ``topology_pair`` is the (mol_start[M], mol_natoms[M]) host pair of
     state.topology; ``max_mol_atoms`` the move window;
     ``any_orientation`` (static) keeps the bisection staging in the
@@ -550,7 +576,7 @@ def make_pi_step(flags: FFlags, base_params: RunParams, opts: PIOptions,
         return [b.replace(pos=pos[s].to(b.pos.device))
                 for s, b in enumerate(views["beads"])]
 
-    def step(carry: PICarry, d, movetype: int):
+    def step(carry: PICarry, d, movetype: int, anchor=None):
         perturb = movetype == const.MOVETYPE_PERTURB_BEADS
         spin = movetype == const.MOVETYPE_SPINFLIP
         stack = whole(carry.stack)
@@ -582,7 +608,7 @@ def make_pi_step(flags: FFlags, base_params: RunParams, opts: PIOptions,
                           d[o + 3:o + 3 + L], d[o + 3 + L:o + 3 + 2 * L])
             new_stack = pi_perturb_beads(
                 stack, target, d[_COKER:_COKER + 3 * n].reshape(n, 3), n,
-                carry.starter_bead, T, orient)
+                carry.starter_bead if anchor is None else anchor, T, orient)
         elif spin:
             new_stack = pi_spinflip(stack, target)
         else:
@@ -670,30 +696,104 @@ def move_picks(opts: PIOptions, draws) -> list:
             const.MOVETYPE_DISPLACE for r in draws[:, _R_MOVE].tolist()]
 
 
+def graphs_apply(device, incremental: bool, stack,
+                 marking: bool = False) -> bool:
+    """Whether make_pi_chunk_runner replays a move of this chain as a CUDA
+    graph (as chain.graphs_apply for the standard ensembles): on a CUDA
+    ``device``, with the ``incremental`` per-bead Delta-E (delta.supports:
+    the full per-bead recompute may run an SCF that reads the host), a
+    ``stack`` not bead-sharded over a mesh, and without the tracer's
+    device ``marking``, whose markers label each eager launch by its
+    span."""
+    return (torch.device(device).type == "cuda" and not marking and
+            incremental and not isinstance(stack, meshing.BeadShards))
+
+
+def _leaves(carry: PICarry) -> list:
+    """The carry's tensors a move reads or replaces, in a fixed order: the
+    bead stack's (its box's included), the per-bead components and
+    structure factors, the potential, the bead means, the temperature,
+    the step and the last Boltzmann factor; not the key, the Coker anchor
+    or the statistics."""
+    return (_state_leaves(carry.stack) +
+            [carry.comps_per_bead, carry.sf.re, carry.sf.im,
+             carry.potential_current, carry.obs_components,
+             carry.temperature, carry.step, carry.bf])
+
+
+def _with_leaves(carry: PICarry, leaves) -> PICarry:
+    """``carry`` with the tensors of ``leaves`` (in _leaves order)."""
+    it = iter(leaves)
+    stack = _with_state_leaves(carry.stack, it)
+    comps_pb, re, im, pot, comps, T, step, bf = it
+    return dataclasses.replace(
+        carry, stack=stack, comps_per_bead=comps_pb,
+        sf=delta_mod.SFCache(re, im), potential_current=pot,
+        obs_components=comps, temperature=T, step=step, bf=bf)
+
+
+_LEAVES = CarryLeaves(_leaves, _with_leaves, _N_STATE, lambda carry: None)
+
+
 def make_pi_chunk_runner(step, chunk_steps: int, opts: PIOptions,
-                         n_chain: int, any_orientation: bool):
+                         n_chain: int, any_orientation: bool,
+                         incremental: bool = False):
     """``run_chunk(carry) -> (carry, PIStepOut of [chunk_steps] columns)``:
-    a host loop over ``chunk_steps`` steps of ``step`` (make_pi_step)."""
+    a host loop over ``chunk_steps`` steps of ``step`` (make_pi_step), or
+    where ``graphs_apply`` (``incremental``: the step's per-bead
+    Delta-E), one replay a move of the CUDA graph of its move type
+    (chain._MoveGraph, keyed by the host's pick), which gives the eager
+    loop's chain bitwise; the host gives each move's Coker anchor as the
+    graph's input.  The carry and columns returned are the caller's: no
+    later chunk writes them."""
+
+    def move(carry, movetype, d, anchor):
+        carry, out = step(carry, d, movetype, anchor)
+        return carry, (out.boltzmann_factor, out.accepted)
+
+    graph = _MoveGraph(move, chunk_steps, _LEAVES, "pi.step")
 
     def run_chunk(carry: PICarry):
         lead = whole(carry.stack)
         dev = lead.pos.device
         P = lead.pos.shape[0]
-        key, draws = pi_draws(carry.key, chunk_steps, n_chain, P,
-                              any_orientation)
-        picks = move_picks(opts, draws)
-        draws = draws.to(dev, non_blocking=True)
-        outs = []
-        for i in range(chunk_steps):
-            carry, out = step(carry, draws[i], picks[i])
-            outs.append(out)
-        outs = PIStepOut(
-            torch.stack([o.boltzmann_factor for o in outs]),
-            torch.stack([o.accepted for o in outs]),
-            torch.tensor([o.movetype for o in outs]).to(dev,
-                                                        non_blocking=True))
-        stats = accumulate_stats(NodeStats(carry.accept, carry.reject, None),
-                                 outs)
+        graphed = graphs_apply(dev, incremental, carry.stack,
+                               tracing.marking())
+        starter = carry.starter_bead
+        with tracing.span("pi.draws"):
+            key, draws = pi_draws(carry.key, chunk_steps, n_chain, P,
+                                  any_orientation)
+            picks = move_picks(opts, draws)
+            draws = draws.to(dev, non_blocking=True)
+            if graphed:
+                # the anchor of each move: it advances on every bead
+                # perturbation, accepted or not
+                anchors = []
+                for m in picks:
+                    anchors.append(starter)
+                    if m == const.MOVETYPE_PERTURB_BEADS:
+                        starter = (starter + 1) % P
+                anchors = torch.tensor(anchors).to(dev, non_blocking=True)
+        if graphed:
+            carry, outs = graph.run(carry, (draws, anchors), picks)
+        else:
+            outs = []
+            for i in range(chunk_steps):
+                with tracing.span("pi.step", move=True):
+                    tracing.count("graph_eager")
+                    carry, out = step(carry, draws[i], picks[i])
+                outs.append(out)
+        with tracing.span("pi.stats"):
+            if graphed:
+                carry, (bf, accepted) = graph.collect(carry, outs)
+                carry = dataclasses.replace(carry, starter_bead=starter)
+            else:
+                bf = torch.stack([o.boltzmann_factor for o in outs])
+                accepted = torch.stack([o.accepted for o in outs])
+            outs = PIStepOut(bf, accepted,
+                             torch.tensor(picks).to(dev, non_blocking=True))
+            stats = accumulate_stats(
+                NodeStats(carry.accept, carry.reject, None), outs)
         return dataclasses.replace(carry, key=key, accept=stats.accept,
                                    reject=stats.reject), outs
 
@@ -838,7 +938,7 @@ class PISimulation:
     def _chunk_runner(self, n: int):
         return make_pi_chunk_runner(self._step, n, self.opts,
                                     self.cfg.PI_trial_chain_length,
-                                    self.any_orientation)
+                                    self.any_orientation, self.incremental)
 
     def thermalize(self):
         """Initial whole-system bead perturbation

@@ -35,7 +35,9 @@ fire only where the move is captured or runs eager: a replay runs no
 Python of the step.  The counters ``graph_capture``, ``graph_replay``
 and ``graph_eager``, on the ``step`` span, say which: a captured move is
 also replayed, so ``graph_replay`` over the moves is the share of moves
-the graph ran.  With device marking on, the runner runs every move eager.
+the graph ran.  The path-integral runner (mc/pi.py) counts them alike on
+its ``pi.step`` span, one graph a move type.  With device marking on,
+either runner runs every move eager.
 
 The spans and counters, and what reads each (PERF.md section 3):
 ``draws``, ``step``, ``step.target``, ``step.cavity``, ``step.move``,
@@ -53,7 +55,11 @@ chain (mc/gibbs.py): ``gibbs.draws``, ``gibbs.step`` (opens a move),
 ``gibbs.refresh.sf``; the counters ``gibbs_displace``,
 ``gibbs_transfer``, ``gibbs_volume``, ``gibbs_spin`` (the host's pick
 of each move, on ``gibbs.step``); its set-up opens ``setup.build_state``
-and ``setup.init_carry``, its corrtime ``corrtime_io``.
+and ``setup.init_carry``, its corrtime ``corrtime_io``.  The
+path-integral chain (mc/pi.py): ``pi.draws`` (the chunk's draws, move
+picks, Coker anchors and their copy to the device), ``pi.step`` (opens a
+move; the counters ``graph_capture``, ``graph_replay``, ``graph_eager``),
+``pi.stats`` (the chunk's columns and acceptance statistics).
 """
 
 from __future__ import annotations

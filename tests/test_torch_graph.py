@@ -1,9 +1,13 @@
-"""The chunk runner's CUDA graph of a move (mpmcxx_tpu_torch/mc/chain.py,
-``graphs_apply`` and ``_MoveGraph``).
+"""The chunk runners' CUDA graphs of a move (mpmcxx_tpu_torch/mc/chain.py,
+``graphs_apply`` and ``_MoveGraph``; mc/pi.py, ``graphs_apply`` and
+``make_pi_chunk_runner``: one graph a PI move type).
 
-On the CPU: the rule that picks the graph or the eager loop, case by
-case; a runner on the CPU counts every move ``graph_eager``; and the
-carry's tensors come apart and back together whole.
+On the CPU: each rule that picks the graph or the eager loop, case by
+case; a runner on the CPU counts every move ``graph_eager``; the carry's
+tensors come apart and back together whole; a Coker staging at a device
+anchor is bitwise the host int's; and the PI runner's graph bookkeeping
+(buffers, anchors, columns, a graph a move type), each capture stood in
+for by a rerun of its move, keeps the eager chain bitwise.
 
 The ``gpu`` tests run on the card (``python -m pytest
 tests/test_torch_graph.py -m gpu --noconftest``; this file imports no
@@ -11,7 +15,10 @@ jax): a CLI ``Simulation`` whose chunks replay the graph runs the same
 chain as its eager loop over ``make_step_fn``'s step, seed for seed,
 through corrtime refreshes (new planes) and a capacity regrowth (a new
 layout), on a polarizable H2 uVT system with Feynman-Hibbs, cavity bias
-and fixed sweeps, and on a CO2 LJ + Ewald uVT system."""
+and fixed sweeps, and on a CO2 LJ + Ewald uVT system; and a
+``PISimulation`` whose chunks replay a graph a move type runs its eager
+chain bitwise through the per-bead recomputes, on para-H2 and on a
+two-site H2 with orientation data."""
 
 import dataclasses
 
@@ -21,11 +28,13 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import torch_co2_system as co2  # noqa: E402
+import torch_pi_system as pi_system  # noqa: E402
 from mpmcxx_tpu_torch import constants as const  # noqa: E402
 from mpmcxx_tpu_torch import flags as fl  # noqa: E402
+from mpmcxx_tpu_torch import random as rnd  # noqa: E402
 from mpmcxx_tpu_torch import tracing  # noqa: E402
 from mpmcxx_tpu_torch.config.parser import read_config  # noqa: E402
-from mpmcxx_tpu_torch.mc import chain  # noqa: E402
+from mpmcxx_tpu_torch.mc import chain, pi  # noqa: E402
 from mpmcxx_tpu_torch.ops import polar_cache as pcache_mod  # noqa: E402
 from mpmcxx_tpu_torch.parallel import meshing  # noqa: E402
 from mpmcxx_tpu_torch.runner import Simulation  # noqa: E402
@@ -270,3 +279,183 @@ def test_graphed_chain_is_the_eager_chain(cuda, system, tmp_path,
     for _, returned, later in kept:
         for a, b in zip(returned, later):
             assert torch.equal(a, b)
+
+
+# -- the path-integral runner ------------------------------------------------
+
+
+# The PI runner (mc/pi.py: ``pi.graphs_apply``, ``make_pi_chunk_runner``
+# over chain._MoveGraph, one graph a move type): the rule case by case,
+# the Coker staging at a device anchor, the eager loop on the CPU, and
+# the graph's bookkeeping against the eager chain on the CPU with each
+# capture stood in for by a rerun of its move on the graph's buffers.
+
+PI_CHUNK, PI_CHUNKS = 8, 3
+
+
+def _pi_stack():
+    return pi.stack_states([co2.torch_co2_lj_ewald()[0]] * 2)
+
+
+# case -> (device, incremental, bead-sharded, marking, graph)
+PI_RULE = {"cuda-incremental": ("cuda", True, False, False, True),
+           "cpu": ("cpu", True, False, False, False),
+           "full-recompute": ("cuda", False, False, False, False),
+           "bead-sharded": ("cuda", True, True, False, False),
+           "tracer-marking": ("cuda", True, False, True, False)}
+
+
+@pytest.mark.parametrize("case", sorted(PI_RULE))
+def test_pi_graph_rule(case):
+    device, incremental, sharded, marking, want = PI_RULE[case]
+    stack = _pi_stack()
+    if sharded:
+        stack = meshing.BeadShards.split(
+            stack, meshing.make_mesh(devices=["cpu"] * 2))
+    assert pi.graphs_apply(torch.device(device), incremental, stack,
+                           marking) is want
+
+
+@pytest.mark.parametrize("anchor", range(16))
+def test_coker_at_a_device_anchor_is_the_int_anchors(anchor):
+    """A Coker staging of 4 beads at P = 16 from a 0-d device anchor is
+    bitwise the one from the host int."""
+    coms = rnd.normal(rnd.PRNGKey(3), (16, 3)) * 0.4
+    normals = rnd.normal(rnd.split(rnd.PRNGKey(4), 4), (3,))
+    mass = torch.tensor(2.016, dtype=torch.float64)
+    want = pi.coker_stage_coms(coms, normals, 4, anchor, mass, 25.0, 16)
+    got = pi.coker_stage_coms(coms, normals, 4, torch.tensor(anchor),
+                              mass, 25.0, 16)
+    assert torch.equal(got, want)
+    assert not torch.equal(want, coms)
+
+
+def test_coker_at_a_device_anchor_stages_the_whole_system():
+    """thermalize's form: every molecule's ring at once, n = P, anchor
+    0."""
+    P, M = 16, 5
+    coms = rnd.normal(rnd.PRNGKey(5), (M, P, 3)) * 0.4
+    normals = rnd.normal(rnd.split(rnd.split(rnd.PRNGKey(6), M), P), (3,))
+    mass = torch.linspace(1.0, 3.0, M, dtype=torch.float64)
+    want = pi.coker_stage_coms(coms, normals, P, 0, mass, 25.0, P)
+    got = pi.coker_stage_coms(coms, normals, P, torch.tensor(0), mass,
+                              25.0, P)
+    assert torch.equal(got, want)
+
+
+def test_pi_runner_on_the_cpu_runs_every_move_eager(tmp_path):
+    sim = pi_system.simulation(tmp_path, pi_system.CPU["para-h2"], "cpu")
+    run = sim._chunk_runner(PI_CHUNK)
+    tracing.enable()
+    carry = sim.carry
+    for _ in range(2):
+        carry, _ = run(carry)
+    snap = tracing.snapshot()
+    assert snap["moves"] == 2 * PI_CHUNK
+    assert snap["counters"]["graph_eager"] == {"pi.step": 2 * PI_CHUNK}
+    assert not snap["counters"].get("graph_capture")
+    assert not snap["counters"].get("graph_replay")
+
+
+class _Rerun:
+    """A capture's stand-in on the CPU: its replay reruns the captured
+    move on the graph's buffers, as the graph would."""
+
+    def __init__(self, graph, carry, key):
+        self.graph, self.carry, self.key = graph, carry, key
+
+    def replay(self):
+        self.graph._eager(self.carry, self.key)
+
+
+def _drive_pi(d, system, device, graphed):
+    """PI_CHUNKS chunks of PI_CHUNK moves of a PISimulation of ``system``,
+    each chunk followed by the corrtime's per-bead recompute; with
+    ``graphed`` off the runner's eager loop runs every move.  Returns
+    (the moves' movetype, accepted and Boltzmann factor, the carry after
+    the last chunk, the tracer's snapshot, [a returned carry's leaves as
+    returned, and after the next chunk])."""
+    with pytest.MonkeyPatch.context() as mp:
+        if not graphed:
+            mp.setattr(pi, "graphs_apply", lambda *a, **k: False)
+        elif device == "cpu":
+            mp.setattr(pi, "graphs_apply", lambda *a, **k: True)
+            mp.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+            mp.setattr(chain._MoveGraph, "_capture",
+                       lambda self, carry, key: chain._Captured(
+                           _Rerun(self, carry, key), (), {}))
+        sim = pi_system.simulation(d, system, device)
+        run = sim._chunk_runner(PI_CHUNK)
+        carry = sim.carry
+        tracing.reset()
+        tracing.enable()
+        movetype, accepted, bf, kept = [], [], [], []
+        for _ in range(PI_CHUNKS):
+            carry, outs = run(carry)
+            if kept:
+                kept[-1].append([t.clone() for t in pi._leaves(kept[-1][0])])
+            kept.append([carry, [t.clone() for t in pi._leaves(carry)]])
+            movetype += outs.movetype.tolist()
+            accepted += outs.accepted.tolist()
+            bf.append(outs.boltzmann_factor)
+            last = carry
+            carry = sim._recompute(carry)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        snap = tracing.snapshot()
+        tracing.disable()
+    return (movetype, accepted, torch.cat(bf)), last, snap, \
+        [k[1:] for k in kept[:-1]]
+
+
+def _assert_same_pi_chain(eager, graphed):
+    (o_e, c_e, s_e, _), (o_g, c_g, s_g, kept) = eager, graphed
+    moves = PI_CHUNKS * PI_CHUNK
+    assert o_g[0] == o_e[0] and o_g[1] == o_e[1]
+    assert torch.equal(o_g[2], o_e[2])
+    assert len(o_g[0]) == moves and len(set(o_g[0])) == 2
+    assert 0 < sum(o_g[1]) < moves
+    for a, b in ((c_g.stack.pos, c_e.stack.pos),
+                 (c_g.comps_per_bead, c_e.comps_per_bead),
+                 (c_g.sf.re, c_e.sf.re), (c_g.sf.im, c_e.sf.im),
+                 (c_g.potential_current, c_e.potential_current),
+                 (c_g.obs_components, c_e.obs_components),
+                 (c_g.accept, c_e.accept), (c_g.reject, c_e.reject),
+                 (c_g.step, c_e.step), (c_g.bf, c_e.bf)):
+        assert torch.equal(a, b)
+    assert c_g.starter_bead == c_e.starter_bead
+    # one eager move and one capture a move type, every other move
+    # replayed (the recompute moves no tensor the graphs read in place)
+    assert s_e["counters"]["graph_eager"] == {"pi.step": moves}
+    assert s_g["counters"]["graph_eager"] == {"pi.step": 2}
+    assert s_g["counters"]["graph_capture"] == {"pi.step": 2}
+    assert s_g["counters"]["graph_replay"] == {"pi.step": moves - 2}
+    assert s_g["moves"] == moves
+    for name in ("pi.draws", "pi.stats"):
+        assert s_g["spans"][name]["count"] == PI_CHUNKS
+    # no later chunk wrote a carry the runner returned
+    for returned, later in kept:
+        for a, b in zip(returned, later):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("system", sorted(pi_system.CPU))
+def test_pi_graph_bookkeeping_keeps_the_eager_chain(system, tmp_path):
+    """On the CPU, with each capture a rerun of its move: the graph's
+    buffers, anchors, output columns and move types give the eager chain
+    bitwise."""
+    _assert_same_pi_chain(
+        _drive_pi(tmp_path, pi_system.CPU[system], "cpu", False),
+        _drive_pi(tmp_path, pi_system.CPU[system], "cpu", True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("system", sorted(pi_system.CARD))
+def test_graphed_pi_chain_is_the_eager_chain(cuda, system, tmp_path):
+    """A PISimulation whose chunks replay a graph a move type runs the
+    chain of its eager loop over make_pi_step, seed for seed and bitwise,
+    through the corrtime recomputes: 64 para-H2 and 27 two-site H2 with
+    orientation data, P = 8."""
+    _assert_same_pi_chain(
+        _drive_pi(tmp_path, pi_system.CARD[system], "cuda", False),
+        _drive_pi(tmp_path, pi_system.CARD[system], "cuda", True))

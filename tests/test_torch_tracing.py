@@ -6,7 +6,9 @@ tracing off, on, and on with device marking; and every span of the
 chain, the refresh, the set-up and the runner opens where it should, the
 per-move ones once a move.  The small cuts are tests/torch_co2_system.py's
 systems: H2 (polarizable, 768 slots) with cavity bias, and CO2 without
-polarization on the incremental and the full-recompute branches.
+polarization on the incremental and the full-recompute branches; the
+path-integral chain's spans on a small para-H2 stack
+(tests/torch_pi_system.py), in a chunk and in a CLI run.
 
 The ``gpu`` tests run on the card (``python -m pytest
 tests/test_torch_tracing.py -m gpu --noconftest``; this file imports no
@@ -23,6 +25,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import torch_co2_system as co2  # noqa: E402
+import torch_pi_system as pi_system  # noqa: E402
 from mpmcxx_tpu_torch import cli, tracing  # noqa: E402
 from mpmcxx_tpu_torch import constants as const  # noqa: E402
 from mpmcxx_tpu_torch.mc import chain  # noqa: E402
@@ -396,6 +399,59 @@ def test_cli_trace_of_a_gibbs_run(tmp_path, monkeypatch):
     assert sum(snap["counters"][k]["gibbs.step"] for k in counted) == 16
 
 
+PI_SPANS = ("pi.draws", "pi.step", "pi.stats")
+
+
+def _pi_chunks(tmp_path, n=2):
+    """``n`` chunks of 8 moves of a small para-H2 PISimulation on the
+    CPU, each followed by the per-bead recompute."""
+    sim = pi_system.simulation(tmp_path, pi_system.CPU["para-h2"], "cpu")
+    run = sim._chunk_runner(8)
+    carry, outs = sim.carry, []
+    for _ in range(n):
+        carry, o = run(carry)
+        outs.append(o)
+        carry = sim._recompute(carry)
+    return carry, outs
+
+
+def test_pi_chunk_spans_and_counters(tmp_path):
+    """A PI chunk with the tracer on opens ``pi.draws`` and ``pi.stats``
+    once and ``pi.step`` once a move, on which each move counts as
+    ``graph_eager`` on the CPU; the carry is bitwise the one with the
+    tracer off, which records nothing."""
+    off, outs_off = _pi_chunks(tmp_path)
+    snap = tracing.snapshot()
+    assert snap["spans"] == {} and snap["moves"] == 0
+    tracing.enable()
+    on, outs_on = _pi_chunks(tmp_path)
+    snap = tracing.snapshot()
+    tracing.disable()
+    _assert_bitwise(on, off)
+    for a, b in zip(outs_on, outs_off):
+        _assert_bitwise(a, b)
+    got = snap["spans"]
+    assert snap["moves"] == 16 and set(got) == set(PI_SPANS)
+    assert got["pi.step"]["count"] == 16
+    assert got["pi.draws"]["count"] == got["pi.stats"]["count"] == 2
+    assert snap["counters"]["graph_eager"] == {"pi.step": 16}
+
+
+def test_cli_trace_of_a_pi_run(tmp_path, monkeypatch):
+    """``--trace FILE`` on a PI input writes its spans and the graph
+    counters on ``pi.step``: 16 moves in two corrtimes of 8."""
+    pi_system.write(str(tmp_path), pi_system.CPU["para-h2"], steps=16)
+    monkeypatch.chdir(tmp_path)
+    rc, sim = cli.run(["--device", "cpu", "--quiet", "-P", "8", "--trace",
+                       "spans.json", "run.in"])
+    assert rc == 0 and not tracing.enabled()
+    snap = json.loads((tmp_path / "spans.json").read_text())
+    got = snap["spans"]
+    assert snap["moves"] == 16 and got["pi.step"]["count"] == 16
+    assert got["pi.draws"]["count"] == got["pi.stats"]["count"] == 2
+    assert snap["counters"]["graph_eager"] == {"pi.step": 16}
+
+
 def test_every_span_of_the_program_is_documented():
     """The tracer's docstring lists every span the program opens and
     every counter it counts (PERF.md section 3 says what reads each)."""
@@ -414,7 +470,7 @@ def test_every_span_of_the_program_is_documented():
         "draws", "stats", "corrtime_io", "grow_capacity",
         "setup.build_state", "setup.init_carry", "setup.library",
         "output"} | set(GIBBS_MOVE_SPANS + GIBBS_REFRESH_SPANS) | {
-        "gibbs.draws", "gibbs.stats"}
+        "gibbs.draws", "gibbs.stats"} | set(PI_SPANS)
     from mpmcxx_tpu_torch.mc import gibbs
     counted |= set(gibbs.COUNTERS.values())
     assert counted | {tracing.SYNC} <= doc
