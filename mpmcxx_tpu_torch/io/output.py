@@ -10,6 +10,7 @@ performance line (write_performance, :1234-1279).
 
 from __future__ import annotations
 
+import dataclasses
 import sys
 import time
 from typing import TextIO
@@ -21,6 +22,17 @@ ENERGY_HEADER = ("#step #energy #coulombic #rd #polar #vdw #kinetic "
                  "#kin_temp #N #spin_ratio #volume #core_temp\n")
 ENERGY_HEADER_CSV = ("#step,#energy,#coulombic,#rd,#polar,#vdw,#kinetic,"
                      "#kin_temp,#N,#spin_ratio,#volume,#core_temp\n")
+
+
+def live(path: str) -> bool:
+    """Whether an output ``path`` is set: neither empty nor /dev/null."""
+    return bool(path) and path != "/dev/null"
+
+
+def obs_to_dict(obs) -> dict:
+    """The fields of an Observables as host floats."""
+    return {f.name: float(getattr(obs, f.name))
+            for f in dataclasses.fields(obs)}
 
 
 def open_energy_file(path: str, csv: bool = False) -> TextIO:

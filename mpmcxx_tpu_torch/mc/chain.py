@@ -16,24 +16,26 @@ float64 SCF, the many-body, crystal-sum and special moves' terms); full
 recomputes are dense or in row blocks (``blocked_energy``).  The
 incremental branches add the cavity_autoreject_absolute penalty of the
 moved rows, and under simulated annealing the Feynman-Hibbs terms read
-the chain's temperature (``_params_at``).  Also ``init_carry``,
+the chain's temperature (``make_params_at``).  Also ``init_carry``,
 ``make_refresher``, ``accumulate_stats`` and ``make_chunk_runner``.  An
 ensemble other than these four raises NotImplementedError naming it.
 
 The twin's chunk is a jitted ``lax.scan``; here it is a host loop over
-``step``.  The loop never waits on the device: the random draws of the
-whole chunk are derived from the carried key on the host up front
-(``chunk_draws``, key for key as the twin's ``jax.random`` calls; the
-cavity bias's darts are made from host-derived keys on the device in one
-batched call per chunk), every data-dependent choice is a device-side
-select, and the polarization cache is committed in place.  The one
-choice made on the host is NPT's volume pick: N is constant in NPT, so
-the twin's pick reads only the draws and a count taken once per chunk,
-and a volume move (a full O(A^2) recompute) runs only where it is picked.
-In uVT the step reads once per state layout whether any molecule is
+``step`` (graph.MoveGraph.run).  The loop never waits on the device: the
+random draws of the whole chunk are derived from the carried key on the
+host up front (``chunk_draws``, key for key as the twin's ``jax.random``
+calls; the cavity bias's darts are made from host-derived keys on the
+device in one batched call per chunk), every data-dependent choice is a
+device-side select, and the polarization cache is committed in place.
+The one choice made on the host is NPT's volume pick: N is constant in
+NPT, so the twin's pick reads only the draws and a count taken once per
+chunk, and a volume move (a full O(A^2) recompute) runs only where it is
+picked.
+In uVT the step reads once in its life whether any molecule is
 adiabatic, and proposes the adiabatic move only if one is.  Where a move
 is a fixed sequence of device work with no host read (``graphs_apply``),
-the runner captures one move as a CUDA graph and replays it once a move.
+the runner captures one move as a CUDA graph and replays it once a move
+(mc/graph.py).
 
 Two faults of the twin are kept, each for want of a feature it lacks:
 no spin flip is ever accepted (the rotational partition functions stay
@@ -44,7 +46,7 @@ well's quantum correction (ops/pair_potentials.anharmonic).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -62,6 +64,7 @@ from ..parallel.sharded_energy import sharded_breakdown
 from ..pbc import PBC
 from ..state import Observables, SystemState
 from . import cavity as cavity_mod
+from . import graph as graph_mod
 from . import metropolis, moves
 
 
@@ -350,7 +353,7 @@ def _select_cache(cache: pcache_mod.PolarCache, accept,
     return cache
 
 
-def _params_at(flags: FFlags, base_params: RunParams, opts: MCOptions):
+def make_params_at(flags: FFlags, base_params: RunParams, opts: MCOptions):
     """``params_at(T)``: the energy's RunParams at the chain temperature
     ``T`` (the twin's replace(base_params, temperature=carry.temperature),
     chain.py:355).  Only the Feynman-Hibbs terms read the temperature, and
@@ -370,7 +373,7 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
     (mol_start[M], mol_natoms[M]) host pair of state.topology; without it
     every move works by atom masks (chain.py:272-305)."""
     require_options(flags, base_params, opts)
-    params_at = _params_at(flags, base_params, opts)
+    params_at = make_params_at(flags, base_params, opts)
     S = opts.max_mol_atoms
     uvt = opts.ensemble == const.ENSEMBLE_UVT
     spins = _spin_flips(opts)
@@ -386,7 +389,7 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
     # cavity grid points per device; a volume move changes the box, so
     # NPT rebuilds them every step
     grid = {}
-    adiabatic = {}   # mol_adiabatic tensor -> whether any is set
+    adiabatic = []   # whether any slot is adiabatic, once read
 
     def on(dev):
         if dev not in consts:
@@ -407,11 +410,12 @@ def make_step_fn(flags: FFlags, base_params: RunParams, opts: MCOptions,
 
     def any_adiabatic(state) -> bool:
         """Whether a molecule slot is adiabatic: read from the device once
-        per state layout (mol_adiabatic is static)."""
-        t = state.mol_adiabatic
-        if adiabatic.get("t") is not t:
-            adiabatic["t"], adiabatic["any"] = t, bool(torch.any(t))
-        return adiabatic["any"]
+        in the step's life, on its first call, as its topology is taken
+        (slot layouts, mol_adiabatic's included, never change during a
+        run; a regrowth builds a new step)."""
+        if not adiabatic:
+            adiabatic.append(bool(torch.any(state.mol_adiabatic)))
+        return adiabatic[0]
 
     def cavity_branch(carry: MCCarry, d, dart_u, is_ins, is_rem):
         """Cavity-biased insertion machinery (chain.py:373-414), in every
@@ -754,39 +758,21 @@ def graphs_apply(device, flags: FFlags, params: RunParams,
                  opts: MCOptions, pcache, marking: bool = False) -> bool:
     """Whether make_chunk_runner replays a move of this chain as a CUDA
     graph: where a move is a fixed sequence of device work with no host
-    read.  That is on a CUDA ``device``, with the incremental energy (a
-    full recompute may read the host), a polar cache ``pcache`` that is
-    not row-sharded over a mesh, fixed SCF sweeps (a precision-ended SCF
-    reads the host once a sweep, and the exact solve's CG once a step),
-    no NPT volume move and no [A]-wide draws (SPECTRE, GWP), which the
-    host picks or makes for each move, and without the tracer's device
-    ``marking``, whose markers label each eager launch by its span."""
+    read.  That is where graph.can_capture(``device``, ``marking``), with
+    the incremental energy (a full recompute may read the host), a polar
+    cache ``pcache`` that is not row-sharded over a mesh, fixed SCF
+    sweeps (a precision-ended SCF reads the host once a sweep, and the
+    exact solve's CG once a step), no NPT volume move and no [A]-wide
+    draws (SPECTRE, GWP), which the host picks or makes for each move."""
     fixed_sweeps = not flags.polarization or (
         flags.polar_iterative and params.polar_precision == 0.0)
-    return (torch.device(device).type == "cuda" and not marking and
-            opts.incremental and meshing.mesh_of(pcache) is None and
-            fixed_sweeps and opts.ensemble != const.ENSEMBLE_NPT and
+    return (graph_mod.can_capture(device, marking) and opts.incremental and
+            meshing.mesh_of(pcache) is None and fixed_sweeps and
+            opts.ensemble != const.ENSEMBLE_NPT and
             not (opts.spectre or opts.gwp))
 
 
-_STATE_FIELDS = tuple(f.name for f in dataclasses.fields(SystemState)
-                      if f.name != "pbc")
-_PBC_FIELDS = tuple(f.name for f in dataclasses.fields(PBC))
 _OBS_FIELDS = tuple(f.name for f in dataclasses.fields(Observables))
-# the state's leaves come first in _leaves
-_N_STATE = len(_STATE_FIELDS) + len(_PBC_FIELDS)
-
-
-def _state_leaves(st: SystemState) -> list:
-    """A state's tensors, its box's included, in a fixed order."""
-    return ([getattr(st, n) for n in _STATE_FIELDS] +
-            [getattr(st.pbc, n) for n in _PBC_FIELDS])
-
-
-def _with_state_leaves(st: SystemState, it) -> SystemState:
-    """``st`` with the next _N_STATE tensors of the iterator ``it``."""
-    return st.replace(**{n: next(it) for n in _STATE_FIELDS},
-                      pbc=PBC(**{n: next(it) for n in _PBC_FIELDS}))
 
 
 def _leaves(carry: MCCarry) -> list:
@@ -795,7 +781,7 @@ def _leaves(carry: MCCarry) -> list:
     step, the cavity statistics, the structure factors and the k-space
     energy; not the key, the statistics or the polar cache."""
     obs = carry.obs
-    return (_state_leaves(carry.state) +
+    return (graph_mod.state_leaves(carry.state) +
             [getattr(obs, n) for n in _OBS_FIELDS] +
             [carry.temperature, carry.step, carry.cavity, carry.sf.re,
              carry.sf.im, carry.recip_e])
@@ -804,7 +790,7 @@ def _leaves(carry: MCCarry) -> list:
 def _with_leaves(carry: MCCarry, leaves) -> MCCarry:
     """``carry`` with the tensors of ``leaves`` (in _leaves order)."""
     it = iter(leaves)
-    state = _with_state_leaves(carry.state, it)
+    state = graph_mod.with_state_leaves(carry.state, it)
     obs = Observables(**{n: next(it) for n in _OBS_FIELDS})
     T, step, cavity, re, im, recip_e = it
     return dataclasses.replace(carry, state=state, obs=obs, temperature=T,
@@ -813,277 +799,26 @@ def _with_leaves(carry: MCCarry, leaves) -> MCCarry:
                                recip_e=recip_e)
 
 
-class CarryLeaves(NamedTuple):
-    """How _MoveGraph takes a runner's carry apart: ``leaves(carry)``, the
-    carry's tensors a move reads or replaces in a fixed order, the
-    state's ``n_state`` first; ``with_leaves(carry, leaves)``, the carry
-    with those tensors; ``cache(carry)``, the dataclass whose tensors a
-    move reads and writes in place (the polar cache), or None."""
-    leaves: Callable
-    with_leaves: Callable
-    n_state: int
-    cache: Callable
-
-
-_MC_LEAVES = CarryLeaves(_leaves, _with_leaves, _N_STATE,
-                         lambda carry: carry.pcache)
-
-
-def _cache_tensors(pcache) -> dict:
-    return {} if pcache is None else {
-        f.name: getattr(pcache, f.name) for f in dataclasses.fields(pcache)}
-
-
-def _where(tensors: dict) -> tuple:
-    """Where each tensor lies: (address, shape, strides)."""
-    return tuple((t.data_ptr(), tuple(t.shape), t.stride())
-                 for t in tensors.values())
-
-
-# device -> the side stream every capture runs on: one a device, so that
-# what the libraries keep per stream (cuBLAS's workspace) is made once
-_CAPTURE_STREAMS = {}
-
-
-def _capture_stream(dev: torch.device):
-    if dev not in _CAPTURE_STREAMS:
-        _CAPTURE_STREAMS[dev] = torch.cuda.Stream(dev)
-    return _CAPTURE_STREAMS[dev]
-
-
-class _Captured(NamedTuple):
-    graph: object          # torch.cuda.CUDAGraph
-    cache: tuple           # _where of the carry's cache at the capture
-    launches: dict         # kernel wrapper -> launches in one replay
-
-
-class _MoveGraph:
-    """One move of a chunk runner as a CUDA graph, replayed once a move:
-    one graph for each graph key the host gives a move (PI's move type;
-    the uVT runner's single key), all sharing one memory pool, the
-    buffers and the row index.
-
-    ``move(carry, key, *rows) -> (carry, out)`` is one move of ``key`` on
-    its rows of the chunk's device inputs (the draws, ...); ``out`` a
-    tuple of device scalars.  ``parts`` (CarryLeaves) takes the carry
-    apart; ``span`` names the span each move opens.
-
-    A graph reads its move's row of each input at a row index it holds on
-    the device and advances, writes the move's ``out`` into that row of
-    [n] columns, and at its end copies the carry it made into its inputs.
-    Its inputs are buffers for each carry tensor a move replaces and for
-    each carry tensor outside the state, filled at a chunk's start, so
-    that no carry's tensor is written; the state's other tensors, read
-    where they lie (the layout: held here, and a carry that holds others
-    is a new layout, since the step reads its host decisions of a layout,
-    such as whether any molecule is adiabatic, once per such tensor, and
-    the capture bakes them in); and the cache's tensors, read and written
-    in place, as an eager move writes the planes (not held here: a cache
-    whose tensors lie elsewhere, as after a refresh's cache_init, is
-    captured anew).
-
-    The first move of a layout runs eager: it does the lazy set-up
-    (library load, launch configurations, the step's host tables) and
-    shows which carry tensors a move replaces.  So does the first move of
-    each other key in the layout, on the buffers.  A key's next move is
-    captured, and it and every later move of that key replayed.  A replay
-    adds to each kernel wrapper's ``.launches`` what its capture
-    recorded."""
-
-    def __init__(self, move, n: int, parts: CarryLeaves, span: str):
-        self.move, self.n, self.parts, self.span = move, n, parts, span
-        self.graphs = {}       # key -> _Captured
-        self.ran = set()       # the keys whose eager move ran in the layout
-        self.layout = None     # per leaf: the tensor read in place, or None
-        self.bufs = None       # per leaf: its buffer, or None
-        self.written = None    # the leaves a move replaces
-        self.cols = self.inputs = self.row = self.pool = None
-
-    def _same_layout(self, leaves) -> bool:
-        return self.layout is not None and all(
-            (x is t) if t is not None else
-            (x.shape == b.shape and x.dtype == b.dtype)
-            for x, t, b in zip(leaves, self.layout, self.bufs))
-
-    def _adopt(self, before, after, out, inputs, key):
-        """Take a new layout from its first move, of ``key``: ``before``
-        and ``after`` are that move's leaves, ``out`` its output."""
-        dev = after[0].device
-        self.written = {j for j, (x, y) in enumerate(zip(before, after))
-                        if x is not y}
-        self.bufs = [torch.empty_like(x)
-                     if j in self.written or j >= self.parts.n_state
-                     else None for j, x in enumerate(after)]
-        self.layout = [x if b is None else None
-                       for x, b in zip(after, self.bufs)]
-        self.cols = [torch.empty(self.n, dtype=v.dtype, device=dev)
-                     for v in out]
-        self.inputs = [torch.empty_like(x) if isinstance(x, torch.Tensor)
-                       else None for x in inputs]
-        self.row = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.pool = torch.cuda.graph_pool_handle()
-        self.ran = {key}
-
-    def _ins(self, carry) -> list:
-        """The leaves a graph reads: the buffers, and the rest in place."""
-        return [x if b is None else b
-                for x, b in zip(self.parts.leaves(carry), self.bufs)]
-
-    def _capture(self, carry, key) -> _Captured:
-        """Capture one move of ``key`` on ``carry``'s layout and cache."""
-        dev = self.row.device
-        pc = self.parts.cache(carry)
-        cache = _cache_tensors(pc)
-        kernels = list(tracing.kernel_wrappers().values())
-        before = [fn.launches for fn in kernels]
-        graph = torch.cuda.CUDAGraph()
-        stream = _capture_stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        try:
-            with torch.cuda.stream(stream):
-                graph.capture_begin(self.pool)
-                try:
-                    self._move(carry, key, cache)
-                finally:
-                    graph.capture_end()
-        finally:
-            _restore(pc, cache)
-            launches = {fn: fn.launches - k
-                        for fn, k in zip(kernels, before)
-                        if fn.launches != k}
-            for fn, k in zip(kernels, before):
-                fn.launches = k
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        return _Captured(graph, _where(cache), launches)
-
-    def _eager(self, carry, key):
-        """Run one move of ``key`` eager on the buffers, as a graph
-        would."""
-        pc = self.parts.cache(carry)
-        cache = _cache_tensors(pc)
-        try:
-            self._move(carry, key, cache)
-        finally:
-            _restore(pc, cache)
-
-    def _move(self, carry, key, cache):
-        """The work of a graph: the move of ``key`` on ``carry``'s leaves
-        as the graph reads them, at the row index, then the copies of
-        what it made into the buffers, the cache's tensors ``cache`` and
-        the output columns, and the row index advanced."""
-        row = self.row
-        ins = self._ins(carry)
-        new, out = self.move(
-            self.parts.with_leaves(carry, ins), key,
-            *(None if b is None else b.index_select(0, row)[0]
-              for b in self.inputs))
-        for j, (x, y) in enumerate(zip(ins, self.parts.leaves(new))):
-            if y is not x:
-                if self.bufs[j] is None:
-                    raise RuntimeError("a graphed move replaced a state "
-                                       "tensor its layout's first move kept")
-                x.copy_(y)
-                self.written.add(j)
-        fresh = self.parts.cache(new)
-        for name, t in cache.items():
-            y = getattr(fresh, name)
-            if y is not t:
-                t.copy_(y)
-        for col, v in zip(self.cols, out):
-            col.index_copy_(0, row, v.reshape(1))
-        row.add_(1)
-
-    def run(self, carry, inputs, keys):
-        """The chunk's moves from ``carry``, with the chunk's device
-        ``inputs`` (each [n, ...], or ``[None] * n``) and the host's graph
-        key of each move: (carry, the outputs of the moves run eager on
-        the carry itself).  The carry's leaves that a move replaces are
-        this graph's buffers until ``collect``."""
-        parts = self.parts
-        leaves = parts.leaves(carry)
-        eager = []
-        if not self._same_layout(leaves):
-            self.graphs = {}
-            with tracing.span(self.span, move=True):
-                tracing.count("graph_eager")
-                new, out = self.move(carry, keys[0], *(x[0] for x in inputs))
-            self._adopt(leaves, parts.leaves(new), out, inputs, keys[0])
-            carry, leaves, eager = new, parts.leaves(new), [out]
-        # a graph whose cache moved is captured anew into the same memory
-        # pool, and only then let go, so that the pool stays held
-        where = _where(_cache_tensors(parts.cache(carry)))
-        for i in range(len(eager), self.n):
-            key = keys[i]
-            with tracing.span(self.span, move=True):
-                if i == len(eager):
-                    self._feed(leaves, inputs, eager)
-                if key not in self.ran:
-                    tracing.count("graph_eager")
-                    self._eager(carry, key)
-                    self.ran.add(key)
-                    continue
-                g = self.graphs.get(key)
-                if g is None or g.cache != where:
-                    tracing.count("graph_capture")
-                    g = self.graphs[key] = self._capture(carry, key)
-                tracing.count("graph_replay")
-                g.graph.replay()
-                for fn, k in g.launches.items():
-                    fn.launches += k
-        return carry, eager
-
-    def _feed(self, leaves, inputs, eager):
-        """Fill the buffers for the chunk's first move on them."""
-        for b, x in zip(self.bufs, leaves):
-            if b is not None:
-                b.copy_(x)
-        for b, x in zip(self.inputs, inputs):
-            if b is not None:
-                b.copy_(x)
-        self.row.fill_(len(eager))
-        for col, v in zip(self.cols, eager[0] if eager else ()):
-            col[0] = v
-
-    def collect(self, carry, eager) -> tuple:
-        """(carry, [n] output columns) after ``run``: copies of what the
-        buffers hold, so that no later replay writes what the caller
-        keeps."""
-        if len(eager) == self.n:
-            return carry, tuple(torch.stack(col) for col in zip(*eager))
-        leaves = [b.clone() if j in self.written else x
-                  for j, (x, b) in enumerate(zip(self.parts.leaves(carry),
-                                                 self.bufs))]
-        return self.parts.with_leaves(carry, leaves), \
-            tuple(c.clone() for c in self.cols)
-
-
-def _restore(cache, tensors: dict):
-    """Point ``cache``'s fields back at ``tensors``: a move's commit may
-    re-point some at tensors of its own; a graph writes the originals."""
-    for name, t in tensors.items():
-        setattr(cache, name, t)
-
-
-def _stack(outs) -> StepOut:
-    return StepOut(*(torch.stack(col) for col in zip(*outs)))
+_MC_LEAVES = graph_mod.CarryLeaves(_leaves, _with_leaves,
+                                   lambda carry: carry.pcache)
 
 
 def make_chunk_runner(flags: FFlags, params: RunParams, opts: MCOptions,
                       chunk_steps: int, topology=None):
     """``run_chunk(carry) -> (carry, StepOut of [chunk_steps] tensors)``:
-    a host loop over ``chunk_steps`` steps, or where ``graphs_apply``, a
-    replay of one move's CUDA graph (_MoveGraph) per move after a
-    layout's first, with the same kernels in the same order.  The carry's
-    polarization cache is updated in place; the carry passed in must not
-    be reused.  The carry and StepOut returned are the caller's: no later
-    chunk writes them."""
+    the chunk's moves through graph.MoveGraph, each eager, or where
+    ``graphs_apply``, one replay of one move's CUDA graph per move after
+    a layout's first, with the same kernels in the same order.  The
+    carry's polarization cache is updated in place; the carry passed in
+    must not be reused.  The carry and StepOut returned are the caller's:
+    no later chunk writes them."""
     step = make_step_fn(flags, params, opts, topology=topology)
 
-    def move(carry, _key, d, dart):
-        return step(carry, d, dart)
+    def move(carry, volume, d, dart, wide):
+        return step(carry, d, dart, volume, wide)
 
-    graph = _MoveGraph(move, chunk_steps, _MC_LEAVES, "step")
-    keys = (None,) * chunk_steps
+    graph = graph_mod.MoveGraph(move, chunk_steps, _MC_LEAVES,
+                                lambda: tracing.span("step", move=True))
 
     def run_chunk(carry: MCCarry):
         dev = carry.state.pos.device
@@ -1104,24 +839,13 @@ def make_chunk_runner(flags: FFlags, params: RunParams, opts: MCOptions,
             if opts.spectre or opts.gwp:
                 wide = wide_draws(carry.key, chunk_steps,
                                   carry.state.n_atom_slots).to(dev)
-        graphed = graphs_apply(dev, flags, params, opts, carry.pcache,
-                               tracing.marking())
-        if graphed:
-            carry, outs = graph.run(carry, (draws, darts), keys)
-        else:
-            outs = []
-            for i in range(chunk_steps):
-                with tracing.span("step", move=True):
-                    tracing.count("graph_eager")
-                    carry, out = step(carry, draws[i], darts[i], volume[i],
-                                      wide[i])
-                outs.append(out)
+        carry, outs = graph.run(
+            carry, (draws, darts, wide), volume,
+            graphs_apply(dev, flags, params, opts, carry.pcache,
+                         tracing.marking()))
         with tracing.span("stats"):
-            if graphed:
-                carry, cols = graph.collect(carry, outs)
-                outs = StepOut(*cols)
-            else:
-                outs = _stack(outs)
+            carry, cols = graph.collect(carry, outs)
+            outs = StepOut(*cols)
             carry = dataclasses.replace(
                 carry, key=key, stats=accumulate_stats(carry.stats, outs))
         return carry, outs
@@ -1197,7 +921,7 @@ def make_refresher(flags: FFlags, base_params: RunParams, opts: MCOptions):
     (src/System.cpp:1284-1297), run every corrtime.  A carry whose cache
     is row-sharded is rebuilt on its mesh, each shard its own rows."""
     require_options(flags, base_params, opts)
-    params_at = _params_at(flags, base_params, opts)
+    params_at = make_params_at(flags, base_params, opts)
 
     def refresh(carry: MCCarry) -> MCCarry:
         with tracing.span("refresh"):

@@ -57,7 +57,6 @@ from ..ops.energy import (EnergyBreakdown, cavity_absolute_check,
                           energy_breakdown, energy_breakdown_blocked)
 from ..ops.pairwise import build_pairs_rect
 from ..pbc import PBC
-from ..runner import _live, _obs_to_dict
 from ..state import Observables, SystemState, build_state, topology
 from . import chain as chain_mod
 from . import metropolis, moves
@@ -567,7 +566,7 @@ class GibbsSimulation:
             for i, (obs, st) in enumerate(
                     ((carry.obs_a, carry.state_a),
                      (carry.obs_b, carry.state_b))):
-                obs = _obs_to_dict(obs)
+                obs = out_io.obs_to_dict(obs)
                 self.avg[i].update(obs, ensemble=cfg.ensemble,
                                    temperature=cfg.temperature,
                                    volume=float(st.pbc.volume),
@@ -581,7 +580,7 @@ class GibbsSimulation:
         cfg = self.cfg
         carry = self._init_carry()
         fps = [out_io.open_energy_file(pqr_io.make_filename(
-                   cfg.energy_output, i)) if _live(cfg.energy_output)
+                   cfg.energy_output, i)) if out_io.live(cfg.energy_output)
                else None for i in range(2)]
 
         perf = out_io.PerformanceTimer(cfg.numsteps)

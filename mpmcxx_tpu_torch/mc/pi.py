@@ -37,8 +37,8 @@ host up front (``pi_draws``), and with them the move pick
 (``move_picks``) and the rotating Coker anchor.  So a move is a fixed
 sequence of device work once the host has picked its type: where
 ``graphs_apply`` holds, the runner replays one CUDA graph a move type
-(chain._MoveGraph), which reads the move's draws and Coker anchor from
-the chunk's device columns.
+(graph.MoveGraph, mc/graph.py), which reads the move's draws and Coker
+anchor from the chunk's device columns.
 """
 
 from __future__ import annotations
@@ -65,13 +65,12 @@ from ..ops import delta as delta_mod
 from ..ops.energy import energy_breakdown
 from ..parallel import meshing
 from ..pbc import PBC
-from ..runner import _live
 from ..state import SystemState, build_state, topology
+from . import graph as graph_mod
 from . import metropolis, moves
 from .averages import AvgObservables, nodestats_from_counters
-from .chain import (_N_STATE, CarryLeaves, NodeStats, _MoveGraph,
-                    _params_at, _state_leaves, _with_state_leaves,
-                    accumulate_stats, annealed_temperature, step_keys)
+from .chain import (NodeStats, accumulate_stats, annealed_temperature,
+                    make_params_at, step_keys)
 
 
 # ---------------------------------------------------------------------------
@@ -549,10 +548,10 @@ def make_pi_step(flags: FFlags, base_params: RunParams, opts: PIOptions,
     ``any_orientation`` (static) keeps the bisection staging in the
     graph."""
     require_supported(flags, base_params)
-    params_at = _params_at(flags, base_params, opts)
+    params_at = make_params_at(flags, base_params, opts)
     n = trial_chain_len
     tables = {}
-    views = {}
+    views = []   # the bead views of the first stack the step reads
 
     def on(dev):
         if dev not in tables:
@@ -564,17 +563,17 @@ def make_pi_step(flags: FFlags, base_params: RunParams, opts: PIOptions,
     def beads_of(stack, pos=None):
         """Bead views of ``stack`` (whole or bead-sharded), each on its
         bead's device, with the positions of ``pos`` ([P, A, 3] on the
-        leader) or the stack's own: the static fields' views are made
-        once per stack layout (a PI move changes only the positions)."""
+        leader) or the stack's own: the other fields' views are made once
+        in the step's life, on its first call (the bead Delta-E reads
+        only static fields besides the positions)."""
         parts = stack.parts if isinstance(stack, meshing.BeadShards) \
             else (stack,)
-        if views.get("mass") is not parts[0].mass:
-            views["mass"] = parts[0].mass
-            views["beads"] = bead_views(stack)
+        if not views:
+            views.extend(bead_views(stack))
         if pos is None:
             pos = [p for part in parts for p in part.pos]
         return [b.replace(pos=pos[s].to(b.pos.device))
-                for s, b in enumerate(views["beads"])]
+                for s, b in enumerate(views)]
 
     def step(carry: PICarry, d, movetype: int, anchor=None):
         perturb = movetype == const.MOVETYPE_PERTURB_BEADS
@@ -699,14 +698,13 @@ def move_picks(opts: PIOptions, draws) -> list:
 def graphs_apply(device, incremental: bool, stack,
                  marking: bool = False) -> bool:
     """Whether make_pi_chunk_runner replays a move of this chain as a CUDA
-    graph (as chain.graphs_apply for the standard ensembles): on a CUDA
-    ``device``, with the ``incremental`` per-bead Delta-E (delta.supports:
-    the full per-bead recompute may run an SCF that reads the host), a
-    ``stack`` not bead-sharded over a mesh, and without the tracer's
-    device ``marking``, whose markers label each eager launch by its
-    span."""
-    return (torch.device(device).type == "cuda" and not marking and
-            incremental and not isinstance(stack, meshing.BeadShards))
+    graph (as chain.graphs_apply for the standard ensembles): where
+    graph.can_capture(``device``, ``marking``), with the ``incremental``
+    per-bead Delta-E (delta.supports: the full per-bead recompute may run
+    an SCF that reads the host) and a ``stack`` not bead-sharded over a
+    mesh."""
+    return (graph_mod.can_capture(device, marking) and incremental and
+            not isinstance(stack, meshing.BeadShards))
 
 
 def _leaves(carry: PICarry) -> list:
@@ -715,7 +713,7 @@ def _leaves(carry: PICarry) -> list:
     structure factors, the potential, the bead means, the temperature,
     the step and the last Boltzmann factor; not the key, the Coker anchor
     or the statistics."""
-    return (_state_leaves(carry.stack) +
+    return (graph_mod.state_leaves(carry.stack) +
             [carry.comps_per_bead, carry.sf.re, carry.sf.im,
              carry.potential_current, carry.obs_components,
              carry.temperature, carry.step, carry.bf])
@@ -724,7 +722,7 @@ def _leaves(carry: PICarry) -> list:
 def _with_leaves(carry: PICarry, leaves) -> PICarry:
     """``carry`` with the tensors of ``leaves`` (in _leaves order)."""
     it = iter(leaves)
-    stack = _with_state_leaves(carry.stack, it)
+    stack = graph_mod.with_state_leaves(carry.stack, it)
     comps_pb, re, im, pot, comps, T, step, bf = it
     return dataclasses.replace(
         carry, stack=stack, comps_per_bead=comps_pb,
@@ -732,26 +730,27 @@ def _with_leaves(carry: PICarry, leaves) -> PICarry:
         obs_components=comps, temperature=T, step=step, bf=bf)
 
 
-_LEAVES = CarryLeaves(_leaves, _with_leaves, _N_STATE, lambda carry: None)
+_LEAVES = graph_mod.CarryLeaves(_leaves, _with_leaves, lambda carry: None)
 
 
 def make_pi_chunk_runner(step, chunk_steps: int, opts: PIOptions,
                          n_chain: int, any_orientation: bool,
                          incremental: bool = False):
     """``run_chunk(carry) -> (carry, PIStepOut of [chunk_steps] columns)``:
-    a host loop over ``chunk_steps`` steps of ``step`` (make_pi_step), or
-    where ``graphs_apply`` (``incremental``: the step's per-bead
-    Delta-E), one replay a move of the CUDA graph of its move type
-    (chain._MoveGraph, keyed by the host's pick), which gives the eager
-    loop's chain bitwise; the host gives each move's Coker anchor as the
-    graph's input.  The carry and columns returned are the caller's: no
-    later chunk writes them."""
+    the chunk's moves of ``step`` (make_pi_step) through graph.MoveGraph,
+    each eager, or where ``graphs_apply`` (``incremental``: the step's
+    per-bead Delta-E), one replay a move of the CUDA graph of its move
+    type (the graph key, the host's pick), which gives the eager loop's
+    chain bitwise; the host gives each move's Coker anchor as the graph's
+    input.  The carry and columns returned are the caller's: no later
+    chunk writes them."""
 
-    def move(carry, movetype, d, anchor):
-        carry, out = step(carry, d, movetype, anchor)
+    def move(carry, movetype, d, *anchor):
+        carry, out = step(carry, d, movetype, *anchor)
         return carry, (out.boltzmann_factor, out.accepted)
 
-    graph = _MoveGraph(move, chunk_steps, _LEAVES, "pi.step")
+    graph = graph_mod.MoveGraph(move, chunk_steps, _LEAVES,
+                                lambda: tracing.span("pi.step", move=True))
 
     def run_chunk(carry: PICarry):
         lead = whole(carry.stack)
@@ -764,7 +763,7 @@ def make_pi_chunk_runner(step, chunk_steps: int, opts: PIOptions,
             key, draws = pi_draws(carry.key, chunk_steps, n_chain, P,
                                   any_orientation)
             picks = move_picks(opts, draws)
-            draws = draws.to(dev, non_blocking=True)
+            inputs = (draws.to(dev, non_blocking=True),)
             if graphed:
                 # the anchor of each move: it advances on every bead
                 # perturbation, accepted or not
@@ -773,23 +772,12 @@ def make_pi_chunk_runner(step, chunk_steps: int, opts: PIOptions,
                     anchors.append(starter)
                     if m == const.MOVETYPE_PERTURB_BEADS:
                         starter = (starter + 1) % P
-                anchors = torch.tensor(anchors).to(dev, non_blocking=True)
-        if graphed:
-            carry, outs = graph.run(carry, (draws, anchors), picks)
-        else:
-            outs = []
-            for i in range(chunk_steps):
-                with tracing.span("pi.step", move=True):
-                    tracing.count("graph_eager")
-                    carry, out = step(carry, draws[i], picks[i])
-                outs.append(out)
+                inputs += (torch.tensor(anchors).to(dev, non_blocking=True),)
+        carry, outs = graph.run(carry, inputs, picks, graphed)
         with tracing.span("pi.stats"):
+            carry, (bf, accepted) = graph.collect(carry, outs)
             if graphed:
-                carry, (bf, accepted) = graph.collect(carry, outs)
                 carry = dataclasses.replace(carry, starter_bead=starter)
-            else:
-                bf = torch.stack([o.boltzmann_factor for o in outs])
-                accepted = torch.stack([o.accepted for o in outs])
             outs = PIStepOut(bf, accepted,
                              torch.tensor(picks).to(dev, non_blocking=True))
             stats = accumulate_stats(
@@ -1009,9 +997,9 @@ class PISimulation:
             self.thermalize()
         carry = self._init_carry()
         fp_energy = out_io.open_energy_file(cfg.energy_output) \
-            if _live(cfg.energy_output) else None
+            if out_io.live(cfg.energy_output) else None
         fp_csv = out_io.open_energy_file(cfg.energy_output_csv, csv=True) \
-            if _live(cfg.energy_output_csv) else None
+            if out_io.live(cfg.energy_output_csv) else None
         # all-bead XYZ frames (write_PI_frame, :699-729), enabled by -xyz
         frames = PIFrameWriter(self.xyz_path)
         perf = out_io.PerformanceTimer(cfg.numsteps)

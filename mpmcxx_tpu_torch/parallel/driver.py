@@ -37,8 +37,8 @@ from ..io import output as out_io
 from ..io import pqr as pqr_io
 from ..mc import chain as chain_mod
 from ..mc.averages import AvgObservables, nodestats_from_counters
-from ..runner import (Simulation, _movable_np, _np, _obs_to_dict,
-                      apply_state_fixups, capacity_opts)
+from ..runner import (Simulation, _movable_np, _np, apply_state_fixups,
+                      capacity_opts)
 from ..state import build_state, grow_mol_capacity
 from . import meshing
 from . import replicas as rep
@@ -346,7 +346,7 @@ class ReplicaSimulation:
         if self.hist is not None:
             self.hist.zero()
         for r, c in enumerate(self.carries):
-            obs = _obs_to_dict(c.obs)
+            obs = out_io.obs_to_dict(c.obs)
             if fp_energy:
                 out_io.write_observables(fp_energy, step, obs, temps[r])
             if self.tempering and r != cold:

@@ -56,15 +56,6 @@ def _np(t) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def _obs_to_dict(obs) -> dict:
-    return {f.name: float(getattr(obs, f.name))
-            for f in dataclasses.fields(obs)}
-
-
-def _live(path: str) -> bool:
-    return bool(path) and path != "/dev/null"
-
-
 def apply_state_fixups(state, cfg: SimConfig):
     """Post-build_state config overrides every constructed state receives:
     the manual cutoff (pbc_cutoff keyword, src/SimulationControl.cpp:
@@ -329,7 +320,7 @@ class Simulation:
 
     def _corrtime_io(self, step: int):
         with tracing.span("corrtime_io"):
-            obs = _obs_to_dict(self.carry.obs)
+            obs = out_io.obs_to_dict(self.carry.obs)
             T = float(self.carry.temperature)
             self.avg.update(obs, ensemble=self.cfg.ensemble,
                             temperature=self.cfg.temperature,
@@ -368,9 +359,9 @@ class Simulation:
             return self.avg
         self.fp_energy = None
         self.fp_energy_csv = None
-        if _live(cfg.energy_output):
+        if out_io.live(cfg.energy_output):
             self.fp_energy = out_io.open_energy_file(cfg.energy_output)
-        if _live(cfg.energy_output_csv):
+        if out_io.live(cfg.energy_output_csv):
             self.fp_energy_csv = out_io.open_energy_file(
                 cfg.energy_output_csv, csv=True)
         perf = out_io.PerformanceTimer(cfg.numsteps)
@@ -382,7 +373,7 @@ class Simulation:
             hist = hist_io.PopulationHistogram(_np(self.state.pbc.basis),
                                                cfg.hist_resolution)
         # frozen-lattice OpenDX (write_frozen, src/System.Output.cpp:85-116)
-        if _live(cfg.frozen_output):
+        if out_io.live(cfg.frozen_output):
             with open(cfg.frozen_output, "w") as f:
                 hist_io.write_frozen_dx(f, self.state, self.meta,
                                         cfg.max_bondlength)
@@ -433,7 +424,7 @@ class Simulation:
                     pqr_io.write_state_pqr(cfg.pqr_restart, self.carry.state,
                                            self.meta, wrapall=cfg.wrapall,
                                            long_output=cfg.long_output)
-                if _live(cfg.traj_output):
+                if out_io.live(cfg.traj_output):
                     traj_io.append_traj_frame(
                         cfg.traj_output, self.carry.state, self.meta, step,
                         wrapall=cfg.wrapall, long_output=cfg.long_output,
@@ -445,13 +436,13 @@ class Simulation:
                     hist.accumulate(_np(st.mol_com()), _np(st.mol_frozen) |
                                     ~_np(st.mol_alive))
                     hist.update_root()
-                    if _live(cfg.histogram_output):
+                    if out_io.live(cfg.histogram_output):
                         with open(cfg.histogram_output, "w") as f:
                             hist.write_dx(f)
                 if cfg.polarization:
                     traj_io.write_dipoles(cfg.dipole_output, self.carry.state,
                                           first=(step <= cfg.corrtime))
-                    if _live(cfg.field_output):
+                    if out_io.live(cfg.field_output):
                         self._write_field(step)
             if not self.quiet:
                 perf.report(step, self.out)

@@ -29,7 +29,7 @@ by the chunk runner and the launches of K1-K5 since the last ``reset``
 (read from the kernel wrappers' ``.launches``, their one store; a
 replayed CUDA graph adds the launches its capture recorded).
 
-Where the chunk runner replays a move as a CUDA graph (mc/chain.py), the
+Where the chunk runner replays a move as a CUDA graph (mc/graph.py), the
 move's ``step`` span opens as always, but the ``step.*`` spans inside it
 fire only where the move is captured or runs eager: a replay runs no
 Python of the step.  The counters ``graph_capture``, ``graph_replay``
@@ -48,7 +48,7 @@ The spans and counters, and what reads each (PERF.md section 3):
 ``grow_capacity``, ``setup.build_state``, ``output`` (runner.py);
 ``setup.init_carry`` (mc/chain.py); ``setup.library`` (ops/kernels.py);
 the counter ``host_sync``; the counters ``graph_capture``,
-``graph_replay``, ``graph_eager`` (mc/chain.py).  The two-box Gibbs
+``graph_replay``, ``graph_eager`` (mc/graph.py).  The two-box Gibbs
 chain (mc/gibbs.py): ``gibbs.draws``, ``gibbs.step`` (opens a move),
 ``gibbs.step.move``, ``gibbs.step.delta_e``, ``gibbs.step.accept``,
 ``gibbs.stats``; ``gibbs.refresh``, ``gibbs.refresh.energy``,

@@ -1,13 +1,16 @@
-"""The chunk runners' CUDA graphs of a move (mpmcxx_tpu_torch/mc/chain.py,
-``graphs_apply`` and ``_MoveGraph``; mc/pi.py, ``graphs_apply`` and
-``make_pi_chunk_runner``: one graph a PI move type).
+"""The chunk runners' CUDA graphs of a move (mpmcxx_tpu_torch/mc/graph.py,
+``MoveGraph``; mc/chain.py and mc/pi.py, each ``graphs_apply`` and chunk
+runner: one graph a PI move type).
 
 On the CPU: each rule that picks the graph or the eager loop, case by
 case; a runner on the CPU counts every move ``graph_eager``; the carry's
-tensors come apart and back together whole; a Coker staging at a device
-anchor is bitwise the host int's; and the PI runner's graph bookkeeping
+tensors come apart and back together whole; a step reads whether any
+slot is adiabatic once in its life; a Coker staging at a device anchor is
+bitwise the host int's; the uVT and the PI runners' graph bookkeeping
 (buffers, anchors, columns, a graph a move type), each capture stood in
-for by a rerun of its move, keeps the eager chain bitwise.
+for by a rerun of its move, keeps the eager chain bitwise; and the mc
+layer imports nothing from above it and no private name of another mc
+module.
 
 The ``gpu`` tests run on the card (``python -m pytest
 tests/test_torch_graph.py -m gpu --noconftest``; this file imports no
@@ -20,7 +23,9 @@ and fixed sweeps, and on a CO2 LJ + Ewald uVT system; and a
 chain bitwise through the per-bead recomputes, on para-H2 and on a
 two-site H2 with orientation data."""
 
+import ast
 import dataclasses
+import pathlib
 
 import pytest
 
@@ -34,7 +39,7 @@ from mpmcxx_tpu_torch import flags as fl  # noqa: E402
 from mpmcxx_tpu_torch import random as rnd  # noqa: E402
 from mpmcxx_tpu_torch import tracing  # noqa: E402
 from mpmcxx_tpu_torch.config.parser import read_config  # noqa: E402
-from mpmcxx_tpu_torch.mc import chain, pi  # noqa: E402
+from mpmcxx_tpu_torch.mc import chain, graph, pi  # noqa: E402
 from mpmcxx_tpu_torch.ops import polar_cache as pcache_mod  # noqa: E402
 from mpmcxx_tpu_torch.parallel import meshing  # noqa: E402
 from mpmcxx_tpu_torch.runner import Simulation  # noqa: E402
@@ -139,9 +144,162 @@ def test_carry_comes_apart_and_back_whole(system):
     new, _ = run(carry, draws[0], darts)
     kept = {j for j, (a, b) in enumerate(zip(leaves, chain._leaves(new)))
             if a is b}
-    names = chain._STATE_FIELDS
+    names = graph.STATE_FIELDS
     assert {names.index(n) for n in ("mol_id", "mass", "sigma")} <= kept
     assert names.index("pos") not in kept
+
+
+class _Rerun:
+    """A capture's stand-in on the CPU: its replay reruns the captured
+    move on the graph's buffers, as the graph would."""
+
+    def __init__(self, owner, carry, key):
+        self.graph, self.carry, self.key = owner, carry, key
+
+    def replay(self):
+        self.graph._eager(self.carry, self.key)
+
+
+def _rerun_captures(mp):
+    """Stand in for every capture on the CPU with a _Rerun."""
+    mp.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    mp.setattr(graph.MoveGraph, "_capture",
+               lambda self, carry, key: (_Rerun(self, carry, key), {}))
+
+
+def test_step_reads_adiabatic_slots_once():
+    """A step reads from the device whether any slot is adiabatic once in
+    its life, on its first call: not again over carries whose tensors are
+    fresh copies, nor for a state whose slots all became adiabatic."""
+    state, flags, params, opts = co2.torch_co2_lj_ewald()
+    carry = chain.init_carry(state, flags, params, opts, seed=3)
+    step = chain.make_step_fn(flags, params, opts, topology=topology(state))
+    _, draws, _ = chain.chunk_draws(carry.key, CHUNK)
+    copies, read, real_any = [], [], torch.any
+
+    def spy(t, *a, **k):
+        if any(t is c for c in copies):
+            read.append(t)
+        return real_any(t, *a, **k)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch, "any", spy)
+        for d in draws:
+            carry = chain._with_leaves(carry, [t.clone() for t in
+                                               chain._leaves(carry)])
+            copies.append(carry.state.mol_adiabatic)
+            carry, _ = step(carry, d)
+    assert len(copies) == CHUNK and len(read) == 1 and read[0] is copies[0]
+    assert step.any_adiabatic(state.replace(
+        mol_adiabatic=torch.ones_like(state.mol_adiabatic))) is False
+
+
+UVT_CHUNKS = 3
+
+
+def _drive_uvt(system, graphed):
+    """UVT_CHUNKS chunks of CHUNK moves of ``system``'s uVT chain on the
+    CPU, each followed by the corrtime refresh; with ``graphed`` the
+    runner's graph bookkeeping runs, each capture a _Rerun.  Returns (the
+    moves' StepOut columns, the carry after the last chunk, the tracer's
+    snapshot, [a returned carry's leaves as returned, and after the next
+    chunk])."""
+    state, flags, params, opts = SYSTEMS[system]()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(chain, "graphs_apply", lambda *a, **k: graphed)
+        if graphed:
+            _rerun_captures(mp)
+        carry = chain.init_carry(state, flags, params, opts, seed=7)
+        run = chain.make_chunk_runner(flags, params, opts, CHUNK,
+                                      topology=topology(state))
+        refresh = chain.make_refresher(flags, params, opts)
+        tracing.reset()
+        tracing.enable()
+        outs, kept = [], []
+        for _ in range(UVT_CHUNKS):
+            carry, out = run(carry)
+            if kept:
+                kept[-1].append([t.clone() for t in
+                                 chain._leaves(kept[-1][0])])
+            kept.append([carry, [t.clone() for t in chain._leaves(carry)]])
+            outs.append(out)
+            last = carry
+            carry = refresh(carry)
+        snap = tracing.snapshot()
+        tracing.disable()
+    return chain.StepOut(*(torch.cat(c) for c in zip(*outs))), last, snap, \
+        [k[1:] for k in kept[:-1]]
+
+
+@pytest.mark.parametrize("system", sorted(SYSTEMS))
+def test_uvt_graph_bookkeeping_keeps_the_eager_chain(system):
+    """On the CPU, with each capture a rerun of its move: the uVT graph's
+    buffers, draws and dart rows and output columns give the eager chain
+    bitwise, with one eager move, a capture per set of polar-cache planes
+    (one, without the cache) and every other move replayed."""
+    o_e, c_e, s_e, _ = _drive_uvt(system, False)
+    o_g, c_g, s_g, kept = _drive_uvt(system, True)
+    moves = UVT_CHUNKS * CHUNK
+    assert len(o_g.accepted) == moves and 0 < int(o_g.accepted.sum())
+    for a, b in zip(o_g, o_e):
+        assert torch.equal(a, b)
+    for a, b in zip(chain._leaves(c_g) + list(c_g.stats),
+                    chain._leaves(c_e) + list(c_e.stats)):
+        assert torch.equal(a, b)
+    if c_e.pcache is not None:
+        for f in dataclasses.fields(c_e.pcache):
+            assert torch.equal(getattr(c_g.pcache, f.name),
+                               getattr(c_e.pcache, f.name))
+    captures = 1 if c_e.pcache is None else UVT_CHUNKS
+    assert s_e["counters"]["graph_eager"] == {"step": moves}
+    assert s_g["counters"]["graph_eager"] == {"step": 1}
+    assert s_g["counters"]["graph_capture"] == {"step": captures}
+    assert s_g["counters"]["graph_replay"] == {"step": moves - 1}
+    # no later chunk wrote a carry the runner returned
+    for returned, later in kept:
+        for a, b in zip(returned, later):
+            assert torch.equal(a, b)
+
+
+_PKG = pathlib.Path(chain.__file__).parents[1]
+
+
+def _absolute(node: ast.ImportFrom, here: str) -> str:
+    """The module an ``from ... import`` in module ``here`` names."""
+    if not node.level:
+        return node.module
+    base = here.split(".")[:-node.level]
+    return ".".join(base + ([node.module] if node.module else []))
+
+
+def test_the_mc_layer_imports_nothing_above_it_or_private():
+    """No module under mc/ imports the runner, and none imports an
+    underscore name of another mc module, or reads one off an mc module
+    it imports."""
+    found = []
+    for path in sorted((_PKG / "mc").glob("*.py")):
+        here = f"{_PKG.name}.mc.{path.stem}"
+        mods = set()     # local names of mc modules
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                found += [(here, a.name) for a in node.names
+                          if a.name == f"{_PKG.name}.runner"]
+            elif isinstance(node, ast.ImportFrom):
+                src = _absolute(node, here)
+                for a in node.names:
+                    full = f"{src}.{a.name}"
+                    if f"{_PKG.name}.runner" in (src, full):
+                        found.append((here, full))
+                    elif src == f"{_PKG.name}.mc":
+                        mods.add(a.asname or a.name)
+                    elif src.startswith(f"{_PKG.name}.mc.") and \
+                            a.name.startswith("_"):
+                        found.append((here, full))
+            elif isinstance(node, ast.Attribute) and \
+                    isinstance(node.value, ast.Name) and \
+                    node.value.id in mods and node.attr.startswith("_"):
+                found.append((here, f"{node.value.id}.{node.attr}"))
+    assert not found
 
 
 # -- on the card ------------------------------------------------------------
@@ -285,7 +443,7 @@ def test_graphed_chain_is_the_eager_chain(cuda, system, tmp_path,
 
 
 # The PI runner (mc/pi.py: ``pi.graphs_apply``, ``make_pi_chunk_runner``
-# over chain._MoveGraph, one graph a move type): the rule case by case,
+# over graph.MoveGraph, one graph a move type): the rule case by case,
 # the Coker staging at a device anchor, the eager loop on the CPU, and
 # the graph's bookkeeping against the eager chain on the CPU with each
 # capture stood in for by a rerun of its move on the graph's buffers.
@@ -357,17 +515,6 @@ def test_pi_runner_on_the_cpu_runs_every_move_eager(tmp_path):
     assert not snap["counters"].get("graph_replay")
 
 
-class _Rerun:
-    """A capture's stand-in on the CPU: its replay reruns the captured
-    move on the graph's buffers, as the graph would."""
-
-    def __init__(self, graph, carry, key):
-        self.graph, self.carry, self.key = graph, carry, key
-
-    def replay(self):
-        self.graph._eager(self.carry, self.key)
-
-
 def _drive_pi(d, system, device, graphed):
     """PI_CHUNKS chunks of PI_CHUNK moves of a PISimulation of ``system``,
     each chunk followed by the corrtime's per-bead recompute; with
@@ -380,10 +527,7 @@ def _drive_pi(d, system, device, graphed):
             mp.setattr(pi, "graphs_apply", lambda *a, **k: False)
         elif device == "cpu":
             mp.setattr(pi, "graphs_apply", lambda *a, **k: True)
-            mp.setattr(torch.cuda, "graph_pool_handle", lambda: None)
-            mp.setattr(chain._MoveGraph, "_capture",
-                       lambda self, carry, key: chain._Captured(
-                           _Rerun(self, carry, key), (), {}))
+            _rerun_captures(mp)
         sim = pi_system.simulation(d, system, device)
         run = sim._chunk_runner(PI_CHUNK)
         carry = sim.carry
