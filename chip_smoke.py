@@ -43,7 +43,7 @@ its hand-written kernels, and check the results.
    energy log's rows 0, 64, 128; the restart PQR holding 512 + 3 N atoms;
    K5 >= 4, K2 >= 1 and K3 >= 2 launches per move, K1 and K4 none.  Then
    one more 16-move chunk of the run's chain under torch.profiler, every
-   move a CUDA graph replay: its device kernels of K1-K5, by name, equal
+   move a CUDA graph replay: its device kernels of K1-K6, by name, equal
    to the launches the wrappers counted; its device time per move, split
    by kernel, beside the wall time per move of an unprofiled 16-move
    chunk.
@@ -102,12 +102,12 @@ its hand-written kernels, and check the results.
    code 0, finite energy logs (one per box for Gibbs), PI's 8 per-bead
    restart files and frames of 16 sites; the card's accept/reject counts
    equal to the CPU's, its energy logs and carried energies within 1e-9
-   relative of the CPU's; no K1-K5 launch.
+   relative of the CPU's; no K1-K6 launch.
 13. Gibbs VLE of LJ argon at tools/gibbs_vle.py's configuration and 2 x
    256 production shape (N = (497, 15), 994 and 512 slots, the dense
    path): 2 corrtimes of 200 steps through GibbsSimulation; each box's
    incremental energy within 1e-9 of each refresh, N_a + N_b and V_a +
-   V_b conserved, a transfer and a volume exchange proposed, no K1-K5
+   V_b conserved, a transfer and a volume exchange proposed, no K1-K6
    launch; steps/s, synchronizing calls, kernel launches and device time
    per step, and the device's idle share.
 14. PI-NVT of 512 single-site para-H2 at 25 K and 0.0233 A^-3 with P =
@@ -115,7 +115,7 @@ its hand-written kernels, and check the results.
    corrtimes of 64 moves through PISimulation.run: the carried
    potential within 1e-9 of each per-bead recompute, the kinetic
    estimator below 1.5 N T P, 16 restart files, each move kind accepted
-   >= 5 %, no K1-K5 launch; moves/s, synchronizing calls, kernel
+   >= 5 %, no K1-K6 launch; moves/s, synchronizing calls, kernel
    launches and device time per move, the device's idle share, one
    corrtime's restart-write time.
 15. The H2 flagship (10,752 slots, the polar cache, the default
@@ -134,12 +134,13 @@ its hand-written kernels, and check the results.
    Delta-E of a displacement, an insertion and a removal within 1e-9
    (of the component's energy) of the difference of two blocked
    recomputes on the card; a 32-move chunk whose carried energies are
-   within 1e-8 of a refresh; no K1-K5 launch; moves/s.
+   within 1e-8 of a refresh; no K1-K5 launch, and K6 4 times where it
+   takes the setting (rd_only, the cavity checks), else none; moves/s.
 17. 512 argon-like atoms at 0.0213 A^-3 in NVT, 16 moves each (a dense
    recompute per move): Axilrod-Teller with the Midzuno-Kihara C9, and
    the many-body vdW term (float64 eigenvalues) with Buckingham
    repulsion.  The initial energy on the card within 1e-9 relative of
-   the port's on the CPU; finite energies; accepted moves; no K1-K5
+   the port's on the CPU; finite energies; accepted moves; no K1-K6
    launch; ms per move and the peak device memory.
 18. The CO2 flagship on its polar cache (the default schedule: K5 and
    K2) with (i) a precision-terminated SCF (1e-5 Debye) and Palmo's
@@ -164,7 +165,7 @@ its hand-written kernels, and check the results.
    dense float64 A matrix): the exact solve, Gauss-Seidel and ranked
    Gauss-Seidel at precision 1e-10, ZODID, Palmo and the full-Ewald SCF,
    each energy on the card within 1e-9 relative of the CPU's with equal
-   iteration counts; 8 NVT moves with ranked Gauss-Seidel (no K1-K5
+   iteration counts; 8 NVT moves with ranked Gauss-Seidel (no K1-K6
    launch; ms per move; launches of one sweep); the polar_tensor
    golden's atoms through the CLI with ``polarizability_tensor on``:
    exit 0 and the reference's tensor within its print quantum.
@@ -178,7 +179,7 @@ its hand-written kernels, and check the results.
    with Feynman-Hibbs order 4, and nvt-argon with no topology (atom-mask
    moves): the same accept sequence, energies within 1e-9 relative,
    SPECTRE charges within 1e-12 and neutral, GWP widths positive; no
-   K1-K5 launch; ms per move.
+   K1-K6 launch; ms per move.
 22. The H2 flagship (10,752 slots, S = 5) with its first 16 molecules
    adiabatic through ``runner.Simulation`` in uVT with quantum rotation
    (spinflip_probability 0.1, adiabatic_probability 0.1) on the polar
@@ -240,7 +241,7 @@ its hand-written kernels, and check the results.
    boundary and A - S, with its device and call times; (d) step 14's PI
    fluid (512 H2 x 16 beads) for one corrtime through
    ``PISimulation(mesh=...)`` and with no mesh: positions, accepts and
-   the carried potential bitwise equal, 16 restart files each, no K1-K5
+   the carried potential bitwise equal, 16 restart files each, no K1-K6
    launch.
 26. The port's bench module (``mpmcxx_tpu_torch/bench.py``) in-process
    at full width, under the default schedule (K5 and K2): one segment of
@@ -250,7 +251,8 @@ its hand-written kernels, and check the results.
    Checks: every rate positive and finite; at each flagship's end the
    carried rd and coulombic within 1e-9 and polarization within 1e-5 of
    a blocked recompute; exactly 4 K5 launches per move plus 4 for the
-   initial energy and 1 K2 launch per move, no K1, K3 or K4; the Thole
+   initial energy, 1 K2 launch per move and 1 K6 (the initial energy's
+   pair sums), no K1, K3 or K4; the Thole
    solve's K5 launches 4 per solve and its energy within 1e-6 relative
    of the same solve with the plain contraction on the same planes; the
    PIMC carried potential within 1e-9 of a per-bead recompute, no kernel
@@ -270,18 +272,31 @@ its hand-written kernels, and check the results.
    an exact float64 CG solve; launches: uvt-polar exactly 4 K1 and 1 K2
    per move run, uvt-cavity 2 K3 per move run, warmstart K K5 per move
    plus K for the initial energy and 1 K2 per move per variant, every
-   other count 0.  The statistics are not gated (the runs are too
+   other count of K1-K5 0 (K6's, one a blocked recompute on the card, is
+   counted, not gated).  The statistics are not gated (the runs are too
    short).
-28. Prints ``{"kernels": [...]}`` (per kernel: the sum over the main paths
-   of steps 3, 5-27 of its launches, each path counted from 0, and
+28. K6 ``pair_sums`` at the main path's shapes: the benchmark's cells
+   co2-bulk.plain (19,200 slots, LJ and Ewald) and h2-bulk-77k.fixed4
+   (20,480 slots, BSSP H2 with Feynman-Hibbs order 4 and its neutral,
+   massless sites), each built as the benchmark builds it (its
+   configuration's lattice, its ``run.in`` through the CLI's dispatch,
+   whose ``init_carry`` launches K6 once) with every launch count zeroed
+   just before.  Checks: exactly one K6 launch in the build; on its
+   state K6 against the plain row-tile loop, rd and es within 1e-10 of
+   the sums of the absolute row-tile sums, close equal, two launches
+   bitwise equal; K6's time (CUDA events, both kernels) and the loop's,
+   and K6's float64 bound from the pair classes the state holds.
+29. Prints ``{"kernels": [...]}`` (per kernel: the sum over the main paths
+   of steps 3, 5-28 of its launches, each path counted from 0, and
    the count of each path; the time, plain time and bound at the shapes
-   of step 4 for K2, K3 and K5, step 6 for K4 and step 7 for K1, with
-   step 25's sliced K1 and row-slice K2 beside them; the worst error of
-   the checks), the card's name and power limit, and, last,
-   ``{"ok": true, "device": {...}}``.  Any failure raises: non-zero
+   of step 4 for K2, K3 and K5, step 6 for K4, step 7 for K1 and step 28
+   for K6, with step 25's sliced K1 and row-slice K2 beside them; the
+   worst error of the checks), the card's name and power limit, and,
+   last, ``{"ok": true, "device": {...}}``.  Any failure raises: non-zero
    exit, no result line.
 
-Imports torch, numpy and the port only (never jax).
+Imports torch, numpy, the port and the benchmark's input builders
+(benchmark/, which import no jax), never jax.
 """
 
 import contextlib
@@ -530,6 +545,17 @@ DIRECTION_OPS = 18
 # f64 operations per point-atom test of K3: three differences, three
 # squares, two adds, one compare
 OCCUPANCY_OPS = 9
+# f64 operations per pair of each class of K6's sums: a live pair's
+# minimum image 45, its LRC term 18, LJ 10 and Ewald 6 within the cutoff
+# (25 and 26 more under Feynman-Hibbs order 2, 23 and 35 more again under
+# order 4), an intra-molecular screening term 12; erfc, erf, exp, sqrt
+# and a division one each, so the bound is low
+PAIR_OPS = {"geometry": 45, "lrc": 18, "lj": 10, "es": 6, "intra": 12,
+            "lj_fh2": 25, "es_fh2": 26, "lj_fh4": 23, "es_fh4": 35}
+# step 28: the benchmark cells whose states K6 is held to, and their seed
+K6_CELLS = ("co2-bulk.plain", "h2-bulk-77k.fixed4")
+K6_SEED = 2147524601
+K6_TOL = 1e-10           # of the sums of the absolute row-tile sums
 
 
 def _say(msg):
@@ -591,7 +617,7 @@ def schedule(**env):
 
 
 def _wrappers():
-    """K1-K5's wrappers by function name (tracing.kernel_wrappers)."""
+    """K1-K6's wrappers by kernel name (tracing.kernel_wrappers)."""
     from mpmcxx_tpu_torch import tracing
     return {name.split()[1]: fn
             for name, fn in tracing.kernel_wrappers().items()}
@@ -1309,6 +1335,10 @@ def run_cli_flagship(workdir, golden, device="cuda"):
                                  f"for {n_moves} moves")
     if launches["contract_planes_tri"] or launches["contract_planes"]:
         raise AssertionError("K1 or K4 ran on the default schedule")
+    # K6: init_carry's blocked recompute and each refresh's
+    if launches["pair_energy"] < 1 + len(log["refresh"]):
+        raise AssertionError(f"K6 launched {launches['pair_energy']} times "
+                             f"for {len(log['refresh'])} refreshes")
     profile_chunk(sim)
     return launches, {"peak_gb": peak_gb, "base_gb": base_gb,
                       "rate": steps / dt}
@@ -1324,12 +1354,14 @@ KERNEL_GROUPS = (("contract_sym_kernel", "K5 contract_planes_sym"),
                  ("sum_slots_kernel", "K4 contract_planes_tri"),
                  ("write_plane_strips", "K2 write_plane_strips"),
                  ("occupancy_kernel", "K3 occupancy"),
+                 ("pair_energy_kernel", "K6 pair_energy"),
+                 ("pair_sum_kernel", "K6 pair_energy"),
                  ("Memset", "memsets and copies"),
                  ("Memcpy", "memsets and copies"))
 
 
 def replayed_kernels(split, delta):
-    """Per kernel-name fragment of K1-K5 (KERNEL_GROUPS): (device kernels
+    """Per kernel-name fragment of K1-K6 (KERNEL_GROUPS): (device kernels
     of that name in ``split``, launches its wrapper counted in ``delta``).
     Each launch of a wrapper runs each kernel of its group once."""
     return {frag: (round(sum(n for k, (_, n) in split.items() if frag in k)),
@@ -1344,7 +1376,7 @@ def profile_chunk(sim, moves=PROFILE_MOVES, tries=8):
     printed split by kernel (ours by name, every other kernel as "torch
     kernels"), beside the wall time per move of one more, unprofiled
     chunk.  Kernels of one stream do not overlap, so their times add.
-    Gate: the device kernels of each of K1-K5 the profiler saw in the
+    Gate: the device kernels of each of K1-K6 the profiler saw in the
     replayed chunk equal the launches its wrapper counted there (a
     session that saw fewer is profiled again, up to ``tries``)."""
     import torch
@@ -1880,7 +1912,7 @@ def run_dispatched_example(name, root, workdir):
     sites; the card's accept/reject counts per move type equal to the
     CPU's, its energy logs and final carried energies within 1e-9
     relative of the CPU's (the logs to their printed 6 decimals); no
-    K1-K5 launch.  Returns (launch counts, steps/s on the card)."""
+    K1-K6 launch.  Returns (launch counts, steps/s on the card)."""
     import torch
     from mpmcxx_tpu_torch import cli
     from mpmcxx_tpu_torch.io.pqr import make_filename
@@ -1943,7 +1975,7 @@ def run_dispatched_example(name, root, workdir):
             raise AssertionError(f"{name}: frames file {frames[:2]}, "
                                  f"{len(frames)} lines")
     if any(launches.values()):
-        raise AssertionError(f"{name}: an SCF or cavity kernel ran: "
+        raise AssertionError(f"{name}: a kernel ran: "
                              f"{launches}")
     counts = ", ".join(f"{const_name(m)} {int(acc[m])}/{int(acc[m] + rej[m])}"
                        for m in range(7) if acc[m] + rej[m])
@@ -1967,7 +1999,7 @@ def run_gibbs_vle(workdir, device="cuda"):
     the dense path), 2 corrtimes of VLE_STEPS through GibbsSimulation.
     Checks: at each refresh each box's incremental energy within 1e-9 of
     the full recompute; N_a + N_b and V_a + V_b (1e-12) conserved; a
-    transfer and a volume exchange proposed; no K1-K5 launch.  Returns
+    transfer and a volume exchange proposed; no K1-K6 launch.  Returns
     (launch counts, second corrtime's steps/s, syncs per step, launches
     per step, the device's idle share)."""
     import torch
@@ -2074,7 +2106,7 @@ def _vle_refresh(sim, carry, what, label="gibbs-vle"):
 
 def _vle_gates(carry, n0, v0, mt, launches, label="gibbs-vle"):
     """N_a + N_b and V_a + V_b (1e-12) conserved, a transfer and a volume
-    exchange among the move types ``mt``, no K1-K5 launch; returns the
+    exchange among the move types ``mt``, no K1-K6 launch; returns the
     counts of transfers and volume exchanges."""
     from mpmcxx_tpu_torch import constants as const
     n1 = float(carry.obs_a.N + carry.obs_b.N)
@@ -2167,7 +2199,7 @@ def run_pi_h2(workdir, device="cuda"):
     path (8,192 atom-bead slots).  Checks: at each corrtime the carried
     bead-averaged potential within 1e-9 of the full per-bead recompute;
     the kinetic estimator finite and below 1.5 N T P; 16 restart files;
-    each move kind accepted >= 5 %; no K1-K5 launch.  Returns (launch
+    each move kind accepted >= 5 %; no K1-K6 launch.  Returns (launch
     counts, second corrtime's moves/s, syncs per move, launches per move,
     the device's idle share, one corrtime's restart-write seconds)."""
     import torch
@@ -2361,15 +2393,17 @@ def run_pairwise_terms(workdir, device="cuda"):
     molecule slot 1 against the difference of two blocked recomputes on
     the card (rd and coulombic, within 1e-9 of the component's energy);
     one PW_MOVES chunk whose carried rd and coulombic are within 1e-8 of
-    a refresh; finite energies; no K1-K5 launch.  Returns (the summed
-    launch counts, moves/s per setting)."""
+    a refresh; finite energies; no K1-K5 launch, and K6 4 times where it
+    takes the setting (init_carry's, the two blocked recomputes and the
+    refresh's), else none.  Returns (the summed launch counts, moves/s
+    per setting)."""
     import torch
     from mpmcxx_tpu_torch import flagship
     from mpmcxx_tpu_torch import constants as const
     from mpmcxx_tpu_torch.flags import FFlags, RunParams
     from mpmcxx_tpu_torch.mc import chain, moves
     from mpmcxx_tpu_torch.mc.chain import MCOptions
-    from mpmcxx_tpu_torch.ops import delta
+    from mpmcxx_tpu_torch.ops import cuda_pairs, delta
     from mpmcxx_tpu_torch.ops.energy import energy_breakdown_blocked
     from mpmcxx_tpu_torch.state import topology
     pqr = os.path.join(workdir, "flagship_co2.pqr")
@@ -2443,8 +2477,11 @@ def run_pairwise_terms(workdir, device="cuda"):
                 raise AssertionError(f"[pairwise {name}] carried {comp} "
                                      f"{a!r} vs refresh {b!r}: rel {rel}")
         n = launches_now()
-        if any(n.values()):
-            raise AssertionError(f"[pairwise {name}] kernels launched: {n}")
+        due = dict.fromkeys(n, 0)
+        due["pair_energy"] = 4 * int(cuda_pairs.takes(s0, flags))
+        if n != due:
+            raise AssertionError(f"[pairwise {name}] launches {n}, want "
+                                 f"{due}")
         for k in total:
             total[k] += n[k]
         _say(f"[pairwise {name}] Delta-E vs blocked difference: worst "
@@ -2482,7 +2519,7 @@ def run_many_body(device="cuda"):
     MB["moves"] moves on the dense full recompute that
     ``runner.capacity_opts`` picks for them.  Gates: the initial energy on
     the card within 1e-9 relative of the port's on the CPU (each
-    component); finite energies; accepted moves; no K1-K5 launch.
+    component); finite energies; accepted moves; no K1-K6 launch.
     Returns (the summed launch counts, ms per move of each setting)."""
     import torch
     from mpmcxx_tpu_torch import constants as const
@@ -2919,7 +2956,7 @@ def run_dense_solvers(root, workdir, card, device="cuda"):
     """Step 20: DENSE_EXAMPLE's initial state with polar_mixed off (the
     dense float64 A matrix): each of DENSE_SETTINGS' energies on the card
     and on the CPU within DENSE_REL; then DENSE_MOVES NVT moves with
-    ranked Gauss-Seidel (a dense recompute per move; no K1-K5 launch),
+    ranked Gauss-Seidel (a dense recompute per move; no K1-K6 launch),
     the carried energy against a recompute; the launches of one GS sweep
     (torch.profiler); the polar_tensor golden through the CLI
     (run_tensor_cli).  Returns (launches, ms per move, launches per
@@ -2993,7 +3030,7 @@ def run_dense_solvers(root, workdir, card, device="cuda"):
         raise AssertionError(f"[{DENSE_EXAMPLE} gs_ranked NVT] carried vs "
                              f"recompute rel {rel}")
     if any(launches.values()):
-        raise AssertionError(f"[{DENSE_EXAMPLE} gs_ranked NVT] K1-K5 "
+        raise AssertionError(f"[{DENSE_EXAMPLE} gs_ranked NVT] K1-K6 "
                              f"launched: {launches}")
     its = outs.polarization_iterations.cpu().numpy()
     pt = build_pairs(state, f)
@@ -3065,7 +3102,7 @@ def run_special_moves(root, device="cuda"):
     the CPU (seed 0): the same accept sequence, energies within 1e-9
     relative, SPECTRE charges within 1e-12 and their live sum 0 (the
     renormalization's), GWP widths positive, some moves accepted; no
-    K1-K5 launch.  Returns (launch counts, card ms per move by chain)."""
+    K1-K6 launch.  Returns (launch counts, card ms per move by chain)."""
     import torch
     from mpmcxx_tpu_torch import constants as const
     from mpmcxx_tpu_torch.mc import chain
@@ -3373,9 +3410,9 @@ def run_spin_ensembles(workdir, device="cuda"):
     the spin-flip count equal to a host replay of the move draws, every
     flip rejected and the spins unchanged, and step 13's (incremental
     energies at the refresh, N and V conserved, a transfer and a volume
-    exchange, no K1-K5 launch) and step 14's gates (the carried potential
+    exchange, no K1-K6 launch) and step 14's gates (the carried potential
     at the recompute, the kinetic bound, the restart files, displacements
-    and bead moves accepted >= 5 %, no K1-K5 launch).  Returns (launch
+    and bead moves accepted >= 5 %, no K1-K6 launch).  Returns (launch
     counts of each, Gibbs steps/s, PI moves/s)."""
     import torch
     from mpmcxx_tpu_torch import constants as const
@@ -4224,7 +4261,7 @@ def run_mesh_pi(workdir, mesh, moves, device="cuda"):
     corrtime of ``moves`` moves through PISimulation.run on ``mesh`` (the
     beads split P/n per shard) and with no mesh: positions, accept counts
     and the carried potential bitwise equal, the per-bead restart files
-    written, no K1-K5 launch.  Returns (the mesh run's launch counts,
+    written, no K1-K6 launch.  Returns (the mesh run's launch counts,
     {"rate": its moves/s, "rate_one": the one-device run's})."""
     import torch
     from mpmcxx_tpu_torch.config.parser import read_config
@@ -4334,7 +4371,7 @@ def run_bench_step(card, device="cuda"):
     import torch
     from mpmcxx_tpu_torch import bench, flagship
     from mpmcxx_tpu_torch.mc import pi
-    from mpmcxx_tpu_torch.ops import cuda_polar, polar
+    from mpmcxx_tpu_torch.ops import cuda_pairs, cuda_polar, polar
     from mpmcxx_tpu_torch.ops.energy import energy_breakdown_blocked
 
     def rate_ok(label, x):
@@ -4364,7 +4401,8 @@ def run_bench_step(card, device="cuda"):
                 raise AssertionError(f"[{label}] {name}: carried vs full "
                                      f"rel {rel}")
         want = dict({k: 0 for k in n}, contract_planes_sym=4 * moves + 4,
-                    write_plane_strips=moves)
+                    write_plane_strips=moves,
+                    pair_energy=int(cuda_pairs.takes(carry.state, flags)))
         if n != want:
             raise AssertionError(f"[{label}] launches {n}, want {want}")
         _say(f"[{label}] {moves} moves, {rates['median']:.2f} moves/s on "
@@ -4503,6 +4541,8 @@ def run_validate_step(card, device="cuda"):
              "--device", str(device)])
 
     def gate(label, n, want):
+        # K6 runs in each blocked recompute on the card: counted, not gated
+        n = {k: v for k, v in n.items() if k != "pair_energy"}
         want = dict({k: 0 for k in n}, **want)
         if n != want:
             raise AssertionError(f"[{label}] launches {n}, want {want}")
@@ -4645,6 +4685,159 @@ def run_validate_step(card, device="cuda"):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return launches, out
+
+
+def k6_cell(name, workdir, device="cuda"):
+    """Step 28's build of the benchmark cell ``name``: its configuration's
+    lattice and ``run.in`` (benchmark/inputs) through the CLI's dispatch
+    (benchmark.harness.build), every launch count zeroed just before.
+    Returns (the simulation, the build's launch counts)."""
+    import torch
+    from benchmark import harness
+    from benchmark.inputs import geometry
+    from benchmark.inputs.runin import run_in
+    from benchmark.manifest import Manifest
+    man = Manifest()
+    cell = man.workload(name)
+    config = man.config(cell["config"])
+    traffic = man.traffic(cell["traffic"])
+    pqr = os.path.join(workdir, f"{name}.pqr")
+    geometry.write_pqr(pqr, config["model"],
+                       geometry.molecules(config["model"],
+                                          config["geometry"]))
+    path = os.path.join(workdir, f"{name}.run.in")
+    with open(path, "w") as f:
+        f.write(run_in(config, traffic, K6_SEED, pqr))
+    zero_launches()
+    sim = harness.build(path, config, traffic, device)
+    torch.cuda.synchronize()
+    return sim, launches_now()
+
+
+def pair_classes(state, flags, params, block=256):
+    """(the sums of the absolute [block, A] row-tile sums of rd and es,
+    the live triangle's pair count of each class of PAIR_OPS that the
+    form computes) of ``state``.  A row-tile sum is no larger in size
+    than its pairs' absolute terms, so a tolerance on these sums is no
+    looser than one on the pairs'."""
+    import torch
+    from mpmcxx_tpu_torch import constants as const
+    from mpmcxx_tpu_torch.ops import ewald, pair_potentials
+    from mpmcxx_tpu_torch.ops.pairwise import build_pairs_block
+    A = state.n_atom_slots
+    scale = {"rd": 0.0, "es": 0.0}
+    n = dict.fromkeys(("geometry", "lrc", "lj", "es", "intra"), 0)
+    cutoff = state.pbc.cutoff
+    for b in range(-(-A // block)):
+        rows = b * block + torch.arange(block, device=state.pos.device)
+        pt = build_pairs_block(state, flags, torch.where(rows < A, rows, -1))
+        scale["rd"] += abs(float(pair_potentials.rd_energy(
+            state, pt, flags, params, pair_only=True)))
+        live = pt.pair_once & pt.alive
+        ok = live & ~pt.frozen
+        n["geometry"] += int(live.sum())
+        if flags.rd_lrc:
+            sp = pt.row(state.spectre)[:, None] & state.spectre[None, :]
+            n["lrc"] += int((ok & ~sp & (pt.epsilon != 0.0) &
+                             (pt.sigma != 0.0)).sum())
+        n["lj"] += int((ok & ~pt.rd_excluded &
+                        (pt.rimg - const.SMALL_dR < cutoff)).sum())
+        if not (flags.rd_only or flags.use_sg):
+            scale["es"] += abs(float(ewald.coulombic_real(state, pt, flags,
+                                                          params)))
+            q_i = pt.row(state.charge)[:, None]
+            q_j = state.charge[None, :]
+            n["es"] += int((ok & ~pt.es_excluded &
+                            ~(pt.rimg > cutoff)).sum())
+            n["intra"] += int((ok & pt.same_mol & (q_i != 0.0) &
+                               (q_j != 0.0)).sum())
+    return scale, n
+
+
+def pair_ops(n, flags):
+    """K6's f64 operations over the pair classes ``n`` (PAIR_OPS)."""
+    ops = sum(n[k] * PAIR_OPS[k] for k in n)
+    if flags.feynman_hibbs:
+        ops += n["lj"] * PAIR_OPS["lj_fh2"] + n["es"] * PAIR_OPS["es_fh2"]
+        if flags.feynman_hibbs_order >= 4:
+            ops += n["lj"] * PAIR_OPS["lj_fh4"] + n["es"] * PAIR_OPS["es_fh4"]
+    return ops
+
+
+def check_k6(label, state, flags, params):
+    """K6 against the plain row-tile loop on ``state``: rd and es within
+    K6_TOL of pair_classes' absolute sums, close equal, two launches
+    bitwise equal; the times of both and K6's bound.  Returns the
+    kernels-line record."""
+    import torch
+    from mpmcxx_tpu_torch.ops import cuda_pairs
+    from mpmcxx_tpu_torch.ops.energy import pair_sums_plain
+    if not cuda_pairs.takes(state, flags):
+        raise AssertionError(f"K6 {label}: not a state and form K6 takes")
+    before = cuda_pairs.pair_sums.launches
+    got = cuda_pairs.pair_sums(state, flags, params)
+    again = cuda_pairs.pair_sums(state, flags, params)
+    want = pair_sums_plain(state, flags, params)
+    torch.cuda.synchronize()
+    if cuda_pairs.pair_sums.launches != before + 2:
+        raise AssertionError(f"K6 {label}: "
+                             f"{cuda_pairs.pair_sums.launches - before} "
+                             "launches for 2 calls")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"K6 {label}: two launches differ")
+    scale, n = pair_classes(state, flags, params)
+    err = {}
+    for i, comp in enumerate(("rd", "es")):
+        err[comp] = abs(float(got[i]) - float(want[i]))
+        _say(f"K6 {label}: {comp} {float(got[i])!r} vs plain "
+             f"{float(want[i])!r}: |diff| {err[comp]:.3e} = "
+             f"{err[comp] / max(scale[comp], 1e-300):.2e} of the absolute "
+             f"tile sums {scale[comp]:.6e} (tol {K6_TOL:g})")
+        if not (np.isfinite(float(got[i])) and
+                err[comp] <= K6_TOL * scale[comp]):
+            raise AssertionError(f"K6 {label}: {comp} off the plain loop")
+    if bool(got[2]) != bool(want[2]):
+        raise AssertionError(f"K6 {label}: close {bool(got[2])} vs plain "
+                             f"{bool(want[2])}")
+    ms = _time_ms(lambda: cuda_pairs.pair_sums(state, flags, params))
+    plain_ms = _time_ms(lambda: pair_sums_plain(state, flags, params),
+                        reps=2)
+    A = state.n_atom_slots
+    # per atom: pos, charge, sigma, epsilon, molecule mass, mol_id (8 B
+    # each but pos 24) and a byte of bits, read once; three sums out
+    bound = _bound(A * (24 + 5 * 8 + 1) + 3 * 8, pair_ops(n, flags),
+                   F64_OPS_PER_S)
+    _say(f"K6 {label}: A = {A} ({int(state.aalive.sum())} live), pairs by "
+         f"class {n}; bitwise repeatable, close {bool(got[2])}; kernel "
+         f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound[0]:.4f} ms "
+         f"({bound[1]}; {100 * bound[0] / ms:.1f} % of it)")
+    return {"max_abs_err": max(err.values()),
+            "max_rel_err": max(err[c] / max(scale[c], 1e-300) for c in err),
+            "ms": ms, "plain_ms": plain_ms, "bound": bound, "slots": A}
+
+
+def run_k6_cells(launches, device="cuda"):
+    """Step 28: for each of K6_CELLS, its build (k6_cell: init_carry's
+    one K6 launch) into ``launches``, then check_k6 on its state.
+    Returns {cell: check_k6's record}."""
+    import torch
+    recs = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        for name in K6_CELLS:
+            t0 = time.time()
+            sim, n = k6_cell(name, workdir, device)
+            launches[f"k6-{name}"] = n
+            if n["pair_energy"] != 1:
+                raise AssertionError(f"[k6 {name}] the build launched {n}, "
+                                     "want one K6")
+            _say(f"[k6 {name}] built through the CLI's dispatch in "
+                 f"{time.time() - t0:.1f} s: {sim.state.n_atom_slots} slots, "
+                 f"launches {n}")
+            recs[name] = check_k6(name, sim.state, sim.flags, sim.params)
+            del sim
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+    return recs
 
 
 def ptxas_report(log):
@@ -4995,6 +5188,12 @@ def main() -> int:
     _say(f"step 27 took {val_s:.1f} s (budget 120 s): " + ", ".join(
         f"{s} {t:.1f} s ({v})" for s, (t, v) in val_out.items()))
 
+    # --- 28. K6 at the benchmark cells' shapes ---------------------------
+    t0 = time.time()
+    k6 = run_k6_cells(launches)
+    flush()
+    _say(f"step 28 took {time.time() - t0:.1f} s")
+
     _say(f"second-chunk moves/s on {card}: " + ", ".join(
         f"{m} {r:.2f}" for m, r in rates.items()) +
         f"; examples' chunk steps/s: " + ", ".join(
@@ -5075,6 +5274,16 @@ def main() -> int:
         _entry("contract_planes_tri",
                "mpmcxx_tpu_torch/csrc/contract_planes_tri.cu",
                "mpmcxx_tpu/ops/pallas_polar.py:369", k4, launches),
+        _entry("pair_energy", "mpmcxx_tpu_torch/csrc/pair_energy.cu",
+               "mpmcxx_tpu/ops/energy.py energy_breakdown_blocked's row "
+               "tiles (XLA)",
+               dict(k6[K6_CELLS[0]], max_abs_err=max(
+                   r["max_abs_err"] for r in k6.values())), launches,
+               max_rel_err=max(r["max_rel_err"] for r in k6.values()),
+               slots=k6[K6_CELLS[0]]["slots"],
+               **{f"{c}_{k}": k6[c][k] for c in K6_CELLS[1:]
+                  for k in ("ms", "plain_ms", "slots")},
+               **{f"{c}_bound_ms": k6[c]["bound"][0] for c in K6_CELLS[1:]}),
     ]}
     _say(json.dumps(kernels_line))
     _say(card)

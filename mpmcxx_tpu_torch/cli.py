@@ -10,7 +10,7 @@ cpu`` runs the plain PyTorch versions of the kernels on the CPU.
 ``--trace FILE`` runs the program's tracer (``tracing.py``) from before
 the set-up to the run's end, then writes its ``snapshot()`` to FILE as
 JSON: per span its count and total, self and longest ns, the counters
-(``host_sync`` by span on a CUDA device), the moves and K1-K5's launches.
+(``host_sync`` by span on a CUDA device), the moves and K1-K6's launches.
 
 The dispatch is the twin's (cli.py:57-71): a pi_nvt input runs
 ``PISimulation`` and a Gibbs input ``GibbsSimulation``, both ignoring

@@ -20,9 +20,10 @@ from typing import NamedTuple
 import torch
 
 from .. import constants as const
+from .. import tracing
 from ..flags import FFlags, RunParams, dense_only, require_supported
 from ..state import SystemState
-from . import ewald, pair_potentials, polar, polarvdw, three_body
+from . import cuda_pairs, ewald, pair_potentials, polar, polarvdw, three_body
 from .pairwise import PairTensors, build_pairs, build_pairs_block
 
 
@@ -121,11 +122,41 @@ def total_energy(state: SystemState, flags: FFlags,
     return eb.total + eb.cavity_penalty
 
 
+def pair_sums_plain(state: SystemState, flags: FFlags, params: RunParams,
+                    block: int = 256):
+    """(rd, es, close) of the pairs by [block, A] row tiles of the dense
+    triangle (energy.py:147-158): the repulsion-dispersion pair sums
+    (pair_only: the whole-system self and LRC sums are added once by the
+    caller), Wolf or Ewald real space unless ``use_sg``/``rd_only``, and
+    the absolute cavity check where it is on.  K6
+    (ops/cuda_pairs.pair_sums) computes the same sums on the card."""
+    A = state.n_atom_slots
+    dev = state.pos.device
+    z = torch.zeros((), dtype=torch.float64, device=dev)
+    use_es = not (flags.use_sg or flags.rd_only)
+    rd, es, close = z, z, torch.zeros((), dtype=torch.bool, device=dev)
+    for b in range(-(-A // block)):
+        rows_f = b * block + torch.arange(block, device=dev)
+        pt = build_pairs_block(state, flags,
+                               torch.where(rows_f < A, rows_f, -1))
+        rd = rd + pair_potentials.rd_energy(state, pt, flags, params,
+                                            pair_only=True)
+        if use_es:
+            es = es + (ewald.coulombic_wolf if flags.wolf
+                       else ewald.coulombic_real)(state, pt, flags, params)
+        if flags.cavity_autoreject_absolute:
+            close = close | _close_pairs(pt, params)
+    return rd, es, close
+
+
 def energy_breakdown_blocked(state: SystemState, flags: FFlags,
                              params: RunParams,
                              block: int = 256) -> EnergyBreakdown:
     """Full energy via [block, A] row tiles (energy.py:120-218): the
-    pairwise terms and Thole polarization.  The full-Ewald SCF and the
+    pairwise terms and Thole polarization.  The pair sums run as one K6
+    launch where ``cuda_pairs.takes`` the state and form (counted
+    ``pair_kernel``), else as the row-tile loop ``pair_sums_plain``
+    (``pair_plain``).  The full-Ewald SCF and the
     special moves' terms (SPECTRE, GWP, the anharmonic well) are routed
     to the dense ``energy_breakdown`` (flags.dense_only; the twin's
     blocked SCF would solve on the no-PBC field instead, and its blocked
@@ -139,23 +170,16 @@ def energy_breakdown_blocked(state: SystemState, flags: FFlags,
         raise ValueError("blocked energy requires pairwise + k-space terms "
                          "(+ optional Thole polarization); polarvdw/mbvdw/"
                          "3-body/rd_crystal are dense-only")
-    A = state.n_atom_slots
     dev = state.pos.device
     z = torch.zeros((), dtype=torch.float64, device=dev)
     use_es = not (flags.use_sg or flags.rd_only)
-    rd, es, close = z, z, torch.zeros((), dtype=torch.bool, device=dev)
-    for b in range(-(-A // block)):
-        rows_f = b * block + torch.arange(block, device=dev)
-        pt = build_pairs_block(state, flags,
-                               torch.where(rows_f < A, rows_f, -1))
-        # pair sums only: the whole-system self/LRC sums are added once
-        rd = rd + pair_potentials.rd_energy(state, pt, flags, params,
-                                            pair_only=True)
-        if use_es:
-            es = es + (ewald.coulombic_wolf if flags.wolf
-                       else ewald.coulombic_real)(state, pt, flags, params)
-        if flags.cavity_autoreject_absolute:
-            close = close | _close_pairs(pt, params)
+    # pair sums only: the whole-system self/LRC sums are added once
+    if cuda_pairs.takes(state, flags):
+        tracing.count("pair_kernel")
+        rd, es, close = cuda_pairs.pair_sums(state, flags, params)
+    else:
+        tracing.count("pair_plain")
+        rd, es, close = pair_sums_plain(state, flags, params, block)
 
     if flags.rd_lrc and not (flags.use_sg or flags.use_dreiding or
                              flags.using_lj_buffered_14_7):

@@ -120,6 +120,13 @@ def load() -> ctypes.CDLL:
             lib.mpmcxx_occupancy.argtypes = [
                 vp, vp, vp, ctypes.c_double, ci, ci, vp, vp]
             lib.mpmcxx_occupancy.restype = ci
+            lib.mpmcxx_pair_energy_tile.argtypes = []
+            lib.mpmcxx_pair_energy_tile.restype = ci
+            lib.mpmcxx_pair_energy.argtypes = [
+                vp, vp, vp, vp, vp, vp, vp, vp,
+                ctypes.POINTER(ctypes.c_double), ci, ci, ci, ci, ci, ci, vp,
+                vp, vp]
+            lib.mpmcxx_pair_energy.restype = ci
             lib.mpmcxx_span_mark.argtypes = [vp, ci]
             lib.mpmcxx_span_mark.restype = ci
             _lib = lib

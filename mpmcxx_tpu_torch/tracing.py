@@ -25,7 +25,7 @@ Without CUDA marking is a no-op.
 
 No span synchronises the device or changes what the chain computes.
 ``snapshot()`` returns the aggregates, the counters, the moves counted
-by the chunk runner and the launches of K1-K5 since the last ``reset``
+by the chunk runner and the launches of K1-K6 since the last ``reset``
 (read from the kernel wrappers' ``.launches``, their one store; a
 replayed CUDA graph adds the launches its capture recorded).
 
@@ -48,18 +48,22 @@ The spans and counters, and what reads each (PERF.md section 3):
 ``grow_capacity``, ``setup.build_state``, ``output`` (runner.py);
 ``setup.init_carry`` (mc/chain.py); ``setup.library`` (ops/kernels.py);
 the counter ``host_sync``; the counters ``graph_capture``,
-``graph_replay``, ``graph_eager`` (mc/graph.py).  The two-box Gibbs
-chain (mc/gibbs.py): ``gibbs.draws``, ``gibbs.step`` (opens a move),
-``gibbs.step.move``, ``gibbs.step.delta_e``, ``gibbs.step.accept``,
-``gibbs.stats``; ``gibbs.refresh``, ``gibbs.refresh.energy``,
-``gibbs.refresh.sf``; the counters ``gibbs_displace``,
-``gibbs_transfer``, ``gibbs_volume``, ``gibbs_spin`` (the host's pick
-of each move, on ``gibbs.step``); its set-up opens ``setup.build_state``
-and ``setup.init_carry``, its corrtime ``corrtime_io``.  The
-path-integral chain (mc/pi.py): ``pi.draws`` (the chunk's draws, move
-picks, Coker anchors and their copy to the device), ``pi.step`` (opens a
-move; the counters ``graph_capture``, ``graph_replay``, ``graph_eager``),
-``pi.stats`` (the chunk's columns and acceptance statistics).
+``graph_replay``, ``graph_eager`` (mc/graph.py); the counters
+``pair_kernel`` and ``pair_plain`` (ops/energy.py: each blocked full
+recompute's pair sums, by K6 or by the plain row-tile loop, on the
+innermost open span; ``pair_kernel`` over both is K6's engagement).
+The two-box Gibbs chain (mc/gibbs.py): ``gibbs.draws``, ``gibbs.step``
+(opens a move), ``gibbs.step.move``, ``gibbs.step.delta_e``,
+``gibbs.step.accept``, ``gibbs.stats``; ``gibbs.refresh``,
+``gibbs.refresh.energy``, ``gibbs.refresh.sf``; the counters
+``gibbs_displace``, ``gibbs_transfer``, ``gibbs_volume``, ``gibbs_spin``
+(the host's pick of each move, on ``gibbs.step``); its set-up opens
+``setup.build_state`` and ``setup.init_carry``, its corrtime
+``corrtime_io``.  The path-integral chain (mc/pi.py): ``pi.draws`` (the
+chunk's draws, move picks, Coker anchors and their copy to the device),
+``pi.step`` (opens a move; the counters ``graph_capture``,
+``graph_replay``, ``graph_eager``), ``pi.stats`` (the chunk's columns
+and acceptance statistics).
 """
 
 from __future__ import annotations
@@ -101,7 +105,7 @@ class _Tracer:
         self.move = 0          # the move the open spans belong to
         self.bounds = []       # (kind, span, host ns) while marking
         self.spans = []        # (name, parent, start, end, move) likewise
-        self.base = {}         # K1-K5 launches at the last reset
+        self.base = {}         # K1-K6 launches at the last reset
         self.sync_mode = None  # the sync-debug mode enable() replaced
         self.warn_ctx = None   # the warnings state enable() replaced
         self.show = None       # and its showwarning
@@ -188,18 +192,19 @@ def _show(message, category, filename, lineno, file=None, line=None):
 
 
 def kernel_wrappers() -> dict:
-    """K1-K5's wrappers by name; each counts its launches in
+    """K1-K6's wrappers by name; each counts its launches in
     ``.launches``."""
-    from .ops import cuda_cavity, cuda_polar
+    from .ops import cuda_cavity, cuda_pairs, cuda_polar
     return {"K1 contract_planes": cuda_polar.contract_planes,
             "K2 write_plane_strips": cuda_polar.write_plane_strips,
             "K3 occupancy": cuda_cavity.occupancy,
             "K4 contract_planes_tri": cuda_polar.contract_planes_tri,
-            "K5 contract_planes_sym": cuda_polar.contract_planes_sym}
+            "K5 contract_planes_sym": cuda_polar.contract_planes_sym,
+            "K6 pair_energy": cuda_pairs.pair_sums}
 
 
 def _launches() -> dict:
-    """K1-K5's launches, from each wrapper's ``.launches``."""
+    """K1-K6's launches, from each wrapper's ``.launches``."""
     return {k: fn.launches for k, fn in kernel_wrappers().items()}
 
 

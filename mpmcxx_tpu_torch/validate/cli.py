@@ -46,13 +46,12 @@ def run_study(study: str, args, device) -> dict:
 
 
 def launch_counts() -> dict:
-    """Each kernel wrapper's launch count (ops/cuda_polar, ops/cuda_cavity:
-    one per kernel launched on the card, none for a CPU tensor)."""
-    from ..ops import cuda_cavity, cuda_polar
-    return {name: getattr(mod, name).launches for mod, name in (
-        (cuda_polar, "contract_planes"), (cuda_polar, "contract_planes_sym"),
-        (cuda_polar, "contract_planes_tri"),
-        (cuda_polar, "write_plane_strips"), (cuda_cavity, "occupancy"))}
+    """Each kernel wrapper's launch count by kernel name
+    (tracing.kernel_wrappers: one per kernel launched on the card, none
+    for a CPU tensor)."""
+    from .. import tracing
+    return {name.split()[1]: fn.launches
+            for name, fn in tracing.kernel_wrappers().items()}
 
 
 def record(study: str, args, device, card, rows_dir=None) -> dict:

@@ -641,3 +641,57 @@ def test_validate_step_runs_on_cpu(tmp_path):
         "assert n['validate-warmstart']['contract_planes_sym'] == 13 * 17, n\n")
     r = _run(["-c", code], ROOT, timeout=600)
     assert r.returncode == 0, r.stderr[-3000:] + r.stdout[-3000:]
+
+
+def test_pair_kernel_step_runs_on_cpu(tmp_path):
+    """Step 28 (K6 at the benchmark cells' shapes) on the CPU, with jax
+    and the JAX package made unimportable: each cell's configuration,
+    lattice and run.in from the benchmark's builders, its build stood in
+    for by tests/torch_pair_system.py's mixture (LJ for the CO2 cell, FH4
+    for the H2 one) and an initial blocked energy, K6 by its plain
+    version counted as launches; the build's one K6 launch and every
+    check of check_k6 pass, and its record holds the bound of the pair
+    classes."""
+    code = (
+        "import os, sys, types\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mpmcxx_tpu'] = None\n"
+        f"sys.path.insert(0, {os.path.join(ROOT, 'tests')!r})\n"
+        "import torch\n"
+        "for f in ('synchronize', 'empty_cache'):\n"
+        "    setattr(torch.cuda, f, lambda *a, **k: 0)\n"
+        "import chip_smoke\n"
+        "import torch_pair_system as ps\n"
+        "from benchmark import harness\n"
+        "from mpmcxx_tpu_torch.ops import cuda_pairs, energy\n"
+        "def counting(orig):\n"
+        "    def f(*a, **k):\n"
+        "        f.launches += 1\n"
+        "        return orig(*a, **k)\n"
+        "    f.launches = 0\n"
+        "    return f\n"
+        "cuda_pairs.pair_sums = counting(energy.pair_sums_plain)\n"
+        "cuda_pairs.takes = lambda st, fl: True\n"
+        "chip_smoke._time_ms = lambda fn, reps=10: (fn(), 1.0)[1]\n"
+        "built = []\n"
+        "def build(path, config, traffic, dev):\n"
+        "    assert os.path.getsize(path) and config['slots'] > 19000\n"
+        "    state, _ = ps.build(dev)\n"
+        "    flags = ps.flags('fh4' if 'h2' in config['name'] else 'lj')\n"
+        "    energy.energy_breakdown_blocked(state, flags, ps.params())\n"
+        "    built.append(config['name'])\n"
+        "    return types.SimpleNamespace(state=state, flags=flags,\n"
+        "                                 params=ps.params())\n"
+        "harness.build = build\n"
+        "n = {}\n"
+        "recs = chip_smoke.run_k6_cells(n, device='cpu')\n"
+        "assert built == ['co2-trappe-298k', 'h2-bssp-77k'], built\n"
+        "assert set(n) == {'k6-co2-bulk.plain', 'k6-h2-bulk-77k.fixed4'}\n"
+        "assert all(v['pair_energy'] == 1 for v in n.values()), n\n"
+        "for r in recs.values():\n"
+        "    assert r['max_abs_err'] == 0.0 and r['ms'] == 1.0, r\n"
+        "    assert r['bound'][1] == 'operations' and r['bound'][0] > 0\n"
+        "lj, fh4 = (recs[c]['bound'][0] for c in chip_smoke.K6_CELLS)\n"
+        "assert fh4 > lj, (lj, fh4)\n")
+    r = _run(["-c", code], ROOT)
+    assert r.returncode == 0, r.stderr[-3000:] + r.stdout[-3000:]

@@ -11,9 +11,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_pair_system as pair_system  # noqa: E402
+from mpmcxx_tpu_torch import tracing  # noqa: E402
+from mpmcxx_tpu_torch.flags import FFlags  # noqa: E402
 from mpmcxx_tpu_torch.ops import cuda_cavity  # noqa: E402
+from mpmcxx_tpu_torch.ops import cuda_pairs  # noqa: E402
 from mpmcxx_tpu_torch.ops import cuda_polar  # noqa: E402
+from mpmcxx_tpu_torch.ops import ewald, pair_potentials  # noqa: E402
 from mpmcxx_tpu_torch.ops import polar_cache  # noqa: E402
+from mpmcxx_tpu_torch.ops.energy import \
+    energy_breakdown_blocked, pair_sums_plain  # noqa: E402
+from mpmcxx_tpu_torch.ops.pairwise import build_pairs_block  # noqa: E402
 
 L_DAMP = 2.1304
 
@@ -413,3 +421,117 @@ def test_occupancy_kernel_bit_equal_to_plain(cuda, P, A):
     torch.cuda.synchronize()
     assert cuda_cavity.occupancy.launches == before + 1
     assert got.dtype == torch.bool and torch.equal(got, want)
+
+
+def _abs_tile_sums(state, flags, params, block=16):
+    """The plain version's rd and es pair sums taken over [block, A] row
+    tiles, each tile's sum made absolute: no more than the sums of the
+    absolute pair terms, so a tolerance on these is no looser."""
+    A = state.n_atom_slots
+    rd, es = 0.0, 0.0
+    for b in range(-(-A // block)):
+        rows = b * block + torch.arange(block, device=state.pos.device)
+        pt = build_pairs_block(state, flags, torch.where(rows < A, rows, -1))
+        rd += abs(float(pair_potentials.rd_energy(state, pt, flags, params,
+                                                  pair_only=True)))
+        if not flags.rd_only:
+            es += abs(float(ewald.coulombic_real(state, pt, flags, params)))
+    return rd, es
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", sorted(pair_system.FORMS))
+@pytest.mark.parametrize("ewald_on", [True, False])
+@pytest.mark.parametrize("lrc", [True, False])
+@pytest.mark.parametrize("cavity", [False, True])
+def test_pair_kernel_matches_plain(cuda, form, ewald_on, lrc, cavity):
+    """K6 against the row-tile loop on tests/torch_pair_system.py's
+    mixture (1,094 slots: 9 tiles, the last ragged; dead slots in the
+    middle and at the end, frozen and same-molecule pairs, neutral
+    massless LJ sites, a triclinic box, molecules split across it, a pair
+    0.4 A apart): rd and es within
+    1e-10 of the absolute tile sums, close exact, two calls bitwise."""
+    state, _ = pair_system.build(cuda)
+    flags = pair_system.flags(form, ewald_on, lrc, cavity)
+    params = pair_system.params()
+    before = cuda_pairs.pair_sums.launches
+    got = cuda_pairs.pair_sums(state, flags, params)
+    again = cuda_pairs.pair_sums(state, flags, params)
+    want = pair_sums_plain(state, flags, params)
+    torch.cuda.synchronize()
+    assert cuda_pairs.pair_sums.launches == before + 2
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    assert got[0].dtype == got[1].dtype == torch.float64
+    assert got[2].dtype == torch.bool
+    scale_rd, scale_es = _abs_tile_sums(state, flags, params)
+    assert scale_rd > 0.0 and (scale_es > 0.0) == ewald_on
+    assert abs(float(got[0] - want[0])) <= 1e-10 * scale_rd
+    assert abs(float(got[1] - want[1])) <= 1e-10 * scale_es
+    assert bool(got[2]) == bool(want[2]) == cavity
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", sorted(pair_system.FORMS))
+def test_pair_kernel_cavity_maxvalue(cuda, form):
+    """Two live, unfrozen O sites of two molecules 1 A apart (inside
+    cavity_autoreject_scale * sigma = 1.83 A): MAXVALUE in both sums."""
+    state, meta = pair_system.build(cuda)
+    alive = state.aalive.cpu().numpy()
+    mol = state.mol_id.cpu().numpy()
+    o = [a for a, t in enumerate(meta["atomtypes"]) if t == "O" and
+         alive[a] and mol[a] not in pair_system.FROZEN]
+    i, j = o[0], next(a for a in o if mol[a] != mol[o[0]])
+    pos = state.pos.clone()
+    pos[i] = pos[j] + torch.tensor([1.0, 0.0, 0.0], device=cuda)
+    state = state.replace(pos=pos)
+    flags = pair_system.flags(form, cavity=True)
+    params = pair_system.params()
+    got = cuda_pairs.pair_sums(state, flags, params)
+    want = pair_sums_plain(state, flags, params)
+    assert float(want[0]) >= 1e30
+    assert abs(float(got[0] - want[0])) <= 1e-12 * float(want[0])
+    assert bool(got[2]) and bool(want[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form", sorted(pair_system.FORMS))
+def test_blocked_energy_takes_k6_on_the_card(cuda, form):
+    """energy_breakdown_blocked on the card counts ``pair_kernel`` and
+    agrees with the same energy on the CPU (the plain loop)."""
+    flags = pair_system.flags(form, cavity=True)
+    params = pair_system.params()
+    state, _ = pair_system.build(cuda)
+    host, _ = pair_system.build("cpu")
+    tracing.reset()
+    tracing.enable()
+    try:
+        with tracing.span("refresh.energy"):
+            got = energy_breakdown_blocked(state, flags, params)
+        snap = tracing.snapshot()
+    finally:
+        tracing.disable()
+    assert snap["counters"]["pair_kernel"] == {"refresh.energy": 1}
+    assert "pair_plain" not in snap["counters"]
+    want = energy_breakdown_blocked(host, flags, params)
+    scale_rd, scale_es = _abs_tile_sums(host, flags, params)
+    assert abs(float(got.rd) - float(want.rd)) <= 1e-10 * scale_rd
+    assert abs(float(got.coulombic) - float(want.coulombic)) <= \
+        1e-10 * scale_es
+    assert float(got.cavity_penalty) == float(want.cavity_penalty) > 0.0
+
+
+@pytest.mark.gpu
+def test_pair_kernel_rejects_what_it_does_not_compute(cuda):
+    state, _ = pair_system.build(cuda)
+    params = pair_system.params()
+    for bad in (FFlags(wolf=True), FFlags(cdvdw_exp_repulsion=True),
+                FFlags(waldmanhagler=True), FFlags(use_sg=True)):
+        assert not cuda_pairs.takes(state, bad)
+        with pytest.raises(ValueError):
+            cuda_pairs.pair_sums(state, bad, params)
+    flags = pair_system.flags()
+    assert cuda_pairs.takes(state, flags)
+    with pytest.raises(ValueError):
+        cuda_pairs.pair_sums(state.replace(pos=state.pos.float()), flags,
+                             params)

@@ -1,6 +1,6 @@
 """The port's tracer (mpmcxx_tpu_torch/tracing.py): a disabled span is the
 shared no-op; spans nest into per-name aggregates with self time;
-counters go to the innermost span; the snapshot carries K1-K5's
+counters go to the innermost span; the snapshot carries K1-K6's
 launches; the chain's carry after a chunk is bitwise the same with
 tracing off, on, and on with device marking; and every span of the
 chain, the refresh, the set-up and the runner opens where it should, the
@@ -29,7 +29,7 @@ import torch_pi_system as pi_system  # noqa: E402
 from mpmcxx_tpu_torch import cli, tracing  # noqa: E402
 from mpmcxx_tpu_torch import constants as const  # noqa: E402
 from mpmcxx_tpu_torch.mc import chain  # noqa: E402
-from mpmcxx_tpu_torch.ops import cuda_cavity, cuda_polar  # noqa: E402
+from mpmcxx_tpu_torch.ops import cuda_cavity, cuda_pairs, cuda_polar  # noqa: E402
 from mpmcxx_tpu_torch.state import topology  # noqa: E402
 
 CHUNK = 4
@@ -155,17 +155,18 @@ def test_nesting_self_time_and_counters(monkeypatch):
 
 
 def test_snapshot_carries_the_kernel_launches(monkeypatch):
-    """K1-K5's ``.launches`` are the one store: the snapshot reads each
+    """K1-K6's ``.launches`` are the one store: the snapshot reads each
     wrapper's count since the last reset."""
     tracing.enable()
     for fn, n in ((cuda_polar.contract_planes_sym, 3),
                   (cuda_polar.write_plane_strips, 2),
-                  (cuda_cavity.occupancy, 1)):
+                  (cuda_cavity.occupancy, 1),
+                  (cuda_pairs.pair_sums, 4)):
         monkeypatch.setattr(fn, "launches", fn.launches + n)
     got = tracing.snapshot()["launches"]
     assert got == {"K1 contract_planes": 0, "K2 write_plane_strips": 2,
                    "K3 occupancy": 1, "K4 contract_planes_tri": 0,
-                   "K5 contract_planes_sym": 3}
+                   "K5 contract_planes_sym": 3, "K6 pair_energy": 4}
     tracing.reset()
     assert set(tracing.snapshot()["launches"].values()) == {0}
 
@@ -476,7 +477,7 @@ def test_every_span_of_the_program_is_documented():
     assert counted | {tracing.SYNC} <= doc
     assert counted == {"graph_capture", "graph_replay", "graph_eager",
                        "gibbs_displace", "gibbs_transfer", "gibbs_volume",
-                       "gibbs_spin"}
+                       "gibbs_spin", "pair_kernel", "pair_plain"}
 
 
 # -- on the card ------------------------------------------------------------
