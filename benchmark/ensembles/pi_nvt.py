@@ -21,12 +21,21 @@ averages take, and ``potential_current``, which the acceptance takes)
 to the reference's bead means; bead 0's molecule count to the live
 molecules; and the window's accepted moves to the molecules they
 changed, every one of whose beads has to have moved.  Each gap is the
-worst of its term's carried values.  The carry keeps no k-space term
-apart (its Coulomb column holds it), so ``recip_gap`` holds the
-reference's k-space energy to the 0 an uncharged configuration gives: a
-charged one fails until this judge reads its structure factors.  The
-many-body van der Waals column is not compared: no configuration of
-this ensemble turns it on.
+worst of its term's carried values.  The carry keeps no k-space energy
+apart (its Coulomb column holds it), but on the incremental path it
+carries each bead's structure factors (``sf``, [P, K]): there a bead's
+``recip_gap`` is the worse of the k-space energy those give
+(``reference.energy.recip_from_sf``, the reference's lattice and
+formula) against the reference's of the bead, and of the factors
+themselves against the reference's, as norms over k; a charged
+configuration whose carried K is not the reference lattice's
+contradicts the inputs.  On the per-bead full recompute
+(``PISimulation.incremental`` False: under polarization) the carry
+holds no structure factors ([P, 0]) and each move's Coulomb column is a
+fresh full recompute that contains the k-space term: there
+``recip_gap`` is ``coul_gap``.  The control reads its own float32
+factors and k-space energy.  The many-body van der Waals column is not
+compared: no configuration of this ensemble turns it on.
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ import numpy as np
 
 from .. import harness
 from ..reference import physics as ref_physics
-from ..reference.energy import energy_terms
+from ..reference.energy import energy_terms, recip_from_sf
 
 
 def build(path: str, config, traffic, dev):
@@ -170,24 +179,64 @@ def beads_left(pos0, pos1, mol_id) -> int:
 
 def snapshot(carry) -> dict:
     """Device copies of what the judge reads of a carry: the bead stack's
-    positions and layout, the carried per-bead components, their bead
-    means and the potential, and bead 0's molecule count."""
+    positions and layout, the carried per-bead components and structure
+    factors ([P, 0] where the chain carries none), their bead means and
+    the potential, and bead 0's molecule count."""
     from mpmcxx_tpu_torch.mc import pi
     st = pi.whole(carry.stack)
     return {"pos": st.pos.detach().clone(), "mol_id": st.mol_id[0].clone(),
             "mol_alive": st.mol_alive.clone(),
             "mol_frozen": st.mol_frozen[0].clone(),
             "comps": carry.comps_per_bead.clone(),
+            "sf_re": carry.sf.re.clone(), "sf_im": carry.sf.im.clone(),
             "obs": carry.obs_components.clone(),
             "pot": carry.potential_current.clone(),
             "N": pi.bead(st, 0).count_N()}
 
 
-def _gaps(comps, obs, pot, N, refs, n_ref) -> dict:
+def _recip_gap(recip: float, s_re, s_im, ref: dict) -> float:
+    """One bead's k-space gap: the k-space energy ``recip`` against the
+    reference's, or the structure factors ``s_re``, ``s_im`` [K] against
+    the reference's (the norm of their difference over k against the
+    norm of the reference's), whichever is worse."""
+    got = np.concatenate([s_re, s_im])
+    want = np.concatenate([ref["s_re"], ref["s_im"]])
+    return max(harness._rel(recip, ref["recip"]),
+               harness._rel(float(np.linalg.norm(got - want)), 0.0,
+                            float(np.linalg.norm(want))))
+
+
+def _carried_recip(st: dict, refs, config, phys, box) -> list:
+    """Each bead's ``_recip_gap`` of the carried structure factors, with
+    the k-space energy they give over the reference's lattice; None where
+    the carry holds none.  Raises ValueError where a charged
+    configuration's carried lattice is not the reference's."""
+    import torch
+    K = st["sf_re"].shape[1]
+    if K == 0:
+        return None
+    if K != len(refs[0]["s_re"]):
+        if any(s["charge"] != 0 for s in config["model"]["sites"]):
+            raise ValueError(f"the carried structure factors hold {K} "
+                             f"k-vectors, the reference's lattice "
+                             f"{len(refs[0]['s_re'])}")
+        # uncharged: both k-space energies are 0 whatever the lattice
+        zero = np.zeros(K)
+        refs = [dict(r, s_re=zero, s_im=zero) for r in refs]
+        recips = [0.0] * len(refs)
+    else:
+        recips = [float(recip_from_sf(torch.as_tensor(re), torch.as_tensor(
+            im), phys, box)) for re, im in zip(st["sf_re"], st["sf_im"])]
+    return [_recip_gap(e, re, im, r) for e, re, im, r in
+            zip(recips, st["sf_re"], st["sf_im"], refs)]
+
+
+def _gaps(comps, obs, pot, N, refs, n_ref, recip) -> dict:
     """The gaps of one bead stack's carried terms: each term's worst over
     its bead values (``comps`` [P, >=3]: rd, Coulomb, polarization) and
     its bead mean (``obs``), the potential ``pot`` (the sum of the
-    means) in ``rd_gap``, and the count's."""
+    means) in ``rd_gap``, the worst of the beads' k-space gaps
+    (``recip``; None: ``coul_gap``), and the count's."""
     def mean(key):
         return float(np.mean([r[key] for r in refs]))
 
@@ -203,10 +252,11 @@ def _gaps(comps, obs, pot, N, refs, n_ref) -> dict:
     total = sum(mean(k) for k in keys)
     scale = mean("rd_scale") + mean("coulombic_scale") + \
         abs(mean("polarization"))
+    coul = worst(1, "coulombic", "coulombic_scale")
     return {"rd_gap": max(worst(0, "rd", "rd_scale"),
                           harness._rel(float(pot), total, scale)),
-            "coul_gap": worst(1, "coulombic", "coulombic_scale"),
-            "recip_gap": max(harness._rel(0.0, r["recip"]) for r in refs),
+            "coul_gap": coul,
+            "recip_gap": coul if recip is None else max(recip),
             "polar_gap": worst(2, "polarization"),
             "n_gap": abs(float(N) - n_ref)}
 
@@ -226,14 +276,20 @@ def judge(st: dict, config, traffic, dev, control: bool):
     beads = [harness._to_torch(a, dev) for a, _ in tables]
     phys = ref_physics.physics(config, traffic)
     box = config["geometry"]["box"]
-    refs = [energy_terms(a, phys, box) for a in beads]
-    got = _gaps(st["comps"], st["obs"], st["pot"], st["N"], refs, n_ref)
+    refs = [energy_terms(a, phys, box, keep_sf=True) for a in beads]
+    got = _gaps(st["comps"], st["obs"], st["pot"], st["N"], refs, n_ref,
+                _carried_recip(st, refs, config, phys, box))
     low = None
     if control:
         lo = [energy_terms(a, phys, box, dtype=torch.float32,
-                           plane_dtype=torch.bfloat16) for a in beads]
+                           plane_dtype=torch.bfloat16, keep_sf=True)
+              for a in beads]
         comps = np.asarray([[t[k] for k in ("rd", "coulombic",
                                             "polarization")] for t in lo])
         obs = comps.mean(axis=0)
-        low = _gaps(comps, obs, obs.sum(), float(n_ref), refs, n_ref)
+        low = _gaps(comps, obs, obs.sum(), float(n_ref), refs, n_ref,
+                    [_recip_gap(t["recip"], t["s_re"], t["s_im"], r)
+                     for t, r in zip(lo, refs)])
+    for r in refs:
+        del r["s_re"], r["s_im"]
     return got, low, refs

@@ -14,7 +14,9 @@ corrtime that hit the molecule ceiling is discarded and run again at the
 larger capacity, as the CLI does; its moves do not count), the full
 recompute (``refresh``) and the per-corrtime host reads of the CLI (the
 acceptance statistics, the averages; every output goes to /dev/null).
-``moves_per_s`` is the moves kept over the window's whole wall time.
+``moves_per_s`` is the moves kept over the window's whole wall time, and
+``memory_peak_mb`` the device's allocation peak from set-up's warm-up to
+the window's end (``memory_peak_bytes``), in MB.
 The window ends off a corrtime boundary: at least one chunk follows its
 last refresh.
 
@@ -41,7 +43,8 @@ With ``trace``, a run of its own: the refreshes are timed between two
 synchronisations, and one stretch around a corrtime boundary (the last
 ``profile_chunks`` chunks, the refresh, the host reads) is profiled with
 span markers (benchmark/trace.py); the per-layer metrics are read from
-that record by ``metrics/<name>.py``.
+that record, which also holds the window's kept moves and wall time, by
+``metrics/<name>.py``.
 """
 
 from __future__ import annotations
@@ -465,6 +468,7 @@ def _run(man, cell, config, traffic, limits, seed, seconds, trace_on, dev,
     if trace_on:
         record = _trace_record(man, config, traffic, spans, profile, iters,
                                ch, dev)
+        record["moves"], record["moves_wall_s"] = len(iters), window_s
     del sim, ch, stretch, profiled, profile
     gc.collect()
     if dev.type == "cuda":
@@ -495,7 +499,8 @@ def _run(man, cell, config, traffic, limits, seed, seconds, trace_on, dev,
             man.data["end_to_end"] + man.data["per_layer"]}
     metrics = {}
     if not trace_on:
-        vals = {"moves_per_s": moves / window_s, "setup_s": setup_s}
+        vals = {"moves_per_s": moves / window_s, "setup_s": setup_s,
+                "memory_peak_mb": peak / 1e6}
         for m in man.end_to_end(cell["name"]):
             if m["name"] in vals:
                 metrics[m["name"]] = {"value": vals[m["name"]],

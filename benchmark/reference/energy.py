@@ -43,6 +43,34 @@ def _kvecs(kmax: int) -> np.ndarray:
     return np.asarray(out, dtype=np.float64)
 
 
+def _alpha(phys, key: str, box: float) -> float:
+    """The Ewald damping ``key`` as stated, else 3.5 over the cutoff, half
+    the box side."""
+    return 3.5 / (0.5 * box) if phys.get(key) is None else phys[key]
+
+
+def _k(phys, box: float, dtype, device):
+    """The hemisphere k-vectors k = 2 pi l / L [K, 3] and their k^2 [K]."""
+    k = torch.as_tensor(_kvecs(phys["ewald_kmax"]), dtype=dtype,
+                        device=device) * (2.0 * C.pi / box)
+    return k, torch.sum(k * k, dim=-1)
+
+
+def recip_from_sf(s_re, s_im, phys: dict, box: float):
+    """The Ewald k-space energy of the structure factors ``s_re``,
+    ``s_im`` (tensors [K] over ``_kvecs(ewald_kmax)``, in that order) in a
+    cubic box of side ``box``, in their precision and on their device:
+    4 pi / V sum_k exp(-k^2 / 4 alpha^2) / k^2 (S_re^2 + S_im^2).  Raises
+    ValueError where K is not the lattice's."""
+    k, k2 = _k(phys, box, s_re.dtype, s_re.device)
+    if s_re.shape[-1] != k2.shape[0] or s_im.shape != s_re.shape:
+        raise ValueError(f"structure factors over {s_re.shape[-1]} "
+                         f"k-vectors, the lattice holds {k2.shape[0]}")
+    alpha = _alpha(phys, "ewald_alpha", box)
+    return torch.sum(torch.exp(-k2 / (4.0 * alpha * alpha)) / k2 *
+                     (s_re ** 2 + s_im ** 2)) * 4.0 * C.pi / box ** 3
+
+
 class _Pairs:
     """Pair quantities of rows ``i0:i1`` against every atom."""
 
@@ -235,14 +263,16 @@ def _scf(E, alpha, planes, phys, block):
 
 
 def energy_terms(a: dict, phys: dict, box: float, dtype=torch.float64,
-                 plane_dtype=None, block: int = 1024) -> dict:
+                 plane_dtype=None, block: int = 1024,
+                 keep_sf: bool = False) -> dict:
     """The energy terms of the live atoms ``a`` (tensors on one device:
     pos [n,3], q [n] in sqrt(K A), sigma, epsilon, alpha [n], frozen [n]
     bool, mol [n] int64, mol_mass [n] amu) in a cubic box of side
     ``box``.  Returns floats: rd, coulombic (real + recip + self),
     recip, polarization, the scales of rd and coulombic (the sums of
     their parts' magnitudes), and the SCF's iterations and whether it
-    fell back."""
+    fell back; with ``keep_sf``, also the structure factors ``s_re``,
+    ``s_im`` over ``_kvecs(ewald_kmax)`` (numpy [K], in ``dtype``)."""
     plane_dtype = plane_dtype or dtype
     a = {k: (v.to(dtype) if v.is_floating_point() else v)
          for k, v in a.items()}
@@ -251,10 +281,8 @@ def energy_terms(a: dict, phys: dict, box: float, dtype=torch.float64,
     L = float(box)
     V = L ** 3
     rc = 0.5 * L
-    alpha = 3.5 / rc if phys.get("ewald_alpha") is None else \
-        phys["ewald_alpha"]
-    palpha = 3.5 / rc if phys.get("polar_ewald_alpha") is None else \
-        phys["polar_ewald_alpha"]
+    alpha = _alpha(phys, "ewald_alpha", L)
+    palpha = _alpha(phys, "polar_ewald_alpha", L)
     z = torch.zeros((), dtype=dtype, device=dev)
     rd, lrc, rd_abs, real = z, z, z, z
     E_real = []
@@ -272,16 +300,12 @@ def energy_terms(a: dict, phys: dict, box: float, dtype=torch.float64,
     lrc_self = _lrc_self(a, rc, V)
     rd = rd + lrc + lrc_self
 
-    # k-space: hemisphere vectors, k = 2 pi l / L
-    k = torch.as_tensor(_kvecs(phys["ewald_kmax"]), dtype=dtype,
-                        device=dev) * (2.0 * C.pi / L)
-    k2 = torch.sum(k * k, dim=-1)
+    k, k2 = _k(phys, L, dtype, dev)
     phase = a["pos"] @ k.T                         # [n,K]
     cos, sin = torch.cos(phase), torch.sin(phase)
     qm = torch.where(a["frozen"], 0.0, a["q"])
     s_re, s_im = qm @ cos, qm @ sin
-    recip = torch.sum(torch.exp(-k2 / (4.0 * alpha * alpha)) / k2 *
-                      (s_re ** 2 + s_im ** 2)) * 4.0 * C.pi / V
+    recip = recip_from_sf(s_re, s_im, phys, L)
     self_e = -torch.sum(alpha * qm ** 2) / float(np.sqrt(C.pi))
     coul = real + recip + self_e
 
@@ -309,5 +333,8 @@ def energy_terms(a: dict, phys: dict, box: float, dtype=torch.float64,
             pot = pot + torch.sum(mu * change)
         out.update(polarization=-0.5 * pot, iterations=iters,
                    failed=failed)
-    return {k: (float(v) if torch.is_tensor(v) else v)
-            for k, v in out.items()}
+    out = {k: (float(v) if torch.is_tensor(v) else v)
+           for k, v in out.items()}
+    if keep_sf:
+        out.update(s_re=s_re.cpu().numpy(), s_im=s_im.cpu().numpy())
+    return out

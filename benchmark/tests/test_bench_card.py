@@ -19,6 +19,7 @@ def test_cell_on_the_card(cell):
     res = harness.run_cell(cell, 2 ** 31 + 11, 5.0, False, control=True)
     assert res["correct"], res["checks"]
     assert res["device"]["platform"] == "gpu"
-    assert res["metrics"]["moves_per_s"]["value"] > 0.0
+    for m in Manifest().end_to_end(cell):
+        assert res["metrics"][m["name"]]["value"] > 0.0, m["name"]
     assert any(not v["value"] <= v["limit"]
                for v in res["control"].values()), res["control"]

@@ -8,7 +8,7 @@ cells can have."""
 import pytest
 import torch
 
-from benchmark.tests.small import run_small
+from benchmark.tests.small import run_rotor, run_small
 
 pytest.importorskip("mpmcxx_tpu_torch")
 
@@ -194,3 +194,45 @@ def test_pi_trial_potential_as_a_bead_sum(monkeypatch):
     res = run_small("pi-h2-nvt.b16")
     assert not res["correct"]
     assert _fails(res["checks"]) == ["rd_gap"]
+
+
+@pytest.mark.parametrize("stale", [False, True])
+def test_pi_structure_factors_stale_after_orientation_staging(monkeypatch,
+                                                              stale):
+    """On the charged rotor cut, every bead perturbation (the orientation
+    staging, then the Coker staging) accepted, and with ``stale`` bead 0's
+    carried structure factors left at their values before it.  Accepting
+    is planted: from the start's beads of one orientation, MPMC++'s
+    orientation term (no reduced mass) takes every staging's Boltzmann
+    factor to 0.  Accepted alone the energies stay true to the stack."""
+    import dataclasses
+
+    from mpmcxx_tpu_torch import constants as const
+    from mpmcxx_tpu_torch.mc import pi
+    real = pi.make_pi_step
+
+    def make(*a, **k):
+        step = real(*a, **k)
+
+        def staged(carry, d, movetype, *b):
+            if movetype != const.MOVETYPE_PERTURB_BEADS:
+                return step(carry, d, movetype, *b)
+            d = d.clone()
+            d[pi._U_ACC] = -1.0
+            new, out = step(carry, d, movetype, *b)
+            if stale:
+                re, im = new.sf.re.clone(), new.sf.im.clone()
+                re[0], im[0] = carry.sf.re[0], carry.sf.im[0]
+                new = dataclasses.replace(new, sf=type(new.sf)(re, im))
+            return new, out
+
+        return staged
+
+    monkeypatch.setattr(pi, "make_pi_step", make)
+    res = run_rotor(polarization=False, corrtime=64)
+    assert res["window"]["accepted"] > 0
+    if stale:
+        assert not res["correct"]
+        assert "recip_gap" in _fails(res["checks"])
+    else:
+        assert res["correct"], res["checks"]

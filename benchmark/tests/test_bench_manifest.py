@@ -106,12 +106,19 @@ def test_metrics(man):
         assert m["source"] in ("host_clock", "device_trace")
         assert UNIT.match(m["unit"]) and m["better"] in ("lower", "higher")
         assert 0.01 <= m["bound"] <= 0.25
+        assert set(m.get("workloads", [])) <= {
+            w["name"] for w in d["workloads"]}
     layers = {}
     for m in d["per_layer"]:
         assert m["source"] in SOURCES and UNIT.match(m["unit"])
         assert m["better"] in ("lower", "higher") and _line(m["layer"])
         assert m["moves"] in names
-        for w in m.get("workloads", [x["name"] for x in d["workloads"]]):
+        # without a list, the cells that report the metric it moves
+        cells = m.get("workloads", [
+            x["name"] for x in d["workloads"]
+            if m["moves"] in {e["name"] for e in man.end_to_end(x["name"])}])
+        assert cells, m["name"]
+        for w in cells:
             assert m["moves"] in {e["name"] for e in man.end_to_end(w)}
         layers.setdefault(m["layer"], []).append(m["name"])
     for w in d["workloads"]:

@@ -69,6 +69,14 @@ def test_readers():
         100.0 * 10 * least / 1.0)
 
 
+def test_window_rate_reader():
+    """The Gibbs cell's per-layer rate is the traced window's moves over
+    its wall time, and nothing where the record has no window."""
+    man, rec = _record(moves=96, moves_wall_s=4.0)
+    assert man.reader("moves_per_s.gibbs")(rec) == pytest.approx(24.0)
+    assert man.reader("moves_per_s.gibbs")(_record()[1]) is None
+
+
 def test_readers_find_nothing_and_return_nothing():
     man, rec = _record(refresh_s=[], iterations=[], ops=None, segments=None,
                        chunk_iterations=None)
